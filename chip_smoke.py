@@ -4,28 +4,40 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi);
-  2. build: both CUDA kernels compiled by nvcc for sm_90a, build seconds;
+  2. build: every CUDA kernel compiled by nvcc for sm_90a (one nvcc per
+     source, in parallel), build seconds and ptxas registers;
   3. kernels: each kernel against its plain torch version on the card, at
-     the main path's shapes (candidate scoring B=32768, C=24, L=100, W=31;
-     traceback B=32768, L=100, W=31), seeded near-true inputs with indels,
-     bit for bit on every output (integer DPs: no tolerance), timed with
-     CUDA events (median of 7);
-  4. main path: a seeded uniform 100 Mbp genome, its q-gram index built on
-     the host, ReadMapper.build(...) on cuda, 4 batches of 32768 reads of
-     100 bp with 1% substitutions through dispatch + format_batch; the
-     kernels' launch counters must grow by 2 (scoring) and 1 (traceback) per
-     batch, and sensitivity (mapped within 2*max_dist of the truth on the
-     right strand) must be >= 0.95;
-  5. profile: one batch's dispatch under torch.profiler — device busy
-     share and the largest device-time consumers;
-  6. GPU = CPU: 1024 reads mapped by the same mapper built on cuda and on
-     cpu must give identical SAM records.
-Prints one JSON line of kernels before the last line, which is
-{"ok": true, "device": {...}}. Imports nothing of JAX or nvbio_tpu.
+     its path's shapes, bit for bit on every output (integer DPs: no
+     tolerance), timed with CUDA events (median of 7), with its bound:
+     K1 candidate scoring B=32768, C=24, L=100, W=31; K2 traceback and
+     K2-LOCAL B=32768, L=100, W=31; K3 (rescue rescore) B=32768, M=100,
+     W=31; K3-LOCAL (local candidates) B*C=786432, M=100, W=31; K4 (mate
+     locate) B=32768, M=100, T=531;
+  4. main path (single-end): a seeded uniform 100 Mbp genome, its q-gram
+     index built on the host, ReadMapper.build(...) on cuda, 4 batches of
+     32768 reads of 100 bp with 1% substitutions through dispatch +
+     format_batch; launch counters +2 (K1) and +1 (K2) per batch,
+     sensitivity (mapped within 2*max_dist of the truth on the right
+     strand) >= 0.95;
+  5. paired-end path: 2 batches of 32768 FR pairs (fragments 200-500,
+     -X 500), 5% with a seedless mate 2; launch counters +2 each for K1,
+     K2, K3 and K4 per batch; per-mate sensitivity >= 0.95, proper share
+     >= 0.90, seedless mates placed >= 0.90;
+  6. local path: 2 batches of 32768 reads under --local, a third with a
+     random 15-base genome-right tail; K3-LOCAL +2, K2-LOCAL +1, K1 +0
+     per batch; sensitivity >= 0.95, tailed reads soft-clipped >= 0.8;
+  7. profile: one batch's dispatch of each path under torch.profiler —
+     device busy share and the largest device-time consumers;
+  8. GPU = CPU: 1024 reads, 1024 pairs and 1024 local reads mapped on
+     cuda and on cpu must give identical SAM records.
+Prints one JSON line of kernels before the card's line and the last line,
+which is {"ok": true, "device": {...}}. Imports nothing of JAX or
+nvbio_tpu.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,7 +50,10 @@ GENOME_LEN = 100_000_000
 B, L, MAX_DIST = 32768, 100, 15
 W = 2 * MAX_DIST + 1
 N_BATCHES = 4
+N_BATCHES_PE = N_BATCHES_LOCAL = 2
 N_CMP = 1024
+MAXINS = 500                    # bowtie2 -X default: mate rescue window
+RW = MAXINS + W                 # K4's text length
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # Issue ceiling of a Hopper SM: 4 warp schedulers, each issuing one warp
@@ -55,9 +70,29 @@ ISSUE_LANES_PER_SM = 128
 #       its store (2): 17; each walk step: two address computations and
 #       loads (4), the op and its entry (4), its store and the cursor (2),
 #       nm, i, k and the state (4): 14.
+#   K3: K1's cell with the lazy F of the flat scorer: g = add-max over
+#       H0 + (to - te*k) (1), f = g + te*(k-1) (1), H = max(H0, f) (1)
+#       in place of the sequential F's 3: 9. LOCAL adds the floor of H0
+#       at 0 (1) and the running max of the in-range cells (1): 11.
+#   K2-LOCAL: K2's 17 plus the floor (1), the zero-cell direction
+#       (compare + select, 2) and the sink (one predicated compare, two
+#       selects, 3): 23 per cell; each walk step adds the zero-stop test:
+#       15.
+#   K4: per 32-bit word and text step: the Eq select over 4 symbols (3),
+#       Eq & PV and the add with carry (2), D0 (2 three-input LOPs), Hp
+#       and Hn (2), the two shifts with carry-in (2), PV and MV (2), the
+#       last-word selects of Hp and Hn (2): 15; per text step: the text
+#       load and its address (2), the two score bits and the score (4),
+#       the best/bend compare and selects (3): 9.
 K1_OPS_PER_CELL = 8
 K2_OPS_PER_CELL = 17
 K2_OPS_PER_STEP = 14
+K3_OPS_PER_CELL = 9
+K3L_OPS_PER_CELL = 11
+K2L_OPS_PER_CELL = 23
+K2L_OPS_PER_STEP = 15
+K4_OPS_PER_WORD_STEP = 15
+K4_OPS_PER_STEP = 9
 
 
 def require(cond: bool, msg: str) -> None:
@@ -150,20 +185,11 @@ def phase_kernels(genome, words, dev, rng):
         np.ascontiguousarray(a)).to(dt).to(dev)
     k1_args = (t(reads), t(rc), t(lens), t(w0, torch.int64), t(wlens),
                words, sc, W, NCH, t(mm), t(mm_rc))
-    got = K.banded_score_cands(*k1_args)
-    want = K.banded_score_cands_plain(*k1_args)
-    torch.cuda.synchronize()
-    k1_equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    k1_err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                 zip(got, want))
-    k1_ms = cuda_ms(lambda: K.banded_score_cands(*k1_args))
-    k1_plain_ms = cuda_ms(lambda: K.banded_score_cands_plain(*k1_args),
-                          reps=5)
-    best = got[0].max(dim=1).values
-    print(f"[kernels] banded_score_cands: equal={k1_equal} "
-          f"max_abs_err={k1_err} ms={k1_ms:.3f} plain_ms={k1_plain_ms:.3f} "
-          f"median best score={float(best.float().median()):.1f}",
-          flush=True)
+    k1 = check_kernel("banded_score_cands", K.banded_score_cands,
+                      K.banded_score_cands_plain, k1_args)
+    best = k1["out"][0].max(dim=1).values
+    print(f"[kernels] banded_score_cands: median best score="
+          f"{float(best.float().median()):.1f}", flush=True)
 
     # traceback: genome-oriented read against its true window
     tw0 = t(true_w0, torch.int64)
@@ -171,21 +197,55 @@ def phase_kernels(genome, words, dev, rng):
     tlens = t(np.minimum(n - true_w0, TW))
     tb_mm = np.where(is_rc[:, None], mm_rc, mm)
     k2_args = (t(pats), t(lens), texts, tlens, sc, W, t(tb_mm))
-    got2 = K.banded_traceback(*k2_args)
-    want2 = K.banded_traceback_plain(*k2_args)
-    torch.cuda.synchronize()
-    k2_equal = all(torch.equal(a, b) for a, b in zip(got2, want2))
-    k2_err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                 zip(got2, want2))
-    k2_ms = cuda_ms(lambda: K.banded_traceback(*k2_args))
-    k2_plain_ms = cuda_ms(lambda: K.banded_traceback_plain(*k2_args), reps=5)
-    n_ops_sum = int(got2[3].long().sum())
-    print(f"[kernels] banded_traceback: equal={k2_equal} "
-          f"max_abs_err={k2_err} ms={k2_ms:.3f} plain_ms={k2_plain_ms:.3f} "
-          f"mean n_ops={n_ops_sum / B:.2f} mean nm="
-          f"{float(got2[5].float().mean()):.3f}", flush=True)
-    require(k1_equal, "banded_score_cands differs from its plain version")
-    require(k2_equal, "banded_traceback differs from its plain version")
+    k2 = check_kernel("banded_traceback", K.banded_traceback,
+                      K.banded_traceback_plain, k2_args)
+    n_ops_sum = int(k2["out"][3].long().sum())
+    print(f"[kernels] banded_traceback: mean n_ops={n_ops_sum / B:.2f} "
+          f"mean nm={float(k2['out'][5].float().mean()):.3f}", flush=True)
+
+    # K3 at the mate-rescue shapes: each mate against the window at its
+    # locus (SEMI_GLOBAL, bowtie2 end-to-end scoring)
+    k3 = check_kernel("banded_score", K.banded_score, K.banded_score_plain,
+                      k2_args)
+    # K3-LOCAL at the local path's shapes: every (read, candidate slot) of
+    # K1's inputs, flattened as the local branch of read_candidates does
+    lsc = MapParams.local().scoring
+    slot_rc = (np.arange(C) >= NCH)[None, :, None]
+    flat_pats = t(np.where(slot_rc, rc[:, None], reads[:, None]).reshape(
+        B * C, L))
+    flat_mm = t(np.where(slot_rc, mm_rc[:, None], mm[:, None]).reshape(
+        B * C, L))
+    flat_w0 = t(w0.reshape(-1), torch.int64)
+    k3l_args = (flat_pats, t(np.full(B * C, L)),
+                extract_window(words, flat_w0, TW), t(wlens.reshape(-1)),
+                lsc, W, flat_mm)
+    k3l = check_kernel("banded_score_local", K.banded_score,
+                       K.banded_score_plain, k3l_args, local=True)
+    del flat_pats, flat_mm, k3l_args
+    # K2-LOCAL: every other read ends in 15 random bases, so its walk
+    # stops at the clip
+    tailed = pats.copy()
+    tailed[::2, L - 15:] = rng.integers(0, 4, size=(B // 2, 15))
+    k2l_args = (t(tailed), t(lens), texts, tlens, lsc, W, t(tb_mm))
+    k2l = check_kernel("banded_traceback_local", K.banded_traceback,
+                       K.banded_traceback_plain, k2l_args, local=True)
+    k2l_steps = int(k2l["out"][3].long().sum())
+    # K4 at the mate-locate shapes: each mate in a window of maxins + band
+    # = 531 bases that holds it; 64 empty patterns, 64 short windows
+    wstart = np.clip(starts - rng.integers(0, RW - L, size=B), 0, n - RW)
+    mplens = np.full(B, L)
+    mplens[:64] = 0
+    mtlens = np.full(B, RW)
+    mtlens[64:128] = rng.integers(0, RW, size=64)
+    k4_args = (t(pats), t(mplens),
+               extract_window(words, t(wstart, torch.int64), RW),
+               t(mtlens))
+    k4 = check_kernel("myers_semiglobal", K.myers_semiglobal,
+                      K.myers_semiglobal_plain, k4_args)
+    k4_found = float((k4["out"][0][128:] <= 3).float().mean())
+    print(f"[kernels] K2-LOCAL mean walk {k2l_steps / B:.2f} steps; K4 "
+          f"share of mates found at distance <= 3: {k4_found:.4f}",
+          flush=True)
 
     # least time for the same work: the larger of integer instructions over
     # the card's issue ceiling and bytes (inputs read once, outputs written
@@ -200,30 +260,70 @@ def phase_kernels(genome, words, dev, rng):
     k2_ops = K2_OPS_PER_CELL * k2_cells + K2_OPS_PER_STEP * n_ops_sum
     k2_bytes = (2 * B * L * 4 + B * TW * 4 + 2 * B * 4 + 7 * B * 4
                 + B * MAXS * 4)
+    k2l_ops = K2L_OPS_PER_CELL * k2_cells + K2L_OPS_PER_STEP * k2l_steps
+    k3_ops = K3_OPS_PER_CELL * k2_cells
+    k3_bytes = 2 * B * L * 4 + B * TW * 4 + 4 * B * 4
+    k3l_ops = K3L_OPS_PER_CELL * B * C * L * W
+    k3l_bytes = C * k3_bytes
+    k4_word_steps = B * RW * ((L + 31) // 32)
+    k4_ops = K4_OPS_PER_WORD_STEP * k4_word_steps + K4_OPS_PER_STEP * B * RW
+    k4_bytes = B * L * 4 + B * RW * 4 + 4 * B * 4
 
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
 
-    b1, by1 = bound(k1_ops, k1_bytes)
-    b2, by2 = bound(k2_ops, k2_bytes)
     print(f"[kernels] issue ceiling {rate:.4g} op/s; K1 {k1_ops:.4g} ops "
-          f"{k1_bytes:.4g} B; K2 {k2_ops:.4g} ops {k2_bytes:.4g} B",
+          f"{k1_bytes:.4g} B; K2 {k2_ops:.4g} ops {k2_bytes:.4g} B; "
+          f"K2-LOCAL {k2l_ops:.4g} ops; K3 {k3_ops:.4g} ops {k3_bytes:.4g} B; "
+          f"K3-LOCAL {k3l_ops:.4g} ops {k3l_bytes:.4g} B; K4 {k4_ops:.4g} "
+          f"ops ({k4_word_steps:.4g} word-steps) {k4_bytes:.4g} B",
           flush=True)
     base = "nvbio_tpu/align/pallas_kernels.py"
-    return [
-        dict(name="banded_score_cands", route="cuda",
-             source="nvbio_tpu_torch/csrc/banded_score_cands.cu",
-             replaces=f"{base}:963", equal=k1_equal, max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=b1, bound_by=by1,
-             library_ms=None, shape=f"B={B} C={C} L={L} W={W}"),
-        dict(name="banded_traceback", route="cuda",
-             source="nvbio_tpu_torch/csrc/banded_traceback.cu",
-             replaces=f"{base}:568", equal=k2_equal, max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=b2, bound_by=by2,
-             library_ms=None, shape=f"B={B} L={L} W={W}"),
+    csrc = "nvbio_tpu_torch/csrc"
+    rows = [
+        ("banded_score_cands", "banded_score_cands.cu", 963, k1, k1_ops,
+         k1_bytes, f"B={B} C={C} L={L} W={W}"),
+        ("banded_traceback", "banded_traceback.cu", 568, k2, k2_ops,
+         k2_bytes, f"B={B} L={L} W={W}"),
+        ("banded_traceback_local", "banded_traceback.cu", 568, k2l,
+         k2l_ops, k2_bytes, f"B={B} L={L} W={W} local"),
+        ("banded_score", "banded_score.cu", 133, k3, k3_ops, k3_bytes,
+         f"B={B} M={L} W={W}"),
+        ("banded_score_local", "banded_score.cu", 133, k3l, k3l_ops,
+         k3l_bytes, f"B*C={B * C} M={L} W={W} local"),
+        ("myers_semiglobal", "myers_semiglobal.cu", 1132, k4, k4_ops,
+         k4_bytes, f"B={B} M={L} T={RW}"),
     ]
+    out = []
+    for name, src, line, res, ops, nbytes, shape in rows:
+        bms, by = bound(ops, nbytes)
+        out.append(dict(
+            name=name, route="cuda", source=f"{csrc}/{src}",
+            replaces=f"{base}:{line}", equal=res["equal"],
+            max_abs_err=res["max_abs_err"], ms=res["ms"],
+            plain_ms=res["plain_ms"], bound_ms=bms, bound_by=by,
+            library_ms=None, shape=shape))
+    return out
+
+
+def check_kernel(name, kernel, plain, args, **kw):
+    """One kernel against its plain version on the same inputs (every
+    output bit for bit), then both timed; fails the run on a difference."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    ms = cuda_ms(lambda: kernel(*args, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
+    print(f"[kernels] {name}: equal={equal} max_abs_err={err} ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f}", flush=True)
+    require(equal, f"{name} differs from its plain version")
+    return dict(equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                out=got)
 
 
 def read_batch(genome, seed):
@@ -241,7 +341,6 @@ def read_batch(genome, seed):
 
 
 def phase_main_path(genome, ref, index, params, card):
-    from nvbio_tpu_torch.align import kernels as K
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 
     t0 = time.time()
@@ -250,8 +349,7 @@ def phase_main_path(genome, ref, index, params, card):
     print(f"[main] mapper on cuda in {time.time() - t0:.2f} s", flush=True)
     batches = [read_batch(genome, SEED + 100 + i) for i in range(N_BATCHES)]
 
-    K.banded_score_cands.launches = 0
-    K.banded_traceback.launches = 0
+    reset_launches()
     t_dev, t_fmt, out = [], [], []
     t_all = time.time()
     for batch, _, _ in batches:
@@ -274,8 +372,9 @@ def phase_main_path(genome, ref, index, params, card):
             if bool(rec.flag & 0x10) == rc and \
                     abs(rec.pos - 1 - s) <= 2 * params.max_dist:
                 n_ok += 1
-    k1_launches = K.banded_score_cands.launches
-    k2_launches = K.banded_traceback.launches
+    launches = read_launches()
+    k1_launches = launches["banded_score_cands"]
+    k2_launches = launches["banded_traceback"]
     sens = n_ok / n_reads
     print(f"[main] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
           f"reads/s; per batch dispatch+sync s: "
@@ -284,31 +383,206 @@ def phase_main_path(genome, ref, index, params, card):
           f"{n_mapped / n_reads:.5f}; sensitivity {sens:.5f}; launches "
           f"banded_score_cands={k1_launches} banded_traceback={k2_launches}"
           f"; card {card}", flush=True)
-    require(k1_launches == 2 * N_BATCHES,
-            f"banded_score_cands launched {k1_launches} times, expected "
-            f"{2 * N_BATCHES}")
-    require(k2_launches == N_BATCHES,
-            f"banded_traceback launched {k2_launches} times, expected "
-            f"{N_BATCHES}")
+    require_launches("single-end", launches, {"banded_score_cands": 2,
+                                              "banded_traceback": 1,
+                                              "banded_score": 0,
+                                              "myers_semiglobal": 0},
+                     N_BATCHES)
     require(sens >= 0.95, f"sensitivity {sens:.4f} < 0.95")
     stats = dict(reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
                  mapped=n_mapped / n_reads, sensitivity=sens,
                  dispatch_s=sum(t_dev), format_s=sum(t_fmt))
-    return mapper, batches[0][0], {"banded_score_cands": k1_launches,
-                                   "banded_traceback": k2_launches}, stats
+    return mapper, batches[0][0], launches, stats
 
 
-def phase_profile(mapper, batch):
-    """Device time of one batch's dispatch by kernel (torch.profiler):
+def pair_batches(genome, seed):
+    """B FR pairs of L bp (fragments 200-500, 1% substitutions); in 5% of
+    them mate 2 also carries a substitution at 9, 24, ..., 99: one in the
+    12-base q-gram key of every 22-mer seed on either strand, so only mate
+    rescue can place it. Returns the two batches, each mate's truth starts
+    and strands, and the seedless mask."""
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.utils.simgenome import sample_pairs
+
+    r1, r2, s1, s2, rc1, rc2 = sample_pairs(genome, B, L, 200, MAXINS,
+                                            seed=seed, subst_rate=0.01)
+    rng = np.random.default_rng(seed + 1)
+    seedless = rng.random(B) < 0.05
+    cut = np.ix_(seedless, np.arange(9, L, 15))
+    r2[cut] = (r2[cut] + 1) % 4
+    names = [f"p{seed}_{i}" for i in range(B)]
+    batches = [ReadBatch(names, r.astype(np.uint8),
+                         rng.integers(20, 41, size=(B, L)).astype(np.uint8),
+                         np.full(B, L, np.int32)) for r in (r1, r2)]
+    return batches, (s1, s2), (rc1, rc2), seedless
+
+
+def local_batch(genome, seed):
+    """B reads of L bp with 1% substitutions; in a third of them the
+    genome-right 15 bases are random (replaced before any reverse
+    complement, so POS stays the window start on both strands)."""
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.utils.simgenome import sample_reads
+
+    reads, starts, _ = sample_reads(genome, B, L, seed=seed, subst_rate=0.01,
+                                    rc_frac=0.0)
+    rng = np.random.default_rng(seed + 1)
+    tailed = np.arange(B) % 3 == 0
+    reads[tailed, L - 15:] = rng.integers(0, 4, size=(int(tailed.sum()), 15))
+    is_rc = rng.random(B) < 0.5
+    reads = np.where(is_rc[:, None], (3 - reads)[:, ::-1], reads)
+    quals = rng.integers(20, 41, size=(B, L)).astype(np.uint8)
+    batch = ReadBatch([f"l{seed}_{i}" for i in range(B)],
+                      reads.astype(np.uint8), quals, np.full(B, L, np.int32))
+    return batch, starts, is_rc, tailed
+
+
+def reset_launches():
+    from nvbio_tpu_torch.align import kernels as K
+
+    for fn in (K.banded_score_cands, K.banded_traceback, K.banded_score,
+               K.myers_semiglobal):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from nvbio_tpu_torch.align import kernels as K
+
+    return {fn.__name__: fn.launches for fn in (
+        K.banded_score_cands, K.banded_traceback, K.banded_score,
+        K.myers_semiglobal)}
+
+
+def require_launches(path, got, per_batch, n_batches):
+    for name, want in per_batch.items():
+        require(got[name] == want * n_batches,
+                f"{path}: {name} launched {got[name]} times, expected "
+                f"{want * n_batches}")
+
+
+def placed(rec, start, rc, max_dist) -> bool:
+    return (not rec.flag & 0x4 and bool(rec.flag & 0x10) == bool(rc)
+            and abs(rec.pos - 1 - int(start)) <= 2 * max_dist)
+
+
+def phase_paired(genome, mapper, card):
+    from nvbio_tpu_torch.bowtie.paired import (
+        dispatch_pair_batch,
+        format_pair_batch,
+    )
+
+    md = mapper.params.max_dist
+    batches = [pair_batches(genome, SEED + 200 + i)
+               for i in range(N_BATCHES_PE)]
+    reset_launches()
+    t_dev, t_fmt, outs = [], [], []
+    t_all = time.time()
+    for (b1, b2), _, _, _ in batches:
+        t0 = time.time()
+        res = dispatch_pair_batch(mapper, b1, b2)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        outs.append(format_pair_batch(mapper, b1, b2, res))
+        t_dev.append(t1 - t0)
+        t_fmt.append(time.time() - t1)
+    wall = time.time() - t_all
+    launches = read_launches()
+    n_ok = n_proper = n_seedless = n_seedless_ok = 0
+    for recs, (_, starts, rcs, seedless) in zip(outs, batches):
+        require(len(recs) == 2 * B, f"{len(recs)} records for {B} pairs")
+        for i in range(B):
+            ok = [placed(recs[2 * i + m], starts[m][i], rcs[m][i], md)
+                  for m in (0, 1)]
+            n_ok += ok[0] + ok[1]
+            n_proper += bool(recs[2 * i].flag & 0x2)
+            if seedless[i]:
+                n_seedless += 1
+                n_seedless_ok += ok[1]
+    n_pairs = N_BATCHES_PE * B
+    sens = n_ok / (2 * n_pairs)
+    proper = n_proper / n_pairs
+    rescued = n_seedless_ok / max(n_seedless, 1)
+    print(f"[paired] {n_pairs} pairs in {wall:.3f} s = {n_pairs / wall:.1f} "
+          f"pairs/s; per batch dispatch+sync s: "
+          f"{', '.join(f'{x:.3f}' for x in t_dev)} "
+          f"({n_pairs / sum(t_dev):.1f} pairs/s on the device path); "
+          f"format s: {', '.join(f'{x:.3f}' for x in t_fmt)}; per-mate "
+          f"sensitivity {sens:.5f}; proper {proper:.5f}; seedless mates "
+          f"placed {n_seedless_ok}/{n_seedless} = {rescued:.5f}; launches "
+          f"{launches}; card {card}", flush=True)
+    require_launches("paired", launches, {"banded_score_cands": 2,
+                                          "banded_traceback": 2,
+                                          "banded_score": 2,
+                                          "myers_semiglobal": 2},
+                     N_BATCHES_PE)
+    require(sens >= 0.95, f"paired per-mate sensitivity {sens:.4f} < 0.95")
+    require(proper >= 0.90, f"proper-pair share {proper:.4f} < 0.90")
+    require(rescued >= 0.90, f"seedless mates placed {rescued:.4f} < 0.90")
+    stats = dict(pairs=n_pairs, seconds=wall, pairs_per_s=n_pairs / wall,
+                 dispatch_s=sum(t_dev), format_s=sum(t_fmt),
+                 sensitivity=sens, proper=proper, seedless=n_seedless,
+                 seedless_placed=rescued)
+    return batches[0][0], launches, stats
+
+
+def phase_local(genome, mapper, card):
+    md = mapper.params.max_dist
+    batches = [local_batch(genome, SEED + 300 + i)
+               for i in range(N_BATCHES_LOCAL)]
+    reset_launches()
+    t_dev, t_fmt, outs = [], [], []
+    t_all = time.time()
+    for batch, _, _, _ in batches:
+        t0 = time.time()
+        res = mapper.dispatch(batch)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        outs.append(mapper.format_batch(batch, res))
+        t_dev.append(t1 - t0)
+        t_fmt.append(time.time() - t1)
+    wall = time.time() - t_all
+    launches = read_launches()
+    n_ok = n_tailed = n_clipped = 0
+    for recs, (_, starts, is_rc, tailed) in zip(outs, batches):
+        require(len(recs) == B, f"{len(recs)} records for {B} reads")
+        for rec, s, rc, tl in zip(recs, starts, is_rc, tailed):
+            n_ok += placed(rec, s, rc, md)
+            if tl:
+                n_tailed += 1
+                n_clipped += "S" in rec.cigar
+    n_reads = N_BATCHES_LOCAL * B
+    sens = n_ok / n_reads
+    clipped = n_clipped / n_tailed
+    print(f"[local] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
+          f"reads/s; per batch dispatch+sync s: "
+          f"{', '.join(f'{x:.3f}' for x in t_dev)}; format_batch s: "
+          f"{', '.join(f'{x:.3f}' for x in t_fmt)}; sensitivity "
+          f"{sens:.5f}; tailed reads soft-clipped {clipped:.5f}; launches "
+          f"{launches}; card {card}", flush=True)
+    require_launches("local", launches, {"banded_score_cands": 0,
+                                         "banded_traceback": 1,
+                                         "banded_score": 2,
+                                         "myers_semiglobal": 0},
+                     N_BATCHES_LOCAL)
+    require(sens >= 0.95, f"local sensitivity {sens:.4f} < 0.95")
+    require(clipped >= 0.8, f"tailed reads soft-clipped {clipped:.4f} < 0.8")
+    stats = dict(reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
+                 dispatch_s=sum(t_dev), format_s=sum(t_fmt),
+                 sensitivity=sens, tailed_soft_clipped=clipped)
+    return batches[0][0], launches, stats
+
+
+def phase_profile(label, dispatch):
+    """Device time of one batch's ``dispatch()`` by kernel (torch.profiler):
     busy share of the wall time and the largest device-time consumers."""
     from torch.profiler import ProfilerActivity, profile
 
-    mapper.dispatch(batch)
+    dispatch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        mapper.dispatch(batch)
+        dispatch()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     rows = []
@@ -321,12 +595,12 @@ def phase_profile(mapper, batch):
             rows.append((dev_us, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print("[profile] the profiler saw no device time: not measured",
-              flush=True)
+        print(f"[profile] {label}: the profiler saw no device time: not "
+              f"measured", flush=True)
         return None
     rows.sort(reverse=True)
-    print(f"[profile] one batch: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+    print(f"[profile] {label}, one batch: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
           f"{sum(r[1] for r in rows)} device ops", flush=True)
     for us, count, key in rows[:12]:
         print(f"[profile]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}",
@@ -336,21 +610,23 @@ def phase_profile(mapper, batch):
                      for us, c, k in rows[:12]])
 
 
-def phase_gpu_equals_cpu(gpu_mapper, ref, index, params, batch):
-    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+def phase_gpu_equals_cpu(label, gpu_fn, cpu_fn, n_records):
+    """The same reads mapped on cuda and on cpu: identical SAM records."""
+    gpu = [r.line() for r in gpu_fn()]
+    t0 = time.time()
+    cpu = [r.line() for r in cpu_fn()]
+    diff = sum(a != b for a, b in zip(gpu, cpu))
+    print(f"[gpu=cpu] {label}: {len(gpu)} records, {diff} differ "
+          f"(cpu map {time.time() - t0:.2f} s)", flush=True)
+    require(len(gpu) == len(cpu) == n_records and diff == 0,
+            f"{label}: SAM records differ between cuda and cpu")
+
+
+def head(batch, n=N_CMP):
     from nvbio_tpu_torch.io.fastq import ReadBatch
 
-    small = ReadBatch(batch.names[:N_CMP], batch.codes[:N_CMP],
-                      batch.quals[:N_CMP], batch.lengths[:N_CMP])
-    gpu = [r.line() for r in gpu_mapper.map_batch(small)]
-    t0 = time.time()
-    cpu_mapper = ReadMapper.build(ref, params, index=index, device="cpu")
-    cpu = [r.line() for r in cpu_mapper.map_batch(small)]
-    diff = sum(a != b for a, b in zip(gpu, cpu))
-    print(f"[gpu=cpu] {len(gpu)} records, {diff} differ "
-          f"(cpu map {time.time() - t0:.2f} s)", flush=True)
-    require(len(gpu) == len(cpu) == N_CMP and diff == 0,
-            "SAM records differ between cuda and cpu")
+    return ReadBatch(batch.names[:n], batch.codes[:n], batch.quals[:n],
+                     batch.lengths[:n])
 
 
 def main() -> int:
@@ -358,7 +634,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from nvbio_tpu_torch.align import kernels as K
+    from nvbio_tpu_torch.bowtie.paired import (
+        dispatch_pair_batch,
+        map_pair_batch,
+    )
     from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
     from nvbio_tpu_torch.io.reference import Reference
     from nvbio_tpu_torch.packed import words_to_tensor
     from nvbio_tpu_torch.qgram import build_qgram_index
@@ -387,22 +668,63 @@ def main() -> int:
 
     kernels = phase_kernels(genome, words, dev, rng)
 
+    # one parameter set serves the single-end and paired-end paths
+    # (-X 500, fr, rescue on); local mode is the --local preset
     params = MapParams(max_read_len=L, seed_len=22, seed_stride=15,
-                       hits_per_seed=6, max_dist=MAX_DIST)
+                       hits_per_seed=6, max_dist=MAX_DIST, maxins=MAXINS)
+    local_params = MapParams.local(max_read_len=L, seed_len=22,
+                                   seed_stride=15, hits_per_seed=6)
     t0 = time.time()
     index = build_qgram_index(genome, params.qgram_q)
     print(f"[index] q-gram q={params.qgram_q} over {GENOME_LEN} bp on the "
           f"host in {time.time() - t0:.2f} s", flush=True)
-    gpu_mapper, batch0, launches, stats = phase_main_path(
+    gpu_mapper, batch0, se_launches, stats = phase_main_path(
         genome, ref, index, params, card)
+    pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card)
+    gpu_local = dataclasses.replace(gpu_mapper, params=local_params)
+    local0, local_launches, local_stats = phase_local(genome, gpu_local,
+                                                      card)
+    # each kernel's launches in the run of the path it serves
+    own = {"banded_score_cands": (se_launches, N_BATCHES),
+           "banded_traceback": (se_launches, N_BATCHES),
+           "banded_traceback_local": (local_launches, N_BATCHES_LOCAL),
+           "banded_score": (pe_launches, N_BATCHES_PE),
+           "banded_score_local": (local_launches, N_BATCHES_LOCAL),
+           "myers_semiglobal": (pe_launches, N_BATCHES_PE)}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_batch"] = launches[k["name"]] / N_BATCHES
+        counts, n_batches = own[k["name"]]
+        wrapper = k["name"].replace("_local", "")
+        k["launches"] = counts[wrapper]
+        k["launches_per_batch"] = counts[wrapper] / n_batches
+        k["launches_by_path"] = {"single_end": se_launches[wrapper],
+                                 "paired_end": pe_launches[wrapper],
+                                 "local": local_launches[wrapper]}
+        require(k["launches"] > 0, f"{k['name']} never launched on its path")
 
-    stats["profile"] = phase_profile(gpu_mapper, batch0)
-    phase_gpu_equals_cpu(gpu_mapper, ref, index, params, batch0)
+    stats["profile"] = phase_profile(
+        "single-end", lambda: gpu_mapper.dispatch(batch0))
+    pe_stats["profile"] = phase_profile(
+        "paired-end", lambda: dispatch_pair_batch(gpu_mapper, *pair0))
+    local_stats["profile"] = phase_profile(
+        "local", lambda: gpu_local.dispatch(local0))
 
-    print(json.dumps({"kernels": kernels, "main_path": stats, "card": card}))
+    cpu_mapper = ReadMapper.build(ref, params, index=index, device="cpu")
+    cpu_local = dataclasses.replace(cpu_mapper, params=local_params)
+    small = head(batch0)
+    phase_gpu_equals_cpu("single-end", lambda: gpu_mapper.map_batch(small),
+                         lambda: cpu_mapper.map_batch(small), N_CMP)
+    p1, p2 = head(pair0[0]), head(pair0[1])
+    phase_gpu_equals_cpu("paired-end",
+                         lambda: map_pair_batch(gpu_mapper, p1, p2),
+                         lambda: map_pair_batch(cpu_mapper, p1, p2),
+                         2 * N_CMP)
+    small_local = head(local0)
+    phase_gpu_equals_cpu("local", lambda: gpu_local.map_batch(small_local),
+                         lambda: cpu_local.map_batch(small_local), N_CMP)
+
+    print(json.dumps({"kernels": kernels, "main_path": stats,
+                      "paired_end": pe_stats, "local": local_stats,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

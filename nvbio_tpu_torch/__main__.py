@@ -9,7 +9,7 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="nvbio_tpu_torch",
-        description="PyTorch/CUDA port of nvbio_tpu (single-end mapping)",
+        description="PyTorch/CUDA port of nvbio_tpu (read mapping)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

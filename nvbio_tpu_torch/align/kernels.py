@@ -1,9 +1,11 @@
-"""The port's two CUDA kernels, their wrappers and their plain versions.
+"""The port's CUDA kernels, their wrappers and their plain versions.
 
-``banded_score_cands`` replaces the TPU kernel ``banded_score_cands_regtile``
-(``nvbio_tpu/align/pallas_kernels.py:963``) and ``banded_traceback``
-replaces ``banded_traceback_semiglobal_pallas`` with ``local=False``
-(``pallas_kernels.py:568``). Sources: ``nvbio_tpu_torch/csrc/*.cu``, built
+Each replaces a TPU kernel of ``nvbio_tpu/align/pallas_kernels.py``:
+``banded_score_cands`` (K1) ``banded_score_cands_regtile`` (:963);
+``banded_traceback`` (K2, and K2-LOCAL with ``local=True``)
+``banded_traceback_semiglobal_pallas`` (:568); ``banded_score`` (K3, and
+K3-LOCAL) ``banded_score_semiglobal_pallas`` (:133); ``myers_semiglobal``
+(K4) ``myers_semiglobal_pallas`` (:1132). Sources: ``nvbio_tpu_torch/csrc/*.cu``, built
 with nvcc for ``sm_90a`` at first use into ``csrc/build/`` (gitignored) —
 one shared library per source, all compiled in parallel — and bound with
 ctypes (a plain C interface; no PyTorch headers, so a build takes seconds).
@@ -30,6 +32,7 @@ import time
 
 import torch
 
+from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import extract_window
 
@@ -43,6 +46,8 @@ _BUILD = os.path.join(_CSRC, "build")
 _SOURCES = {
     "banded_score_cands": "banded_score_cands.cu",
     "banded_traceback": "banded_traceback.cu",
+    "banded_score": "banded_score.cu",
+    "myers_semiglobal": "myers_semiglobal.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -104,9 +109,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "banded_score_cands":
         fn = lib.nvbt_banded_score_cands
         fn.argtypes = [P] * 8 + [L] + [I] * 10 + [P, P, P]
-    else:
+    elif name == "banded_traceback":
         fn = lib.nvbt_banded_traceback
+        fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
+    elif name == "banded_score":
+        fn = lib.nvbt_banded_score
         fn.argtypes = [P] * 5 + [I] * 10 + [P, P, P]
+    else:
+        fn = lib.nvbt_myers_semiglobal
+        fn.argtypes = [P] * 4 + [I] * 3 + [P, P, P]
     fn.restype = ctypes.c_int
     return lib
 
@@ -138,10 +149,17 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _check_texts(texts: torch.Tensor, B: int, device):
+    if texts.device != device or texts.dtype != torch.int32 \
+            or texts.dim() != 2 or texts.shape[0] != B:
+        raise ValueError("texts must be a (B, T) int32 tensor on "
+                         f"{device}; got {tuple(texts.shape)} {texts.dtype} "
+                         f"on {texts.device}")
+
+
 def _raise_if_failed(rc: int, name: str, W: int):
     if rc == -1:
-        raise ValueError(f"{name}: band {W} has no compiled instantiation "
-                         f"(supported: {SUPPORTED_BANDS})")
+        raise ValueError(f"{name}: width {W} has no compiled instantiation")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -299,7 +317,8 @@ def _text_tw(texts: torch.Tensor, TW: int) -> torch.Tensor:
 def banded_traceback(patterns, pattern_lens, texts, text_lens,
                      scoring: GotohScoring, band: int, mismatch_scores=None,
                      local: bool = False):
-    """Fused SEMI_GLOBAL banded Gotoh forward pass + traceback walk.
+    """Fused banded Gotoh forward pass + traceback walk, SEMI_GLOBAL or
+    (``local=True``) LOCAL.
 
     patterns (B, M) int32, pattern_lens (B,) int32 (<= M), texts
     (B, >= M+W-1) int32, text_lens (B,) int32, mismatch_scores (B, M)
@@ -307,16 +326,14 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     i_start): ops is (B, round8(M+W)) int32 packed entries
     ``op | mism<<2 | refsym<<3`` (op 1/2/3 = M/I/D) in END->START order,
     every other output (B,) int32 — the contract of
-    ``banded_traceback_semiglobal_pallas``. ``local=True`` (the TPU
-    kernel's LOCAL variant) is not ported yet.
+    ``banded_traceback_semiglobal_pallas``. LOCAL: the sink is the best
+    in-range cell (first row, then first k, to reach it; (0, 0, 0) when
+    no cell beats 0) and the walk stops on a zero cell in the H state.
     """
-    if local:
-        raise NotImplementedError(
-            "banded_traceback: the LOCAL variant is not ported yet")
     if patterns.device.type == "cpu":
         return banded_traceback_plain(patterns, pattern_lens, texts,
                                       text_lens, scoring, band,
-                                      mismatch_scores)
+                                      mismatch_scores, local)
     if patterns.device.type != "cuda":
         raise ValueError(f"unsupported device {patterns.device}")
     B, M = patterns.shape
@@ -333,11 +350,7 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     _check(mismatch_scores, "mismatch_scores", torch.int32, (B, M), dev)
     _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
     _check(text_lens, "text_lens", torch.int32, (B,), dev)
-    if texts.device != dev or texts.dtype != torch.int32 or texts.dim() != 2 \
-            or texts.shape[0] != B:
-        raise ValueError("texts must be a (B, T) int32 tensor on "
-                         f"{dev}; got {tuple(texts.shape)} {texts.dtype} "
-                         f"on {texts.device}")
+    _check_texts(texts, B, dev)
     texts = _text_tw(texts, TW)
     pat_t = patterns.t().contiguous()
     mm_t = mismatch_scores.t().contiguous()
@@ -349,7 +362,7 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     rc_code = _lib("banded_traceback").nvbt_banded_traceback(
         pat_t.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
         text_lens.data_ptr(), mm_t.data_ptr(), B, M, TW, MAXS, W,
-        *_gaps(scoring), dirs.data_ptr(),
+        int(local), *_gaps(scoring), dirs.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), _stream(dev))
     _raise_if_failed(rc_code, "banded_traceback", W)
     banded_traceback.launches += 1
@@ -361,14 +374,17 @@ banded_traceback.launches = 0
 
 def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
                            scoring: GotohScoring, band: int,
-                           mismatch_scores=None):
+                           mismatch_scores=None, local: bool = False):
     """Plain torch version of ``banded_traceback`` (same contract).
 
     Repeats ``_banded_tb_kernel``'s forward arithmetic over a (B, W) band
     plane per row — its log-step prefix max fills with NEG_INF, so F[k] =
     te*(k-1) + max(NEG_INF, max_{k'<k}(H0[k'] + to - te*k')) and F[0] =
     NEG_INF - te — storing direction bytes (M, B, W), then walks every read
-    at once, one step per iteration, until all walks end.
+    at once, one step per iteration, until all walks end. LOCAL floors H0
+    at 0, marks zero cells with direction 3 (:337-338), keeps the best
+    in-range cell of the first row that reaches it (:354-365) and stops a
+    walk in the H state on a zero cell (:436-443).
     """
     B, M = patterns.shape
     W = band
@@ -389,41 +405,63 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
     E = torch.full((B, W), neg, dtype=torch.int32, device=dev)
     FIN = torch.full((B, W), neg, dtype=torch.int32, device=dev)
     neg_col = torch.full((B, 1), neg, dtype=torch.int32, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    bst, bi, bk = zero, zero, zero
     dirs = torch.empty((M, B, W), dtype=torch.int32, device=dev)
     for im1 in range(M):
         p = pats[:, im1:im1 + 1]
         trow = texts[:, im1:im1 + W]
+        in_text = (im1 + kcol)[None, :] < tlen[:, None]
         sub = torch.where(p == trow, match, mm[:, im1:im1 + 1])
-        sub = torch.where((im1 + kcol)[None, :] < tlen[:, None], sub, neg)
+        sub = torch.where(in_text, sub, neg)
         diag = H + sub
         Ep = torch.cat([E[:, 1:], neg_col], dim=1) + pe
         Hp = torch.cat([H[:, 1:], neg_col], dim=1) + po
         Erow = torch.maximum(Ep, Hp)
         e_ext = (Ep >= Hp).to(torch.int32)
         H0 = torch.maximum(diag, Erow)
+        if local:
+            H0 = H0.clamp(min=0)
         G = torch.cummax(H0 + (to - te * kcol), dim=1).values.clamp(min=neg)
         F = torch.cat([neg_col - te, G[:, :-1] + te * (kcol[1:] - 1)], dim=1)
         f_ext = (F == torch.cat([neg_col, F[:, :-1]], dim=1) + te)
         Hrow = torch.maximum(H0, F)
         hdir = torch.where(Hrow == diag, 0, torch.where(Hrow == Erow, 1, 2))
+        if local:
+            hdir = torch.where(Hrow == 0, 3, hdir)
         mism = (p != trow).to(torch.int32)
         dirs[im1] = (hdir | (e_ext << 2) | (f_ext.to(torch.int32) << 3)
                      | (mism << 4))
-        FIN = torch.where((plen == im1 + 1)[:, None], Hrow, FIN)
+        if local:
+            valid = in_text & (im1 + 1 <= plen)[:, None]
+            masked = torch.where(valid, Hrow, neg)
+            rb = masked.max(dim=1).values
+            rk = torch.argmax((masked == rb[:, None]).to(torch.int32), dim=1)
+            upd = rb > bst
+            bst = torch.where(upd, rb, bst)
+            bi = torch.where(upd, im1 + 1, bi)
+            bk = torch.where(upd, rk.clamp(max=W - 1).to(torch.int32), bk)
+        else:
+            FIN = torch.where((plen == im1 + 1)[:, None], Hrow, FIN)
         H, E = Hrow, Erow
-    smax = FIN.max(dim=1).values
-    k0 = torch.argmax((FIN == smax[:, None]).to(torch.int32), dim=1)
-    k0 = k0.clamp(max=W - 1).to(torch.int32)
+    if local:
+        smax, i0, k0 = bst, bi, bk
+        active = i0 >= 1
+    else:
+        smax = FIN.max(dim=1).values
+        k0 = torch.argmax((FIN == smax[:, None]).to(torch.int32), dim=1)
+        k0 = k0.clamp(max=W - 1).to(torch.int32)
+        i0 = plen
+        active = (i0 >= 1) & (plen <= M)
 
     # ---- the walk, all reads in lock-step (each read's own sequence) -----
     rows = torch.arange(B, device=dev)
-    i = plen.clone()
+    i = i0.clone()
     k = k0.clone()
     st = torch.zeros(B, dtype=torch.int32, device=dev)
     cursor = torch.zeros(B, dtype=torch.int32, device=dev)
     nm = torch.zeros(B, dtype=torch.int32, device=dev)
     ops = torch.zeros((B, MAXS), dtype=torch.int32, device=dev)
-    active = (i >= 1) & (plen <= M)
     for _ in range(2 * (M + W)):
         if not bool(active.any()):
             break
@@ -433,6 +471,9 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
         e_ext = (cell >> 2) & 1
         f_ext = (cell >> 3) & 1
         mism = (cell >> 4) & 1
+        if local:
+            # zero-stop: (i, k) stay at the stop cell
+            active = active & ~((st == 0) & (hdir == 3))
         sym = texts[rows, (r + k).clamp(max=TW - 1)] & 15
         sel = torch.where(st == 1, 1, torch.where(st == 2, 2, hdir))
         op = torch.where(sel == 0, 1, torch.where(sel == 1, 2, 3))
@@ -453,5 +494,195 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
         st = torch.where(active, new_st, st)
         active = active & (i >= 1)
     i32 = torch.int32
-    return (smax.to(i32), k0, ops, cursor.to(i32), k.to(i32), nm.to(i32),
-            plen.clone(), i.to(i32))
+    return (smax.to(i32), k0.to(i32), ops, cursor.to(i32), k.to(i32),
+            nm.to(i32), i0.to(i32).clone(), i.to(i32))
+
+
+# ---------------------------------------------------------------------------
+# K3: banded scoring of flat (pattern, text) pairs, SEMI_GLOBAL or LOCAL
+# ---------------------------------------------------------------------------
+
+# K3's plain version is the flat batched scorer: its prefix max is floored
+# at NEG_INF exactly as the TPU kernel's doubling loop (pallas_kernels.py:
+# 96-103) floors it, and ``local=True`` is the kernel's LOCAL variant.
+banded_score_plain = batch_score_banded
+
+
+def banded_score(patterns, pattern_lens, texts, text_lens,
+                 scoring: GotohScoring, band: int, mismatch_scores=None,
+                 local: bool = False):
+    """Banded Gotoh score and first-max band index of each (pattern,
+    text) pair: SEMI_GLOBAL (the row at ``pattern_lens``) or, with
+    ``local=True``, LOCAL (H floored at 0, the best cell with i <= plen
+    and i-1+k < tlen).
+
+    patterns, mismatch_scores (B, M) int32 (``None`` = ``scoring.
+    mismatch``); texts (B, T) int32, zero-padded or cut to M+W-1 columns;
+    lens (B,) int32. Returns (score, k_best), (B,) int32 — the contract of
+    ``banded_score_semiglobal_pallas``.
+    """
+    if patterns.device.type == "cpu":
+        return banded_score_plain(patterns, pattern_lens, texts, text_lens,
+                                  scoring, band, mismatch_scores, local)
+    if patterns.device.type != "cuda":
+        raise ValueError(f"unsupported device {patterns.device}")
+    B, M = patterns.shape
+    W = band
+    TW = M + W - 1
+    dev = patterns.device
+    if band not in SUPPORTED_BANDS:
+        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
+    if mismatch_scores is None:
+        mismatch_scores = torch.full((B, M), scoring.mismatch,
+                                     dtype=torch.int32, device=dev)
+    _check(patterns, "patterns", torch.int32, (B, M), dev)
+    _check(mismatch_scores, "mismatch_scores", torch.int32, (B, M), dev)
+    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
+    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+    _check_texts(texts, B, dev)
+    texts = _text_tw(texts, TW)
+    score = torch.empty((B,), dtype=torch.int32, device=dev)
+    kbest = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc_code = _lib("banded_score").nvbt_banded_score(
+        patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
+        text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, W,
+        int(local), *_gaps(scoring), score.data_ptr(), kbest.data_ptr(),
+        _stream(dev))
+    _raise_if_failed(rc_code, "banded_score", W)
+    banded_score.launches += 1
+    return score, kbest
+
+
+banded_score.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: Myers bit-parallel semi-global edit distance
+# ---------------------------------------------------------------------------
+
+# patterns of up to 4 words of 32 bits (the JAX --max-read-len default 128)
+MYERS_MAX_LEN = 128
+_M32 = 0xFFFFFFFF
+
+
+def myers_semiglobal(patterns, pattern_lens, texts, text_lens,
+                     n_symbols: int = 4):
+    """Semi-global edit distance (pattern global, text local) and the
+    first 1-based text end at which it is reached.
+
+    patterns (B, M) int32 with M <= 128 (codes 0..3; others match
+    nothing), texts (B, T) int32 (a code outside 1..3 reads as 0), lens
+    (B,) int32. Returns (distance, text_end), (B,) int32 — the contract of
+    ``myers_semiglobal_pallas``, including its floor arithmetic at
+    ``plen = 0`` (distance 0, text_end 0)."""
+    B, M = patterns.shape
+    if n_symbols != 4:
+        raise ValueError(f"myers_semiglobal: n_symbols={n_symbols}; the "
+                         "kernel is built for DNA (4)")
+    if M > MYERS_MAX_LEN:
+        raise ValueError(f"myers_semiglobal: patterns of {M} columns; the "
+                         f"kernel takes at most {MYERS_MAX_LEN}")
+    if patterns.device.type == "cpu":
+        return myers_semiglobal_plain(patterns, pattern_lens, texts,
+                                      text_lens, n_symbols)
+    if patterns.device.type != "cuda":
+        raise ValueError(f"unsupported device {patterns.device}")
+    dev = patterns.device
+    _check(patterns, "patterns", torch.int32, (B, M), dev)
+    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
+    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+    _check_texts(texts, B, dev)
+    T = texts.shape[1]
+    # (M, B) and (T, B) layouts: a warp's 32 neighbouring rows load one
+    # coalesced row per pattern column and per text step
+    pat_t = patterns.t().contiguous()
+    txt_t = texts.t().contiguous()
+    dist = torch.empty((B,), dtype=torch.int32, device=dev)
+    tend = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc_code = _lib("myers_semiglobal").nvbt_myers_semiglobal(
+        pat_t.data_ptr(), pattern_lens.data_ptr(), txt_t.data_ptr(),
+        text_lens.data_ptr(), B, M, T, dist.data_ptr(), tend.data_ptr(),
+        _stream(dev))
+    _raise_if_failed(rc_code, "myers_semiglobal", (M + 31) // 32)
+    myers_semiglobal.launches += 1
+    return dist, tend
+
+
+myers_semiglobal.launches = 0
+
+
+def myers_semiglobal_plain(patterns, pattern_lens, texts, text_lens,
+                           n_symbols: int = 4):
+    """Plain torch version of ``myers_semiglobal`` (same contract).
+
+    Repeats ``_myers_kernel`` (pallas_kernels.py:1047-1128) word for word.
+    CPU torch has no uint32 arithmetic, so every word is an int64 holding
+    32 bits, masked after each add, ``~`` and ``<<``; a carry out of an add
+    is ``t < a`` on the masked values. ``plen = 0`` takes the kernel's
+    floor forms: last word -1 (so word 0), last bit 31.
+    """
+    B, M = patterns.shape
+    T = texts.shape[1]
+    NW = (M + 31) // 32
+    dev = patterns.device
+    i64 = torch.int64
+    pats = patterns.to(i64)
+    plen = pattern_lens.to(i64)
+    tlen = text_lens.to(i64)
+    txts = texts.to(i64)
+    pos = torch.arange(M, dtype=i64, device=dev)
+    bit = torch.bitwise_left_shift(torch.ones_like(pos), pos % 32)[None, :]
+    in_pat = pos[None, :] < plen[:, None]
+    peq = []
+    for c in range(n_symbols):
+        hit = torch.where((pats == c) & in_pat, bit, 0)   # disjoint bits
+        peq.append([hit[:, w * 32:(w + 1) * 32].sum(dim=1)
+                    for w in range(NW)])
+    last = plen - 1
+    last_word = torch.div(last, 32, rounding_mode="floor")
+    last_bit = last - 32 * last_word
+
+    PV = [torch.full((B,), _M32, dtype=i64, device=dev)] * NW
+    MV = [torch.zeros(B, dtype=i64, device=dev)] * NW
+    score = plen.clone()
+    best = plen.clone()
+    bend = torch.zeros(B, dtype=i64, device=dev)
+    for j in range(T):
+        tch = txts[:, j]
+        Eq = []
+        for w in range(NW):
+            e = peq[0][w]
+            for c in range(1, n_symbols):
+                e = torch.where(tch == c, peq[c][w], e)
+            Eq.append(e)
+        summ, carry = [], None
+        for w in range(NW):
+            a = Eq[w] & PV[w]
+            t = (a + PV[w]) & _M32
+            c1 = t < a
+            if carry is None:
+                s, carry = t, c1
+            else:
+                s = (t + carry.to(i64)) & _M32
+                carry = c1 | (s < t)
+            summ.append(s)
+        D0 = [(summ[w] ^ PV[w]) | Eq[w] | MV[w] for w in range(NW)]
+        Hp = [MV[w] | (~(D0[w] | PV[w]) & _M32) for w in range(NW)]
+        Hn = [PV[w] & D0[w] for w in range(NW)]
+        phl, mhl = Hp[0], Hn[0]
+        for w in range(1, NW):
+            phl = torch.where(last_word == w, Hp[w], phl)
+            mhl = torch.where(last_word == w, Hn[w], mhl)
+        score = score + ((phl >> last_bit) & 1) - ((mhl >> last_bit) & 1)
+        HpS, HnS = [], []
+        cp = cn = 0
+        for w in range(NW):
+            HpS.append(((Hp[w] << 1) & _M32) | cp)
+            HnS.append(((Hn[w] << 1) & _M32) | cn)
+            cp, cn = Hp[w] >> 31, Hn[w] >> 31
+        PV = [HnS[w] | (~(D0[w] | HpS[w]) & _M32) for w in range(NW)]
+        MV = [D0[w] & HpS[w] for w in range(NW)]
+        upd = (j < tlen) & (score < best)
+        best = torch.where(upd, score, best)
+        bend = torch.where(upd, j + 1, bend)
+    return best.to(torch.int32), bend.to(torch.int32)

@@ -36,13 +36,14 @@ class TracebackResult(NamedTuple):
 
 def batch_traceback_banded_fast(patterns, pattern_lens, texts, text_lens,
                                 scoring: GotohScoring, band: int,
-                                mismatch_scores=None):
-    """SEMI_GLOBAL Gotoh traceback: ``(TracebackResult, nm)``; nm is the SAM
-    NM edit count accumulated by the walk. ``ops`` are END->START: the
-    host formatters reverse them (``reverse=True``)."""
+                                mismatch_scores=None, local: bool = False):
+    """SEMI_GLOBAL (or, ``local=True``, LOCAL) Gotoh traceback:
+    ``(TracebackResult, nm)``; nm is the SAM NM edit count accumulated by
+    the walk. ``ops`` are END->START: the host formatters reverse them
+    (``reverse=True``)."""
     score, k0, ops, n_ops, k_fin, nm, i_end, i_start = banded_traceback(
         patterns, pattern_lens, texts, text_lens, scoring, band,
-        mismatch_scores)
+        mismatch_scores, local)
     return TracebackResult(
         score=score, ops=ops, n_ops=n_ops,
         pattern_start=i_start, pattern_end=i_end,

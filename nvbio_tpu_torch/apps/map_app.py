@@ -1,14 +1,17 @@
-"""`nvbio_tpu_torch map` — single-end Bowtie2-style read mapping to SAM.
+"""`nvbio_tpu_torch map` — Bowtie2-style read mapping to SAM.
 
     python -m nvbio_tpu_torch map <ref.fa | index-prefix> reads.fq -o out.sam
-        [--device cpu]
+    python -m nvbio_tpu_torch map <ref.fa | index-prefix> -1 r1.fq -2 r2.fq
+        [-I MIN] [-X MAX] [--no-rescue] [--pe-policy fr|rf|ff]
+        [--no-discordant] [--local] [--device cpu]
 
-Port of the single-end path of ``nvbio_tpu/apps/map_app.py``. The reference
-is a FASTA (q-gram index built on the fly) or the prefix of artifacts the
-JAX package's ``index`` app wrote (``<prefix>.ref.npz``, and
+Port of the single-end and paired-end paths of ``nvbio_tpu/apps/
+map_app.py``, end-to-end or local (``--local``). The reference is a FASTA
+(q-gram index built on the fly) or the prefix of artifacts the JAX
+package's ``index`` app wrote (``<prefix>.ref.npz``, and
 ``<prefix>.qgram.npz`` when present). Runs on the CUDA card unless
 ``--device cpu`` is given. Flags of ``nvbio_tpu map`` that select paths not
-ported yet (paired-end, local mode, FM seeding, BAM, reports, ...) are
+ported yet (``--all``, FM seeding, option files, BAM, reports, ...) are
 rejected with a "not yet ported" error.
 """
 
@@ -20,17 +23,18 @@ import time
 
 # flags of `nvbio_tpu map` whose paths are not ported yet
 NOT_PORTED = (
-    "-1", "-2", "--seeding", "--local", "--report", "--profile",
-    "--mapq-filter", "--debug-output", "--config", "-I", "--minins", "-X",
-    "--maxins", "--no-rescue", "--pe-policy", "--no-discordant", "--all",
-    "--dist", "--coordinator", "--num-processes", "--process-id",
+    "--seeding", "--report", "--profile", "--mapq-filter", "--debug-output",
+    "--config", "--all", "--dist", "--coordinator", "--num-processes",
+    "--process-id",
 )
 
 
 def add_parser(sub):
-    p = sub.add_parser("map", help="map single-end reads -> SAM")
+    p = sub.add_parser("map", help="map reads (SE or PE) -> SAM")
     p.add_argument("reference", help="index prefix (from `index`) or FASTA")
-    p.add_argument("reads", help="single-end FASTQ(.gz)")
+    p.add_argument("reads", nargs="?", help="single-end FASTQ(.gz)")
+    p.add_argument("-1", dest="mate1", help="mate-1 FASTQ (paired-end)")
+    p.add_argument("-2", dest="mate2", help="mate-2 FASTQ (paired-end)")
     p.add_argument("-o", "--output", default="-",
                    help="output SAM (default stdout)")
     p.add_argument("--device", default=None,
@@ -44,6 +48,16 @@ def add_parser(sub):
     p.add_argument("--mode", choices=["sw", "ed"], default="sw",
                    help="sw: quality-aware Gotoh (bowtie2-like, default); "
                         "ed: unit-cost edit distance (nvBowtie --ed)")
+    p.add_argument("--local", action="store_true",
+                   help="local alignment (soft-clipped ends, bowtie2 "
+                        "--local scoring + local MAPQ)")
+    p.add_argument("-I", "--minins", type=int, default=0)
+    p.add_argument("-X", "--maxins", type=int, default=500)
+    p.add_argument("--no-rescue", action="store_true")
+    p.add_argument("--pe-policy", choices=["fr", "rf", "ff"], default="fr",
+                   help="mate orientation (bowtie2 --fr/--rf/--ff)")
+    p.add_argument("--no-discordant", action="store_true",
+                   help="do not classify discordant pairs")
     p.add_argument("--max-reseed", type=int, default=1,
                    help="extra seeding passes for unaligned reads")
     p.add_argument("--reseed-frac", type=float, default=0.125,
@@ -62,7 +76,7 @@ def reject_not_ported(argv: list[str]) -> None:
         flag = tok.split("=", 1)[0]
         if flag in NOT_PORTED:
             raise SystemExit(f"nvbio_tpu_torch map: {flag} is not yet ported "
-                             f"(single-end q-gram mapping to SAM only)")
+                             f"(best-alignment q-gram mapping to SAM only)")
 
 
 def _load_reference(path: str):
@@ -83,11 +97,17 @@ def _load_reference(path: str):
 
 def run(args):
     from nvbio_tpu_torch.alphabet import Alphabet
+    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
     from nvbio_tpu_torch.bowtie.params import MapParams
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
     from nvbio_tpu_torch.io.fastq import fastq_batches
     from nvbio_tpu_torch.io.sam import SamWriter
 
+    paired = args.mate1 is not None
+    if paired and not args.mate2:
+        raise SystemExit("paired-end needs both -1 and -2")
+    if not paired and not args.reads:
+        raise SystemExit("provide a reads file (or -1/-2 for paired-end)")
     if str(args.output).endswith(".bam"):
         raise SystemExit("nvbio_tpu_torch map: BAM output is not yet ported")
     common = dict(
@@ -99,8 +119,15 @@ def run(args):
         max_reseed=args.max_reseed,
         reseed_frac=args.reseed_frac,
         seeding_1mm=not args.no_1mm_seeding,
+        minins=args.minins,
+        maxins=args.maxins,
+        mate_rescue=not args.no_rescue,
+        pe_policy=args.pe_policy,
+        pe_discordant=not args.no_discordant,
     )
-    if args.mode == "ed":
+    if args.local:
+        params = MapParams.local(**common)
+    elif args.mode == "ed":
         params = MapParams.edit_distance(**common)
     else:
         params = MapParams(**common)
@@ -114,10 +141,19 @@ def run(args):
     n_reads = n_mapped = 0
     t0 = time.time()
     out = sys.stdout if args.output == "-" else args.output
+
+    def batches(path):
+        return fastq_batches(path, args.batch, args.max_read_len,
+                             alphabet=Alphabet.DNA_N)
+
+    if paired:
+        record_lists = (map_pair_batch(mapper, b1, b2) for b1, b2 in
+                        zip(batches(args.mate1), batches(args.mate2)))
+    else:
+        record_lists = (mapper.map_batch(b) for b in batches(args.reads))
     with SamWriter(out, ref.names, lengths) as w:
-        for batch in fastq_batches(args.reads, args.batch, args.max_read_len,
-                                   alphabet=Alphabet.DNA_N):
-            for rec in mapper.map_batch(batch):
+        for recs in record_lists:
+            for rec in recs:
                 w.write(rec)
                 n_reads += 1
                 n_mapped += 0 if rec.flag & 0x4 else 1

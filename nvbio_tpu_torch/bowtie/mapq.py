@@ -1,10 +1,11 @@
-"""Bowtie2-compatible MAPQ (V2 evaluator, end-to-end branch), torch.
+"""Bowtie2-compatible MAPQ (V2 evaluator), torch.
 
 Port of ``nvbio_tpu.bowtie.mapq.mapq_v2_end_to_end`` (BowtieMapq2's
-monotone branch, ``nvBowtie/bowtie2/cuda/mapq.h:146-263``): a piecewise
-table over (best_over, best_diff) normalized by the score range. The
-arithmetic is float32, as in the JAX package: in float64 the threshold
-products (diff * 0.8, ...) round differently and MAPQs flip at the edges.
+monotone branch, ``nvBowtie/bowtie2/cuda/mapq.h:146-263``) and
+``mapq_v2_local`` (its local branch, ``mapq.h:267-326``): piecewise tables
+over (best_over, best_diff) normalized by the score range. The arithmetic
+is float32, as in the JAX package: in float64 the threshold products
+(diff * 0.8, ...) round differently and MAPQs flip at the edges.
 """
 
 from __future__ import annotations
@@ -58,3 +59,43 @@ def mapq_v2_end_to_end(best, second, has_second, min_score, max_score=0):
     q = torch.where(has_second, two, one)
     return torch.where(best < min_score, torch.zeros_like(q), q).to(
         torch.int32)
+
+
+def mapq_v2_local(best, second, has_second, min_score, max_score):
+    """BowtieMapq2, local (non-monotone) branch: ``max_score`` is the
+    perfect score (match bonus x read length), (B,)."""
+    f32 = torch.float32
+    best = best.to(f32)
+    second = second.to(f32)
+    min_score = min_score.to(f32)
+    diff = torch.clamp(max_score.to(f32) - min_score, min=1.0)
+    bo = best - min_score
+    sel = torch.where
+
+    one = sel(bo >= diff * 0.8, 44,
+              sel(bo >= diff * 0.7, 42,
+                  sel(bo >= diff * 0.6, 41,
+                      sel(bo >= diff * 0.5, 36,
+                          sel(bo >= diff * 0.4, 28,
+                              sel(bo >= diff * 0.3, 24, 22))))))
+
+    bd = torch.abs(torch.abs(best) - torch.abs(second))
+    at_max = bo == diff
+    hi = bo >= diff * 0.5
+
+    def tri(a, b, c):
+        return sel(at_max, a, sel(hi, b, c))
+
+    two = sel(
+        bd >= diff * 0.9, 40,
+        sel(bd >= diff * 0.8, 39,
+            sel(bd >= diff * 0.7, 38,
+                sel(bd >= diff * 0.6, 37,
+                    sel(bd >= diff * 0.5, tri(35, 25, 20),
+                        sel(bd >= diff * 0.4, tri(34, 21, 19),
+                            sel(bd >= diff * 0.3, tri(33, 18, 16),
+                                sel(bd >= diff * 0.2, tri(32, 17, 12),
+                                    sel(bd >= diff * 0.1, tri(31, 14, 9),
+                                        sel(bd > 0, sel(hi, 11, 2),
+                                            sel(hi, 1, 0)))))))))))
+    return torch.where(has_second, two, one).to(torch.int32)

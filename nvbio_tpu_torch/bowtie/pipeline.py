@@ -4,15 +4,18 @@ extend -> reduce -> reseed -> traceback -> MAPQ -> SAM.
 Port of the q-gram path of ``nvbio_tpu.bowtie.pipeline``
 (``read_candidates`` :207, ``align_batch_core`` :809, ``ReadMapper`` :926).
 Every stage is fixed-shape tensor code on the mapper's device, apart from
-the two hand kernels: candidate scoring (``align.kernels.
-banded_score_cands``, twice per batch: first pass and reseed pass) and the
-fused traceback (``align.kernels.banded_traceback``, once per batch).
+the hand kernels: candidate scoring (``align.kernels.banded_score_cands``,
+twice per batch: first pass and reseed pass; in local mode the flat LOCAL
+scorer ``align.kernels.banded_score`` instead) and the fused traceback
+(``align.kernels.banded_traceback``, once per batch, LOCAL in local mode).
+The JAX package's kernel path is the one followed: the flat scorer only
+where it sends local candidates (``pipeline.py:573-581``).
 
 Positions are int64 throughout, so the JAX package's clip-at-zero uint32
 helpers become plain clamps, and its dtype-max sentinels become one int64
 constant ``_BIG`` compared by value. FM-index seeding, the sharded indexes,
-randomized hit selection and local mode are not ported yet and raise
-``NotImplementedError``.
+randomized hit selection and the full-matrix mate traceback are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ import numpy as np
 import torch
 
 from nvbio_tpu_torch import packed
-from nvbio_tpu_torch.align.kernels import SUPPORTED_BANDS, banded_score_cands
+from nvbio_tpu_torch.align.kernels import (
+    SUPPORTED_BANDS,
+    banded_score,
+    banded_score_cands,
+)
 from nvbio_tpu_torch.align.traceback import (
     batch_traceback_banded_fast,
     cigar_to_string,
@@ -31,7 +38,7 @@ from nvbio_tpu_torch.align.traceback import (
 )
 from nvbio_tpu_torch.align.types import NEG_INF
 from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
-from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end
+from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end, mapq_v2_local
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.device import resolve_device
 from nvbio_tpu_torch.io.sam import FLAG_REVERSE, FLAG_UNMAPPED, SamRecord
@@ -57,8 +64,12 @@ def check_supported(params: MapParams) -> None:
     if params.select_mode != "stratified":
         raise NotImplementedError(
             f"select_mode={params.select_mode!r} is not ported yet")
-    if params.mode != "end-to-end":
-        raise NotImplementedError(f"mode={params.mode!r} is not ported yet")
+    if params.mode not in ("end-to-end", "local"):
+        raise ValueError(f"unknown mode {params.mode!r}")
+    if params.pe_full_traceback:
+        raise NotImplementedError(
+            "pe_full_traceback=True (the band-(T+M) mate traceback) is not "
+            "ported yet")
     if params.band not in SUPPORTED_BANDS:
         raise ValueError(f"max_dist={params.max_dist} gives band "
                          f"{params.band}; the kernels are built for bands "
@@ -224,11 +235,24 @@ def read_candidates(index: QGramIndex, genome_words, n_genome: int, reads,
     cand_valid = torch.cat([validf, validr], dim=1)
     cand_strand = (torch.arange(C, device=dev) >= NCH)[None, :].expand(B, C)
 
-    # ---- extension scoring: the candidate kernel -----------------------------
+    # ---- extension scoring -------------------------------------------------
     wlens = (n_genome - w0).clamp(min=0, max=TW).to(torch.int32)
-    sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens,
-                               w0, wlens, genome_words, P.scoring, W, NCH,
-                               mm, mm_rc)
+    if P.mode == "local":
+        # the flat LOCAL scorer over B*C extracted windows (the JAX kernel
+        # path's local branch: its candidate kernel is SEMI_GLOBAL only)
+        flip = cand_strand[:, :, None]
+        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
+        mm_flat = (None if mm is None else torch.where(
+            flip, mm_rc[:, None, :], mm[:, None, :]).reshape(B * C, L))
+        win = packed.extract_window(genome_words, w0.reshape(B * C), TW)
+        sc, _ = banded_score(
+            pats.reshape(B * C, L), lens[:, None].expand(B, C).reshape(B * C),
+            win, wlens.reshape(B * C), P.scoring, W, mm_flat, local=True)
+        sc = sc.reshape(B, C)
+    else:
+        sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens,
+                                   w0, wlens, genome_words, P.scoring, W, NCH,
+                                   mm, mm_rc)
     scores = torch.where(cand_valid, sc, NEG_INF)
 
     return dict(scores=scores, w0=w0, strand=cand_strand, valid=cand_valid,
@@ -252,7 +276,7 @@ def _reduce_best2(cands, params: MapParams):
 def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
                   params: MapParams):
     """Traceback + NM of each read's chosen candidate (the fused traceback
-    kernel over the re-extracted winning windows)."""
+    kernel over the re-extracted winning windows; LOCAL in local mode)."""
     P = params
     W = P.band
     reads, lens, rc = cands["reads"], cands["lens"], cands["rc"]
@@ -266,7 +290,8 @@ def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
     bmm = (None if mm is None
            else torch.where(best_strand[:, None], mm_rc, mm).contiguous())
     tb, nm = batch_traceback_banded_fast(bpat, lens, btext, btlen,
-                                         P.scoring, W, bmm)
+                                         P.scoring, W, bmm,
+                                         local=P.mode == "local")
 
     # pure-match reads (no I/D): their CIGAR is just "{L}M"; the host needs
     # their op rows only when NM > 0 (for the MD tag)
@@ -352,8 +377,12 @@ def align_batch_core(index: QGramIndex, genome_words, n_genome: int, reads,
     mapped = (best_score >= score_min) & (lens >= P.seed_len) & \
         n_ceil_of(reads, lens, P)
     has_second = second_score >= score_min
-    mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
-                              score_min)
+    if P.mode == "local":
+        mapq = mapq_v2_local(best_score, second_score, has_second, score_min,
+                             P.scoring.match * lens)
+    else:
+        mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
+                                  score_min)
     mapq = torch.where(mapped, mapq, 0)
     out = dict(mapped=mapped, best_score=best_score,
                second_score=second_score, has_second=has_second,
@@ -399,17 +428,27 @@ class ReadMapper:
             device=dev,
         )
 
+    def contig_of(self, gpos: np.ndarray):
+        """(contig index, 0-based position within it) of each genome
+        position of an int64 array."""
+        ci = np.searchsorted(self.ref_offsets, gpos, side="right") - 1
+        return ci, gpos - self.ref_offsets[np.clip(ci, 0, None)]
+
+    def batch_tensors(self, batch):
+        """(codes, lengths, quals) of a ``ReadBatch`` as int32 tensors on
+        the mapper's device."""
+        def t(a, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                self.device).to(torch.int32)
+
+        return t(batch.codes), t(batch.lengths, np.int32), t(batch.quals)
+
     def dispatch(self, batch) -> dict:
         """Enqueue the device work of one ``ReadBatch``; returns device
         tensors (asynchronous on CUDA until read)."""
-        dev = self.device
-        codes = torch.from_numpy(np.ascontiguousarray(batch.codes)).to(dev)
-        quals = torch.from_numpy(np.ascontiguousarray(batch.quals)).to(dev)
-        lens = torch.from_numpy(np.ascontiguousarray(
-            batch.lengths, dtype=np.int32)).to(dev)
         return align_batch_core(self.index, self.genome_words,
-                                self.n_genome, codes.to(torch.int32), lens,
-                                quals.to(torch.int32), self.params)
+                                self.n_genome, *self.batch_tensors(batch),
+                                self.params)
 
     def map_batch(self, batch) -> list[SamRecord]:
         """Map a ReadBatch -> SAM records (host-side formatting)."""
@@ -427,10 +466,8 @@ class ReadMapper:
         lengths = np.asarray(batch.lengths).tolist()
         mapped = res["mapped"].tolist()
         strands = res["strand"].tolist()
-        gpos_all = res["window_start"] + res["text_start"]
-        cis = np.searchsorted(self.ref_offsets, gpos_all, side="right") - 1
-        locals_ = (gpos_all - self.ref_offsets[np.clip(cis, 0, None)]).tolist()
-        cis = cis.tolist()
+        cis, locals_ = self.contig_of(res["window_start"] + res["text_start"])
+        cis, locals_ = cis.tolist(), locals_.tolist()
         mapqs = res["mapq"].tolist()
         scores = res["best_score"].tolist()
         nms = res["nm"].tolist()

@@ -87,3 +87,43 @@ def sample_reads(
     rc = (3 - reads)[:, ::-1]
     reads = np.where(is_rc[:, None], rc, reads)
     return reads, starts, is_rc
+
+
+def sample_pairs(
+    genome: np.ndarray,
+    n_pairs: int,
+    read_len: int,
+    frag_lo: int,
+    frag_hi: int,
+    seed: int = 1,
+    subst_rate: float = 0.01,
+):
+    """Sample FR read pairs with known truth. Fragments of uniform length
+    in [frag_lo, frag_hi] (>= read_len); the forward mate reads the
+    fragment's first ``read_len`` bases, the reverse mate the reverse
+    complement of its last. Half the pairs have mate 1 on the reverse
+    strand. Substitutions at ``subst_rate`` per mate. Returns (reads1,
+    reads2 (B, L) int32, starts1, starts2 (B,) int64 forward genome
+    starts, rc1, rc2 (B,) bool strands)."""
+    rng = np.random.default_rng(seed)
+    L = read_len
+    frag = rng.integers(frag_lo, frag_hi + 1, size=n_pairs)
+    fstart = rng.integers(0, len(genome) - frag)
+    rstart = fstart + frag - L
+    nmut = max(1, int(round(L * subst_rate)))
+
+    def mates(starts):
+        reads = genome[starts[:, None] + np.arange(L)].astype(np.int32)
+        mp = rng.integers(0, L, size=(n_pairs, nmut))
+        mv = rng.integers(1, 4, size=(n_pairs, nmut))
+        np.put_along_axis(
+            reads, mp, (np.take_along_axis(reads, mp, 1) + mv) % 4, 1)
+        return reads
+
+    left = mates(fstart)
+    right = (3 - mates(rstart))[:, ::-1]
+    flip = rng.random(n_pairs) < 0.5
+    reads1 = np.where(flip[:, None], right, left)
+    reads2 = np.where(flip[:, None], left, right)
+    return (reads1, reads2, np.where(flip, rstart, fstart),
+            np.where(flip, fstart, rstart), flip, ~flip)

@@ -245,8 +245,10 @@ def test_cigar_and_md_helpers_match(rng):
 def test_kernel_wrappers_reject_what_they_do_not_take():
     sc = GotohScoring(*SCORINGS["sw"])
     z = torch.zeros((4, 10), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        K.banded_traceback(z, z[:, 0], z, z[:, 0], sc, 7, local=True)
+    with pytest.raises(ValueError):       # Myers takes DNA only
+        K.myers_semiglobal(z, z[:, 0], z, z[:, 0], n_symbols=16)
     meta = torch.zeros((4, 10), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         K.banded_traceback(meta, meta[:, 0], meta, meta[:, 0], sc, 7)
+    with pytest.raises(ValueError):
+        K.banded_score(meta, meta[:, 0], meta, meta[:, 0], sc, 7, local=True)

@@ -56,3 +56,29 @@ def test_score_min_and_n_ceil(rng, kw):
                         tp).numpy(),
         np.asarray(jpipe.n_ceil_of(jnp.asarray(reads), jnp.asarray(lens),
                                    jp)))
+
+
+@pytest.mark.parametrize("read_len", [30, 100, 150])
+def test_mapq_v2_local_grid(read_len):
+    """Every (best, second, has_second) over a local read's score range
+    (0 to the perfect 2*len) and score-min 20 + 8 ln(len), plus NEG_INF
+    seconds: the float32 thresholds must give the JAX function's MAPQs."""
+    top = 2 * read_len
+    smin = int(np.ceil(20.0 + 8.0 * np.log(read_len)))
+    best, second = np.meshgrid(np.arange(0, top + 1), np.arange(0, top + 1),
+                               indexing="ij")
+    best = best.ravel().astype(np.int32)
+    second = second.ravel().astype(np.int32)
+    second[::19] = -(1 << 24)
+    s_min = np.full_like(best, smin)
+    max_score = np.full_like(best, top)
+    for has2 in (second >= s_min, np.zeros_like(best, bool)):
+        want = jmapq.mapq_v2_local(
+            jnp.asarray(best), jnp.asarray(second), jnp.asarray(has2),
+            jnp.asarray(s_min), jnp.asarray(max_score))
+        got = tmapq.mapq_v2_local(
+            torch.from_numpy(best), torch.from_numpy(second),
+            torch.from_numpy(has2), torch.from_numpy(s_min),
+            torch.from_numpy(max_score))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(np.unique(np.asarray(want))) >= 7

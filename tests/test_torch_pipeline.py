@@ -158,7 +158,8 @@ def test_cli_map_matches_jax_cli(tmp_path):
 def test_cli_rejects_what_is_not_ported(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    for flag in (["--local"], ["-1", "a.fq", "-2", "b.fq"], ["--all"],
+    for flag in (["--config", "opts.txt"], ["-1", "a.fq", "-2", "b.fq",
+                                            "--all"], ["--all"],
                  ["--seeding", "fmi"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(["map", "ref.fa", "reads.fq", *flag])
@@ -169,7 +170,7 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
                           TMapParams(seeding="fmi"), device="cpu")
     with pytest.raises(NotImplementedError):
         TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
-                          TMapParams.local(), device="cpu")
+                          TMapParams(pe_full_traceback=True), device="cpu")
     assert torch.device("cpu") == TReadMapper.build(
         TReference.from_records([("c", "ACGT" * 50)]), TMapParams(),
         device="cpu").device
