@@ -37,7 +37,6 @@ nvbio_tpu.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -70,14 +69,15 @@ ISSUE_LANES_PER_SM = 128
 #       its store (2): 17; each walk step: two address computations and
 #       loads (4), the op and its entry (4), its store and the cursor (2),
 #       nm, i, k and the state (4): 14.
-#   K3: K1's cell with the lazy F of the flat scorer: g = add-max over
-#       H0 + (to - te*k) (1), f = g + te*(k-1) (1), H = max(H0, f) (1)
-#       in place of the sequential F's 3: 9. LOCAL adds the floor of H0
-#       at 0 (1) and the running max of the in-range cells (1): 11.
-#   K2-LOCAL: K2's 17 plus the floor (1), the zero-cell direction
-#       (compare + select, 2) and the sink (one predicated compare, two
-#       selects, 3): 23 per cell; each walk step adds the zero-stop test:
-#       15.
+#   K3: K1's sub (2), H0 (1) and E' (2), then the lazy F of the flat
+#       scorer: g = add-max over H0 + (to - te*k) (1) and H = add-max
+#       max(H0, g + te*(k-1)) (1): 7. LOCAL adds the floor of H0 at 0
+#       (1; H + sub, E' and 0 need an add and a three-input max) and the
+#       running max of the in-range cells (1): 9.
+#   K2-LOCAL: K2's 17, its H0 = max(diag, E) becoming the three-input
+#       max(diag, E, 0) (+0), plus the zero-cell direction (compare +
+#       select, 2) and the sink (one predicated compare, two selects, 3):
+#       22 per cell; each walk step adds the zero-stop test: 15.
 #   K4: per 32-bit word and text step: the Eq select over 4 symbols (3),
 #       Eq & PV and the add with carry (2), D0 (2 three-input LOPs), Hp
 #       and Hn (2), the two shifts with carry-in (2), PV and MV (2), the
@@ -87,9 +87,9 @@ ISSUE_LANES_PER_SM = 128
 K1_OPS_PER_CELL = 8
 K2_OPS_PER_CELL = 17
 K2_OPS_PER_STEP = 14
-K3_OPS_PER_CELL = 9
-K3L_OPS_PER_CELL = 11
-K2L_OPS_PER_CELL = 23
+K3_OPS_PER_CELL = 7
+K3L_OPS_PER_CELL = 9
+K2L_OPS_PER_CELL = 22
 K2L_OPS_PER_STEP = 15
 K4_OPS_PER_WORD_STEP = 15
 K4_OPS_PER_STEP = 9
@@ -349,18 +349,8 @@ def phase_main_path(genome, ref, index, params, card):
     print(f"[main] mapper on cuda in {time.time() - t0:.2f} s", flush=True)
     batches = [read_batch(genome, SEED + 100 + i) for i in range(N_BATCHES)]
 
-    reset_launches()
-    t_dev, t_fmt, out = [], [], []
-    t_all = time.time()
-    for batch, _, _ in batches:
-        t0 = time.time()
-        res = mapper.dispatch(batch)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        out.append(mapper.format_batch(batch, res))
-        t_dev.append(t1 - t0)
-        t_fmt.append(time.time() - t1)
-    wall = time.time() - t_all
+    out, t_dev, t_fmt, wall, launches = run_batches(
+        mapper.dispatch, mapper.format_batch, [(b,) for b, _, _ in batches])
     n_reads = n_mapped = n_ok = 0
     for recs, (_, starts, is_rc) in zip(out, batches):
         require(len(recs) == B, f"{len(recs)} records for {B} reads")
@@ -372,7 +362,6 @@ def phase_main_path(genome, ref, index, params, card):
             if bool(rec.flag & 0x10) == rc and \
                     abs(rec.pos - 1 - s) <= 2 * params.max_dist:
                 n_ok += 1
-    launches = read_launches()
     k1_launches = launches["banded_score_cands"]
     k2_launches = launches["banded_traceback"]
     sens = n_ok / n_reads
@@ -453,6 +442,26 @@ def read_launches() -> dict:
         K.myers_semiglobal)}
 
 
+def run_batches(dispatch, fmt, inputs):
+    """Map each batch: ``dispatch(*args)`` then a synchronize, and
+    ``fmt(*args, res)``, timed apart. The launch counters are set to 0 just
+    before the first batch and read just after the last. Returns (outputs,
+    dispatch + sync s per batch, format s per batch, wall s, launches)."""
+    reset_launches()
+    t_dev, t_fmt, outs = [], [], []
+    t_all = time.time()
+    for args in inputs:
+        t0 = time.time()
+        res = dispatch(*args)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        outs.append(fmt(*args, res))
+        t_dev.append(t1 - t0)
+        t_fmt.append(time.time() - t1)
+    wall = time.time() - t_all
+    return outs, t_dev, t_fmt, wall, read_launches()
+
+
 def require_launches(path, got, per_batch, n_batches):
     for name, want in per_batch.items():
         require(got[name] == want * n_batches,
@@ -474,19 +483,10 @@ def phase_paired(genome, mapper, card):
     md = mapper.params.max_dist
     batches = [pair_batches(genome, SEED + 200 + i)
                for i in range(N_BATCHES_PE)]
-    reset_launches()
-    t_dev, t_fmt, outs = [], [], []
-    t_all = time.time()
-    for (b1, b2), _, _, _ in batches:
-        t0 = time.time()
-        res = dispatch_pair_batch(mapper, b1, b2)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        outs.append(format_pair_batch(mapper, b1, b2, res))
-        t_dev.append(t1 - t0)
-        t_fmt.append(time.time() - t1)
-    wall = time.time() - t_all
-    launches = read_launches()
+    outs, t_dev, t_fmt, wall, launches = run_batches(
+        lambda b1, b2: dispatch_pair_batch(mapper, b1, b2),
+        lambda b1, b2, res: format_pair_batch(mapper, b1, b2, res),
+        [pair for pair, _, _, _ in batches])
     n_ok = n_proper = n_seedless = n_seedless_ok = 0
     for recs, (_, starts, rcs, seedless) in zip(outs, batches):
         require(len(recs) == 2 * B, f"{len(recs)} records for {B} pairs")
@@ -529,19 +529,9 @@ def phase_local(genome, mapper, card):
     md = mapper.params.max_dist
     batches = [local_batch(genome, SEED + 300 + i)
                for i in range(N_BATCHES_LOCAL)]
-    reset_launches()
-    t_dev, t_fmt, outs = [], [], []
-    t_all = time.time()
-    for batch, _, _, _ in batches:
-        t0 = time.time()
-        res = mapper.dispatch(batch)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        outs.append(mapper.format_batch(batch, res))
-        t_dev.append(t1 - t0)
-        t_fmt.append(time.time() - t1)
-    wall = time.time() - t_all
-    launches = read_launches()
+    outs, t_dev, t_fmt, wall, launches = run_batches(
+        mapper.dispatch, mapper.format_batch,
+        [(b,) for b, _, _, _ in batches])
     n_ok = n_tailed = n_clipped = 0
     for recs, (_, starts, is_rc, tailed) in zip(outs, batches):
         require(len(recs) == B, f"{len(recs)} records for {B} reads")
@@ -681,7 +671,7 @@ def main() -> int:
     gpu_mapper, batch0, se_launches, stats = phase_main_path(
         genome, ref, index, params, card)
     pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card)
-    gpu_local = dataclasses.replace(gpu_mapper, params=local_params)
+    gpu_local = ReadMapper.build(ref, local_params, index=index, device="cuda")
     local0, local_launches, local_stats = phase_local(genome, gpu_local,
                                                       card)
     # each kernel's launches in the run of the path it serves
@@ -709,7 +699,7 @@ def main() -> int:
         "local", lambda: gpu_local.dispatch(local0))
 
     cpu_mapper = ReadMapper.build(ref, params, index=index, device="cpu")
-    cpu_local = dataclasses.replace(cpu_mapper, params=local_params)
+    cpu_local = ReadMapper.build(ref, local_params, index=index, device="cpu")
     small = head(batch0)
     phase_gpu_equals_cpu("single-end", lambda: gpu_mapper.map_batch(small),
                          lambda: cpu_mapper.map_batch(small), N_CMP)

@@ -97,7 +97,10 @@ def _load_reference(path: str):
 
 def run(args):
     from nvbio_tpu_torch.alphabet import Alphabet
-    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
+    from nvbio_tpu_torch.bowtie.paired import (
+        check_paired_supported,
+        map_pair_batch,
+    )
     from nvbio_tpu_torch.bowtie.params import MapParams
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
     from nvbio_tpu_torch.io.fastq import fastq_batches
@@ -131,6 +134,8 @@ def run(args):
         params = MapParams.edit_distance(**common)
     else:
         params = MapParams(**common)
+    if paired:
+        check_paired_supported(params, args.max_read_len)
     t0 = time.time()
     ref, index = _load_reference(args.reference)
     mapper = ReadMapper.build(ref, params, index=index, device=args.device)

@@ -12,6 +12,11 @@ K3, SEMI_GLOBAL) rescores the mate at that locus. Each mate's final
 alignment goes through the fused traceback (K2). Per batch: K1 (or
 K3-LOCAL) x2, K4 x2, K3 x2, K2 x2.
 
+One deliberate difference from the JAX package: in local mode a mate's
+CIGAR carries its soft clips, as single-end records do, so that it spans
+the whole SEQ (``nvbio_tpu.bowtie.paired.map_pair_batch`` prints only the
+aligned ops there).
+
 Positions are int64, so the JAX package's clip-at-zero uint32 arithmetic
 becomes ``clamp(min=0)``. ``map_pair_batch`` is ``dispatch_pair_batch``
 (device work) then ``format_pair_batch`` (host SAM records), split so a
@@ -24,7 +29,11 @@ import numpy as np
 import torch
 
 from nvbio_tpu_torch import packed
-from nvbio_tpu_torch.align.kernels import banded_score, myers_semiglobal
+from nvbio_tpu_torch.align.kernels import (
+    MYERS_MAX_LEN,
+    banded_score,
+    myers_semiglobal,
+)
 from nvbio_tpu_torch.align.traceback import cigar_to_string, md_from_entries
 from nvbio_tpu_torch.align.types import NEG_INF
 from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
@@ -37,6 +46,7 @@ from nvbio_tpu_torch.bowtie.pipeline import (
     n_ceil_of,
     read_candidates,
     score_min_of,
+    soft_clipped,
 )
 from nvbio_tpu_torch.io.sam import (
     FLAG_FIRST_IN_PAIR,
@@ -56,14 +66,26 @@ def _take(x, idx):
     return torch.gather(x, 1, idx[:, None])[:, 0]
 
 
+def check_paired_supported(params: MapParams, read_width: int) -> None:
+    """Raise for paired-end settings not ported yet: mate rescue's Myers
+    kernel holds patterns of at most ``MYERS_MAX_LEN`` bases."""
+    if params.pe_policy not in ("fr", "rf", "ff"):
+        raise ValueError(f"unknown pe_policy {params.pe_policy!r}")
+    if params.mate_rescue and read_width > MYERS_MAX_LEN:
+        raise NotImplementedError(
+            f"mate rescue of reads wider than {MYERS_MAX_LEN} bases (here "
+            f"{read_width}) is not ported yet; use --max-read-len <= "
+            f"{MYERS_MAX_LEN} or --no-rescue")
+
+
 def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
                       quals1, reads2, lens2, quals2, params: MapParams):
     """Map one dense batch of read pairs. Returns (mate-1 result dict,
-    mate-2 result dict, pairing dict) of (B,) tensors, the JAX function's
-    keys and values."""
+    mate-2 result dict, pairing dict) of (B,) tensors: the JAX function's
+    keys and values, and each mate's ``pattern_start``/``pattern_end``
+    (its soft clips in local mode)."""
     P = params
-    if P.pe_policy not in ("fr", "rf", "ff"):
-        raise ValueError(f"unknown pe_policy {P.pe_policy!r}")
+    check_paired_supported(P, max(reads1.shape[1], reads2.shape[1]))
     neg = NEG_INF
     half = neg // 2
     B = reads1.shape[0]
@@ -247,8 +269,9 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
             mapped=mapped, best_score=score, mapq=mapq,
             has_second=sec >= smin, strand=fin["strand"],
             window_start=fin["window_start"], text_start=fin["text_start"],
-            ops=fin["ops"], n_ops=fin["n_ops"], nm=fin["nm"],
-            simple=fin["simple"],
+            pattern_start=fin["pattern_start"],
+            pattern_end=fin["pattern_end"], ops=fin["ops"],
+            n_ops=fin["n_ops"], nm=fin["nm"], simple=fin["simple"],
         )
 
     return (
@@ -272,7 +295,7 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
     """Interleaved SAM records (mate 1, mate 2 per pair) of a dispatched
     pair batch, with the pair flags, RNEXT/PNEXT/TLEN and bowtie2's YT
     tag; the host formatting of ``nvbio_tpu.bowtie.paired.
-    map_pair_batch``."""
+    map_pair_batch``, plus the soft clips of local-mode CIGARs."""
     res1, res2, pinfo = res
     ops_dev = (res1["ops"], res2["ops"])
     res1 = {k: v.cpu().numpy() for k, v in res1.items() if k != "ops"}
@@ -302,7 +325,9 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
             gpos=gpos.tolist(), ci=cis.tolist(), local=local.tolist(),
             score=res["best_score"].tolist(), nm=res["nm"].tolist(),
             mapq=res["mapq"].tolist(), n_ops=res["n_ops"].tolist(),
-            simple=res["simple"].tolist(), ops=ops_of))
+            simple=res["simple"].tolist(), ops=ops_of,
+            clip=list(zip(res["pattern_start"].tolist(),
+                          res["pattern_end"].tolist()))))
     Lfull = np.asarray(batch1.codes).shape[1]
     names = mapper.ref_names
 
@@ -357,8 +382,9 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
             else:
                 md, xm, xo, xg = str(n_ops), 0, 0, 0
             tags.update(MD=md, XM=xm, XO=xo, XG=xg)
-            cigar = (f"{n_ops}M" if me["simple"][b] else
-                     cigar_to_string(me["ops"][b], n_ops, reverse=True))
+            core = (f"{n_ops}M" if me["simple"][b] else
+                    cigar_to_string(me["ops"][b], n_ops, reverse=True))
+            cigar = soft_clipped(core, *me["clip"][b], L)
             out.append(SamRecord(
                 qname=name, flag=flag, rname=names[ci],
                 pos=me["local"][b] + 1, mapq=me["mapq"][b], cigar=cigar,

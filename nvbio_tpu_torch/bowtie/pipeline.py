@@ -83,6 +83,12 @@ def host_rc_ascii(codes_np: np.ndarray) -> np.ndarray:
     return rc_table[np.asarray(codes_np, np.uint8)][:, ::-1]
 
 
+def soft_clipped(core: str, ps: int, pe: int, L: int) -> str:
+    """CIGAR of an L-base read aligned over pattern span [ps, pe): the
+    aligned ops ``core`` between soft clips (none in end-to-end mode)."""
+    return (f"{ps}S" if ps else "") + core + (f"{L - pe}S" if pe < L else "")
+
+
 def _mm_penalties(reads, quals, params: MapParams):
     """Bowtie2 quality-dependent mismatch penalty (positive magnitude);
     read-N positions charge the flat ``--np`` penalty."""
@@ -516,9 +522,7 @@ class ReadMapper:
             tags.update(MD=md, XM=xm, XO=xo, XG=xg)
             core = (f"{n_ops_l[b]}M" if simple[b] else
                     cigar_to_string(ops_of[b], n_ops_l[b], reverse=True))
-            ps, pe = pat_starts[b], pat_ends[b]
-            cigar = ((f"{ps}S" if ps else "") + core
-                     + (f"{L - pe}S" if pe < L else ""))
+            cigar = soft_clipped(core, pat_starts[b], pat_ends[b], L)
             out.append(SamRecord(
                 qname=name, flag=FLAG_REVERSE if strand else 0,
                 rname=self.ref_names[cis[b]], pos=locals_[b] + 1,

@@ -12,8 +12,8 @@
 // and i-1+k < tlen (:108-112). The score is the max over the band, k_best
 // the first k that reaches it.
 //
-// What bounds it on an H100: integer instructions (about 10 per cell,
-// counted in chip_smoke.py); per row a thread reads one pattern symbol,
+// What bounds it on an H100: integer instructions (at least 7 per cell,
+// 9 for LOCAL, counted in chip_smoke.py); per row a thread reads one pattern symbol,
 // one penalty and one text symbol. Design: K1's core without the packed
 // genome fetch: one alignment per thread, the band state H/E, the LOCAL
 // running max and the rolling text window in registers, templated on the

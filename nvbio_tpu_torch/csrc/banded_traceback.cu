@@ -23,8 +23,8 @@
 // whose best is 0 walks nothing).
 //
 // What bounds it on an H100: integer instructions of the forward pass (at
-// least 17 per cell, counted in chip_smoke.py) and the walk's dependent
-// loads. The TPU kept the direction plane in VMEM and walked all lanes
+// least 17 per cell, 22 for LOCAL, counted in chip_smoke.py) and the walk's
+// dependent loads. The TPU kept the direction plane in VMEM and walked all lanes
 // row-synchronously (:469), a SIMD measure; here each thread owns one read,
 // keeps H/E and a rolling text window in registers (templated on W and on
 // LOCAL), writes its direction bytes to a global scratch laid out

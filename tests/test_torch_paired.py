@@ -2,11 +2,16 @@
 nvbio_tpu's kernel path (K4 mate locate + K3 rescore, K2 tracebacks,
 Pallas in interpret mode) — align_paired_core field by field and
 map_pair_batch's SAM records under the fr, rf and ff policies and in local
-mode — and the PE command line against ``nvbio_tpu map`` (no rescue)."""
+mode — and the PE command line against ``nvbio_tpu map`` (no rescue).
+
+In local mode the port's CIGARs carry the mates' soft clips, which the JAX
+package leaves out; the records are otherwise identical."""
 
 import os
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +49,9 @@ def pair_dataset(seed=41, n_pairs=60):
     """Two contigs and FR pairs (fragments of 150-350 bp) of five kinds,
     by pair index mod 5: concordant (twice), rescue-only (mate 2 has a
     substitution every 10 bases, one in the 12-base q-gram key of every
-    seed on either strand, so it has no candidate), half-mapped (mate 2 is random), discordant (mate 2
-    5-9 kbp from mate 1, opposite strand). Some mates carry a read N."""
+    seed on either strand, so it has no candidate), half-mapped (mate 2 is
+    random), discordant (mate 2 5-9 kbp from mate 1, opposite strand).
+    Some mates carry a read N."""
     rng = np.random.default_rng(seed)
     G = 40000
     codes = rng.integers(0, 4, G).astype(np.uint8)
@@ -91,22 +97,37 @@ def dataset():
     return pair_dataset()
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def mapped(request, dataset):
+def _jax_run(dataset, config):
+    """The JAX kernel path's align_paired_core and SAM records."""
     recs, reads1, reads2 = dataset
-    config = request.param
     jm = JReadMapper.build(JReference.from_records(recs),
                            _params("jax", config))
+    jb1, jb2 = (j_batch(r, L, Alphabet.DNA_N) for r in (reads1, reads2))
+    jres = jpaired.align_paired_core(
+        jm.index, jm.genome_words, jm.n_genome_dev,
+        *(jnp.asarray(x) for b in (jb1, jb2)
+          for x in (b.codes, b.lengths, b.quals)), jm.params)
+    jsam = [r.line() for r in jpaired.map_pair_batch(jm, jb1, jb2)]
+    return jres, jsam
+
+
+@pytest.fixture(scope="module")
+def jax_runs(dataset):
+    """Every config's JAX run, traced and compiled on parallel threads
+    (XLA compiles without the GIL; compiling dominates these runs)."""
+    with kernel_path(), ThreadPoolExecutor(len(CONFIGS)) as pool:
+        futures = {c: pool.submit(_jax_run, dataset, c) for c in CONFIGS}
+        return {c: f.result() for c, f in futures.items()}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def mapped(request, dataset, jax_runs):
+    recs, reads1, reads2 = dataset
+    config = request.param
+    jres, jsam = jax_runs[config]
     tm = TReadMapper.build(TReference.from_records(recs),
                            _params("torch", config), device="cpu")
-    jb1, jb2 = (j_batch(r, L, Alphabet.DNA_N) for r in (reads1, reads2))
     tb1, tb2 = (t_batch(r, L, Alphabet.DNA_N) for r in (reads1, reads2))
-    with kernel_path():
-        jres = jpaired.align_paired_core(
-            jm.index, jm.genome_words, jm.n_genome_dev,
-            *(jnp.asarray(x) for b in (jb1, jb2)
-              for x in (b.codes, b.lengths, b.quals)), jm.params)
-        jsam = [r.line() for r in jpaired.map_pair_batch(jm, jb1, jb2)]
     tres = tpaired.dispatch_pair_batch(tm, tb1, tb2)
     tsam = [r.line() for r in tpaired.format_pair_batch(tm, tb1, tb2, tres)]
     return dict(config=config, jres=jres, tres=tres, jsam=jsam, tsam=tsam)
@@ -115,7 +136,9 @@ def mapped(request, dataset):
 def test_align_paired_core_field_by_field(mapped):
     for jd, td, what in zip(mapped["jres"], mapped["tres"],
                             ("mate1", "mate2", "pairing")):
-        assert set(td) == set(jd), what
+        clips = set() if what == "pairing" else {"pattern_start",
+                                                 "pattern_end"}
+        assert set(td) == set(jd) | clips, what
         for k in sorted(jd):   # ops too: both END->START (kernel path)
             np.testing.assert_array_equal(td[k].numpy(), np.asarray(jd[k]),
                                           err_msg=f"{what} {k}")
@@ -129,10 +152,28 @@ def test_align_paired_core_field_by_field(mapped):
         assert not proper[kinds == "half-mapped"].any()
 
 
+def _cigar_query_len(cigar):
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MIS=X])", cigar))
+
+
 def test_map_pair_batch_sam_identical(mapped):
     jsam, tsam = mapped["jsam"], mapped["tsam"]
-    assert tsam == jsam
-    assert len(tsam) == 2 * 60
+    assert len(tsam) == len(jsam) == 2 * 60
+    if mapped["config"] == "local":
+        # identical but for the soft clips the port adds to the CIGAR
+        n_clipped = 0
+        for t, j in zip(tsam, jsam):
+            tf, jf = t.split("\t"), j.split("\t")
+            assert tf[:5] + tf[6:] == jf[:5] + jf[6:]
+            assert re.sub(r"^\d+S|\d+S$", "", tf[5]) == jf[5]
+            n_clipped += tf[5] != jf[5]
+        assert n_clipped >= 5
+    else:
+        assert tsam == jsam
+    for line in tsam:   # a mapped mate's CIGAR spans its SEQ
+        f = line.split("\t")
+        if f[5] != "*":
+            assert _cigar_query_len(f[5]) == len(f[9]), line
     yts = {line.split("YT:Z:")[1][:2] for line in tsam if "YT:Z:" in line}
     if mapped["config"] in ("fr", "local"):      # the data's orientation
         flags = [int(line.split("\t")[1]) for line in tsam]
@@ -176,3 +217,22 @@ def test_pe_cli_matches_jax_cli(tmp_path, dataset):
     assert len(jrec) == 2 * len(reads1)
     assert tsq == jsq
     assert trec == jrec
+
+
+def test_paired_rescue_refuses_reads_over_128(tmp_path):
+    """Mate rescue's Myers kernel holds at most 128 pattern bases: wider
+    reads are refused before any reference is read or index built."""
+    from nvbio_tpu_torch.__main__ import main
+
+    with pytest.raises(NotImplementedError, match="--no-rescue"):
+        main(["map", str(tmp_path / "missing.fa"), "-1", "a.fq", "-2",
+              "b.fq", "--max-read-len", "150", "--device", "cpu"])
+    tpaired.check_paired_supported(TMapParams(max_read_len=150,
+                                              mate_rescue=False), 150)
+    tpaired.check_paired_supported(TMapParams(), 128)
+    recs, reads1, reads2 = pair_dataset(n_pairs=8)
+    tm = TReadMapper.build(TReference.from_records(recs),
+                           TMapParams(**PARAMS), device="cpu")
+    b1, b2 = (t_batch(r, 150, Alphabet.DNA_N) for r in (reads1, reads2))
+    with pytest.raises(NotImplementedError, match="wider than 128"):
+        tpaired.dispatch_pair_batch(tm, b1, b2)
