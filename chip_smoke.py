@@ -12,7 +12,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K1 candidate scoring B=32768, C=24, L=100, W=31; K2 traceback and
      K2-LOCAL B=32768, L=100, W=31; K3 (rescue rescore) B=32768, M=100,
      W=31; K3-LOCAL (local candidates) B*C=786432, M=100, W=31; K4 (mate
-     locate) B=32768, M=100, T=531;
+     locate) B=32768, M=100, T=531; K2-WIDE and K2-WIDE-LOCAL (full-matrix
+     mate traceback) B=32768, M=100, W=230 on left-padded windows; K5
+     (register-tiled scorer) G=4096 blocks, L=100, W=31 and 17 with
+     bench.py's flags, and G=64 with every flag off and ragged lengths;
+     K2 at the --all shape B*C=786432, W=31; K2-WIDE at K2's shape (W=31)
+     beside K2;
   4. main path (single-end): a seeded uniform 100 Mbp genome, its q-gram
      index built on the host, ReadMapper.build(...) on cuda, 4 batches of
      32768 reads of 100 bp with 1% substitutions through dispatch +
@@ -26,10 +31,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. local path: 2 batches of 32768 reads under --local, a third with a
      random 15-base genome-right tail; K3-LOCAL +2, K2-LOCAL +1, K1 +0
      per batch; sensitivity >= 0.95, tailed reads soft-clipped >= 0.8;
-  7. profile: one batch's dispatch of each path under torch.profiler —
-     device busy share and the largest device-time consumers;
-  8. GPU = CPU: 1024 reads, 1024 pairs and 1024 local reads mapped on
-     cuda and on cpu must give identical SAM records.
+  7. paired-full: 1 batch of the paired-end pairs with
+     pe_full_traceback=True (K2-WIDE +2, K2 +0, K1 +2, K3 +2, K4 +2), and
+     1 batch under --local (K2-WIDE-LOCAL +2, K3-LOCAL +2, K3 +2, K4 +2);
+     per-mate sensitivity >= 0.95, proper share >= 0.90, every mapped
+     CIGAR's query length equal to len(SEQ);
+  8. all: the genome again with 2 Mbp of it pasted, exactly, over other
+     loci (its own q-gram index), so reads from those segments have two
+     loci; 1 batch of 32768 of its reads through map_batch_all (--all; K1
+     +1, K2 +1), primaries placed >= 0.95, some record at the truth >=
+     0.95, secondaries per read > 0;
+  9. paired-all: 1 batch of 32768 pairs of that genome, with no seedless
+     mate, through map_pair_batch_all (K1 +2, K2 +2), per-mate primaries
+     placed >= 0.95, secondary records > 0;
+ 10. gcups: K5 at W=31 and 17 as bench.py's GCUPS leg runs it (G=4096,
+     three passes of 10 launches, median), its GCUPS and launch count;
+ 11. profile: one batch's dispatch of each mapping path under
+     torch.profiler — device busy share and the largest device-time
+     consumers;
+ 12. GPU = CPU: 1024 reads or pairs of each of the six mapping paths
+     mapped on cuda and on cpu must give identical SAM records (those of
+     the two --all paths including secondaries).
 Prints one JSON line of kernels before the card's line and the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 nvbio_tpu.
@@ -37,7 +59,9 @@ nvbio_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,9 +75,12 @@ W = 2 * MAX_DIST + 1
 N_BATCHES = 4
 N_BATCHES_PE = N_BATCHES_LOCAL = 2
 N_CMP = 1024
+W_FULL = (L + W - 1) + L        # the full-matrix traceback's band T + M
+G_K5 = 4096                     # bench.py's GCUPS leg: 4096 blocks of 1024
 MAXINS = 500                    # bowtie2 -X default: mate rescue window
 RW = MAXINS + W                 # K4's text length
 SEED = 20261016
+N_REPEATS, REPEAT_LEN = 400, 5000  # the --all phases' planted repeats
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # Issue ceiling of a Hopper SM: 4 warp schedulers, each issuing one warp
 # instruction (32 threads) per clock; no mix of integer instructions retires
@@ -78,6 +105,11 @@ ISSUE_LANES_PER_SM = 128
 #       max(diag, E, 0) (+0), plus the zero-cell direction (compare +
 #       select, 2) and the sink (one predicated compare, two selects, 3):
 #       22 per cell; each walk step adds the zero-stop test: 15.
+#   K2-WIDE, K2-WIDE-LOCAL: K2's and K2-LOCAL's recurrence, walk and
+#       counts (17 and 14, 22 and 15); its shuffles, the F scan across
+#       lanes and the warp reductions are the warp layout's cost, not the
+#       function's.
+#   K5: K1's recurrence (8), with the sequential F of bench.py's flags.
 #   K4: per 32-bit word and text step: the Eq select over 4 symbols (3),
 #       Eq & PV and the add with carry (2), D0 (2 three-input LOPs), Hp
 #       and Hn (2), the two shifts with carry-in (2), PV and MV (2), the
@@ -105,6 +137,27 @@ def smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel<template args>: registers, spill bytes' for each entry
+    function in nvcc's -Xptxas -v output (names read from the mangled
+    symbol: _Z..name_kernelILi8ELb0E.. -> name_kernel<8,0>)."""
+    out, entry, spill = [], "?", "?"
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            nm = re.search(r"\d([A-Za-z_]+_kernel)I(.*?)EEv", m.group(1))
+            entry = (f"{nm.group(1)}<"
+                     f"{','.join(re.findall(r'L[ib](\d+)E', nm.group(2)))}>"
+                     if nm else m.group(1)[:40])
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{entry}: {m.group(1)} regs, {spill} B spill")
+    return out
 
 
 def cuda_ms(fn, reps: int = 7) -> float:
@@ -208,7 +261,8 @@ def phase_kernels(genome, words, dev, rng):
     k3 = check_kernel("banded_score", K.banded_score, K.banded_score_plain,
                       k2_args)
     # K3-LOCAL at the local path's shapes: every (read, candidate slot) of
-    # K1's inputs, flattened as the local branch of read_candidates does
+    # K1's inputs, flattened as the local branch of read_candidates does;
+    # K2 on the same rows is the --all traceback (align_batch_all)
     lsc = MapParams.local().scoring
     slot_rc = (np.arange(C) >= NCH)[None, :, None]
     flat_pats = t(np.where(slot_rc, rc[:, None], reads[:, None]).reshape(
@@ -216,12 +270,17 @@ def phase_kernels(genome, words, dev, rng):
     flat_mm = t(np.where(slot_rc, mm_rc[:, None], mm[:, None]).reshape(
         B * C, L))
     flat_w0 = t(w0.reshape(-1), torch.int64)
-    k3l_args = (flat_pats, t(np.full(B * C, L)),
-                extract_window(words, flat_w0, TW), t(wlens.reshape(-1)),
-                lsc, W, flat_mm)
+    flat = (flat_pats, t(np.full(B * C, L)),
+            extract_window(words, flat_w0, TW), t(wlens.reshape(-1)))
     k3l = check_kernel("banded_score_local", K.banded_score,
-                       K.banded_score_plain, k3l_args, local=True)
-    del flat_pats, flat_mm, k3l_args
+                       K.banded_score_plain, (*flat, lsc, W, flat_mm),
+                       local=True)
+    k2a = check_kernel("banded_traceback (--all shape)", K.banded_traceback,
+                       K.banded_traceback_plain, (*flat, sc, W, flat_mm),
+                       plain_reps=3)
+    k2a_steps = int(k2a["out"][3].long().sum())
+    del flat_pats, flat_mm, flat, k2a["out"]
+    torch.cuda.empty_cache()
     # K2-LOCAL: every other read ends in 15 random bases, so its walk
     # stops at the clip
     tailed = pats.copy()
@@ -230,6 +289,51 @@ def phase_kernels(genome, words, dev, rng):
     k2l = check_kernel("banded_traceback_local", K.banded_traceback,
                        K.banded_traceback_plain, k2l_args, local=True)
     k2l_steps = int(k2l["out"][3].long().sum())
+    # K2-WIDE at the full-matrix traceback's band T+M = 230: each read's
+    # window of T = L+W-1 left-padded by M never-match symbols, as
+    # traceback.batch_traceback_full builds it
+    pad8 = torch.full((B, L), 8, dtype=torch.int32, device=dev)
+    full_texts = torch.cat([pad8, texts], dim=1)
+    full_tlens = tlens + L
+    k2w = check_kernel("banded_traceback_wide", K.banded_traceback_wide,
+                       K.banded_traceback_wide_plain,
+                       (t(pats), t(lens), full_texts, full_tlens, sc, W_FULL,
+                        t(tb_mm)), plain_reps=3)
+    k2w_steps = int(k2w["out"][3].long().sum())
+    k2wl = check_kernel("banded_traceback_wide_local",
+                        K.banded_traceback_wide,
+                        K.banded_traceback_wide_plain,
+                        (t(tailed), t(lens), full_texts, full_tlens, lsc,
+                         W_FULL, t(tb_mm)), plain_reps=3, local=True)
+    k2wl_steps = int(k2wl["out"][3].long().sum())
+    # K2-WIDE at K2's own shape: what K2 would cost if K2-WIDE replaced it
+    k2w31 = check_kernel("banded_traceback_wide W=31 (K2's shape)",
+                         K.banded_traceback_wide,
+                         K.banded_traceback_wide_plain, k2_args, plain_reps=3)
+    del k2w31["out"]
+    print(f"[kernels] K2-WIDE mean walk {k2w_steps / B:.2f} steps, "
+          f"K2-WIDE-LOCAL {k2wl_steps / B:.2f}", flush=True)
+    # K5 as bench.py's GCUPS leg runs it, then every flag off on a ragged
+    # batch with a per-row mismatch plane
+    k5 = {}
+    for wk in (W, 17):
+        ops5 = k5_operands(wk, G_K5, dev)
+        k5[wk] = check_kernel(
+            f"regtile_score_blocked W={wk}", K.regtile_score_blocked,
+            K.regtile_score_blocked_plain, ops5, plain_reps=3,
+            **k5_bench_flags(sc, wk))
+        del ops5, k5[wk]["out"]
+        torch.cuda.empty_cache()
+    g64 = 64
+    lp, twp = (L + 7) // 8 * 8, (L + 7) // 8 * 8 + W
+    ops64 = (t(rng.integers(0, 5, (g64, lp, 8, 128))),
+             t(rng.integers(L // 2, L + 3, (g64, 1, 8, 128))),
+             t(rng.integers(0, 4, (g64, twp, 8, 128))),
+             t(rng.integers(0, twp + 1, (g64, 1, 8, 128))),
+             t(-rng.integers(2, 7, (g64, lp, 8, 128))))
+    k5r = check_kernel("regtile_score_blocked G=64 ragged",
+                       K.regtile_score_blocked, K.regtile_score_blocked_plain,
+                       ops64, scoring=sc, band=W, length=L, seq_f=False)
     # K4 at the mate-locate shapes: each mate in a window of maxins + band
     # = 531 bases that holds it; 64 empty patterns, 64 short windows
     wstart = np.clip(starts - rng.integers(0, RW - L, size=B), 0, n - RW)
@@ -268,6 +372,23 @@ def phase_kernels(genome, words, dev, rng):
     k4_word_steps = B * RW * ((L + 31) // 32)
     k4_ops = K4_OPS_PER_WORD_STEP * k4_word_steps + K4_OPS_PER_STEP * B * RW
     k4_bytes = B * L * 4 + B * RW * 4 + 4 * B * 4
+    k2a_cells = B * C * L * W
+    k2a_ops = K2_OPS_PER_CELL * k2a_cells + K2_OPS_PER_STEP * k2a_steps
+    k2a_bytes = C * k2_bytes
+    MAXS_F = (L + W_FULL + 7) // 8 * 8
+    TW_F = L + W_FULL - 1
+    k2w_cells = B * L * W_FULL
+    k2w_ops = K2_OPS_PER_CELL * k2w_cells + K2_OPS_PER_STEP * k2w_steps
+    k2wl_ops = K2L_OPS_PER_CELL * k2w_cells + K2L_OPS_PER_STEP * k2wl_steps
+    k2w_bytes = (2 * B * L * 4 + B * TW_F * 4 + 2 * B * 4 + 7 * B * 4
+                 + B * MAXS_F * 4)
+    n5 = G_K5 * 1024
+
+    def k5_cost(wk, n):
+        # the rows the function reads: L of patterns and penalties, L+W-1 of
+        # texts; two length planes in, two outputs out
+        return (K1_OPS_PER_CELL * n * L * wk,
+                n * (2 * L + L + wk - 1) * 4 + 4 * n * 4)
 
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
@@ -295,6 +416,13 @@ def phase_kernels(genome, words, dev, rng):
          k3l_bytes, f"B*C={B * C} M={L} W={W} local"),
         ("myers_semiglobal", "myers_semiglobal.cu", 1132, k4, k4_ops,
          k4_bytes, f"B={B} M={L} T={RW}"),
+        ("banded_traceback_wide", "banded_traceback_wide.cu", 568, k2w,
+         k2w_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M)"),
+        ("banded_traceback_wide_local", "banded_traceback_wide.cu", 568,
+         k2wl, k2wl_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M) local"),
+        ("regtile_score_blocked", "regtile_score_blocked.cu", 839, k5[W],
+         *k5_cost(W, n5), f"G={G_K5} L={L} W={W} seq_f full_text "
+         f"uniform_plen"),
     ]
     out = []
     for name, src, line, res, ops, nbytes, shape in rows:
@@ -305,10 +433,64 @@ def phase_kernels(genome, words, dev, rng):
             max_abs_err=res["max_abs_err"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=bms, bound_by=by,
             library_ms=None, shape=shape))
-    return out
+    # measured beside the nine entries: K5 at W=17 and on a ragged batch,
+    # K2 at the --all shape, K2-WIDE at K2's shape
+    extra = []
+    for name, res, (ops, nbytes), shape in (
+            ("regtile_score_blocked", k5[17], k5_cost(17, n5),
+             f"G={G_K5} L={L} W=17 seq_f full_text uniform_plen"),
+            ("regtile_score_blocked", k5r, k5_cost(W, g64 * 1024),
+             f"G={g64} L={L} W={W} no flags, ragged"),
+            ("banded_traceback", k2a, (k2a_ops, k2a_bytes),
+             f"B*C={B * C} L={L} W={W} (--all)"),
+            ("banded_traceback_wide", k2w31, (k2_ops, k2_bytes),
+             f"B={B} L={L} W={W} (K2's shape; K2 {k2['ms']:.3f} ms)")):
+        bms, by = bound(ops, nbytes)
+        extra.append(dict(name=name, equal=res["equal"],
+                          max_abs_err=res["max_abs_err"], ms=res["ms"],
+                          plain_ms=res["plain_ms"], bound_ms=bms,
+                          bound_by=by, shape=shape))
+    print(f"[kernels] K2-WIDE {k2w_ops:.4g} ops {k2w_bytes:.4g} B "
+          f"(direction scratch {B * L * W_FULL:.4g} B); K2-WIDE-LOCAL "
+          f"{k2wl_ops:.4g} ops; K5 W={W} {k5_cost(W, n5)[0]:.4g} ops "
+          f"{k5_cost(W, n5)[1]:.4g} B, W=17 {k5_cost(17, n5)[0]:.4g} ops "
+          f"{k5_cost(17, n5)[1]:.4g} B; K2 at --all {k2a_ops:.4g} ops "
+          f"{k2a_bytes:.4g} B", flush=True)
+    for e in extra:
+        print(f"[kernels] {e['name']} {e['shape']}: {e['ms']:.3f} ms, bound "
+              f"{e['bound_ms']:.3f} ms ({e['bound_by']})", flush=True)
+    return out, extra
 
 
-def check_kernel(name, kernel, plain, args, **kw):
+def k5_operands(wk: int, g: int, dev):
+    """bench.py's GCUPS operands (bench.py:424-440), made on the card from a
+    seed: random codes, the flat mismatch plane, every pattern L long and
+    every text spanning L+W-1."""
+    from nvbio_tpu_torch.bowtie.params import MapParams
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(wk)
+    lp = (L + 7) // 8 * 8
+    i32 = torch.int32
+    return (torch.randint(0, 4, (g, lp, 8, 128), generator=gen, device=dev,
+                          dtype=i32),
+            torch.full((g, 1, 8, 128), L, dtype=i32, device=dev),
+            torch.randint(0, 4, (g, lp + wk, 8, 128), generator=gen,
+                          device=dev, dtype=i32),
+            torch.full((g, 1, 8, 128), L + wk - 1, dtype=i32, device=dev),
+            torch.full((g, lp, 8, 128), MapParams().scoring.mismatch,
+                       dtype=i32, device=dev))
+
+
+def k5_bench_flags(scoring, wk: int) -> dict:
+    """bench.py's regtile_score_blocked keywords (bench.py:446-450, 466-467):
+    unroll 10 at the production band, 4 at W=17."""
+    return dict(scoring=scoring, band=wk, length=L, seq_f=True,
+                full_text=True, uniform_plen=True,
+                unroll=10 if wk == W else 4)
+
+
+def check_kernel(name, kernel, plain, args, plain_reps=5, **kw):
     """One kernel against its plain version on the same inputs (every
     output bit for bit), then both timed; fails the run on a difference."""
     got = kernel(*args, **kw)
@@ -317,8 +499,9 @@ def check_kernel(name, kernel, plain, args, **kw):
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     err = max(int((a.long() - b.long()).abs().max()) for a, b in
               zip(got, want))
+    del want
     ms = cuda_ms(lambda: kernel(*args, **kw))
-    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
     print(f"[kernels] {name}: equal={equal} max_abs_err={err} ms={ms:.3f} "
           f"plain_ms={plain_ms:.3f}", flush=True)
     require(equal, f"{name} differs from its plain version")
@@ -426,20 +609,21 @@ def local_batch(genome, seed):
     return batch, starts, is_rc, tailed
 
 
-def reset_launches():
+def wrappers():
     from nvbio_tpu_torch.align import kernels as K
 
-    for fn in (K.banded_score_cands, K.banded_traceback, K.banded_score,
-               K.myers_semiglobal):
+    return (K.banded_score_cands, K.banded_traceback, K.banded_score,
+            K.myers_semiglobal, K.banded_traceback_wide,
+            K.regtile_score_blocked)
+
+
+def reset_launches():
+    for fn in wrappers():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from nvbio_tpu_torch.align import kernels as K
-
-    return {fn.__name__: fn.launches for fn in (
-        K.banded_score_cands, K.banded_traceback, K.banded_score,
-        K.myers_semiglobal)}
+    return {fn.__name__: fn.launches for fn in wrappers()}
 
 
 def run_batches(dispatch, fmt, inputs):
@@ -463,10 +647,12 @@ def run_batches(dispatch, fmt, inputs):
 
 
 def require_launches(path, got, per_batch, n_batches):
-    for name, want in per_batch.items():
-        require(got[name] == want * n_batches,
-                f"{path}: {name} launched {got[name]} times, expected "
-                f"{want * n_batches}")
+    """Each wrapper's launches in a path's run: ``per_batch`` times the
+    batches for the ones named, none for the others."""
+    for name in got:
+        want = per_batch.get(name, 0) * n_batches
+        require(got[name] == want, f"{path}: {name} launched {got[name]} "
+                                   f"times, expected {want}")
 
 
 def placed(rec, start, rc, max_dist) -> bool:
@@ -562,6 +748,198 @@ def phase_local(genome, mapper, card):
     return batches[0][0], launches, stats
 
 
+def cigar_query_len(cigar: str) -> int:
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MIS=X])", cigar))
+
+
+def phase_paired_full(genome, mapper, label, seed, per_batch, card):
+    """One batch of the paired-end pairs with the full-matrix mate
+    traceback (``pe_full_traceback=True``): launch counts, per-mate
+    sensitivity, proper share, and every mapped CIGAR spanning its SEQ."""
+    from nvbio_tpu_torch.bowtie.paired import (
+        dispatch_pair_batch,
+        format_pair_batch,
+    )
+
+    md = mapper.params.max_dist
+    pair, starts, rcs, _ = pair_batches(genome, seed)
+    outs, t_dev, t_fmt, wall, launches = run_batches(
+        lambda b1, b2: dispatch_pair_batch(mapper, b1, b2),
+        lambda b1, b2, res: format_pair_batch(mapper, b1, b2, res), [pair])
+    recs = outs[0]
+    require(len(recs) == 2 * B, f"{len(recs)} records for {B} pairs")
+    n_ok = n_proper = n_span_bad = n_gapped = 0
+    for i in range(B):
+        for m in (0, 1):
+            rec = recs[2 * i + m]
+            n_ok += placed(rec, starts[m][i], rcs[m][i], md)
+            if rec.cigar != "*":
+                n_span_bad += cigar_query_len(rec.cigar) != len(rec.seq)
+                n_gapped += "I" in rec.cigar or "D" in rec.cigar
+        n_proper += bool(recs[2 * i].flag & 0x2)
+    sens = n_ok / (2 * B)
+    proper = n_proper / B
+    print(f"[{label}] {B} pairs in {wall:.3f} s = {B / wall:.1f} pairs/s; "
+          f"dispatch+sync {t_dev[0]:.3f} s, format {t_fmt[0]:.3f} s; "
+          f"per-mate sensitivity {sens:.5f}; proper {proper:.5f}; gapped "
+          f"CIGARs {n_gapped}; CIGARs not spanning SEQ {n_span_bad}; "
+          f"launches {launches}; card {card}", flush=True)
+    require_launches(label, launches, per_batch, 1)
+    require(sens >= 0.95, f"{label} per-mate sensitivity {sens:.4f} < 0.95")
+    require(proper >= 0.90, f"{label} proper share {proper:.4f} < 0.90")
+    require(n_span_bad == 0, f"{label}: {n_span_bad} CIGARs do not span "
+                             f"their SEQ")
+    return pair, launches, dict(pairs=B, seconds=wall, pairs_per_s=B / wall,
+                                dispatch_s=t_dev[0], format_s=t_fmt[0],
+                                sensitivity=sens, proper=proper)
+
+
+def plant_repeats(genome, rng):
+    """A copy of ``genome`` with N_REPEATS segments of REPEAT_LEN bases each
+    pasted, exactly, over another random locus (2 Mbp of 100): a read or
+    pair from either copy has two loci of equal score, so --all writes a
+    secondary record for it."""
+    g = genome.copy()
+    n = len(g) - REPEAT_LEN
+    for src, dst in zip(rng.integers(0, n, N_REPEATS).tolist(),
+                        rng.integers(0, n, N_REPEATS).tolist()):
+        g[dst:dst + REPEAT_LEN] = g[src:src + REPEAT_LEN]
+    return g
+
+
+def by_read(recs):
+    """SAM records grouped by read name, in order."""
+    out = {}
+    for r in recs:
+        out.setdefault(r.qname, []).append(r)
+    return out
+
+
+def phase_all(genome, mapper, card):
+    """One batch of single-end reads of the repeat-planted genome through
+    --all (map_batch_all): the primary of each read placed at its truth,
+    some record of each read at its truth, secondaries per read."""
+    batch, starts, is_rc = read_batch(genome, SEED + 400)
+    md = mapper.params.max_dist
+    outs, t_dev, t_fmt, wall, launches = run_batches(
+        mapper.dispatch_all, mapper.format_batch_all, [(batch,)])
+    recs = by_read(outs[0])
+    require(len(recs) == B, f"records of {len(recs)} reads for {B}")
+    n_ok = n_any = n_sec = 0
+    for name, s, rc in zip(batch.names, starts, is_rc):
+        rs = recs[name]
+        require(not rs[0].flag & 0x100 and
+                 all(r.flag & 0x100 for r in rs[1:]),
+                 f"{name}: the primary is not the one first record")
+        n_ok += placed(rs[0], s, rc, md)
+        n_any += any(placed(r, s, rc, md) for r in rs)
+        n_sec += len(rs) - 1
+    sens, found = n_ok / B, n_any / B
+    print(f"[all] {B} reads in {wall:.3f} s = {B / wall:.1f} reads/s; "
+          f"dispatch+sync {t_dev[0]:.3f} s, format {t_fmt[0]:.3f} s; "
+          f"primaries placed {sens:.5f}; some record at the truth "
+          f"{found:.5f}; {n_sec} secondary records ({n_sec / B:.4f} per "
+          f"read); launches {launches}; card {card}", flush=True)
+    require_launches("all", launches, {"banded_score_cands": 1,
+                                       "banded_traceback": 1}, 1)
+    require(sens >= 0.95, f"--all primaries placed {sens:.4f} < 0.95")
+    require(found >= 0.95, f"--all truth among the records {found:.4f} "
+                           f"< 0.95")
+    require(n_sec > 0, "--all wrote no secondary record on the repeats")
+    return batch, launches, dict(reads=B, seconds=wall, reads_per_s=B / wall,
+                                 dispatch_s=t_dev[0], format_s=t_fmt[0],
+                                 sensitivity=sens, truth_found=found,
+                                 secondaries=n_sec,
+                                 secondaries_per_read=n_sec / B)
+
+
+def phase_paired_all(genome, mapper, card):
+    """One batch of pairs of the repeat-planted genome (no seedless mate:
+    this path has no rescue) through map_pair_batch_all: each mate's
+    primary placed at its truth, secondary pair records."""
+    from nvbio_tpu_torch.bowtie.paired import (
+        dispatch_pair_batch_all,
+        format_pair_batch_all,
+    )
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.utils.simgenome import sample_pairs
+
+    seed = SEED + 500
+    r1, r2, s1, s2, rc1, rc2 = sample_pairs(genome, B, L, 200, MAXINS,
+                                            seed=seed, subst_rate=0.01)
+    rng = np.random.default_rng(seed + 1)
+    names = [f"a{seed}_{i}" for i in range(B)]
+    pair = [ReadBatch(names, r.astype(np.uint8),
+                      rng.integers(20, 41, size=(B, L)).astype(np.uint8),
+                      np.full(B, L, np.int32)) for r in (r1, r2)]
+    md = mapper.params.max_dist
+    outs, t_dev, t_fmt, wall, launches = run_batches(
+        lambda b1, b2: dispatch_pair_batch_all(mapper, b1, b2),
+        lambda b1, b2, res: format_pair_batch_all(mapper, b1, b2, res),
+        [pair])
+    recs = outs[0]
+    prim = [r for r in recs if not r.flag & 0x100]
+    require(len(prim) == 2 * B, f"{len(prim)} primary records for {B} "
+                                f"pairs")
+    n_ok = sum(placed(prim[2 * i + m], (s1, s2)[m][i], (rc1, rc2)[m][i], md)
+               for i in range(B) for m in (0, 1))
+    sens = n_ok / (2 * B)
+    n_sec = len(recs) - len(prim)
+    print(f"[paired-all] {B} pairs in {wall:.3f} s = {B / wall:.1f} "
+          f"pairs/s; dispatch+sync {t_dev[0]:.3f} s, format {t_fmt[0]:.3f} "
+          f"s; per-mate primaries placed {sens:.5f}; {n_sec} secondary "
+          f"records ({n_sec / (2 * B):.4f} per read); launches {launches}; "
+          f"card {card}", flush=True)
+    require_launches("paired-all", launches, {"banded_score_cands": 2,
+                                              "banded_traceback": 2}, 1)
+    require(sens >= 0.95, f"paired --all primaries placed {sens:.4f} < 0.95")
+    require(n_sec > 0, "paired --all wrote no secondary record on the "
+                       "repeats")
+    return pair, launches, dict(pairs=B, seconds=wall, pairs_per_s=B / wall,
+                                dispatch_s=t_dev[0], format_s=t_fmt[0],
+                                sensitivity=sens, secondaries=n_sec)
+
+
+def phase_gcups(card):
+    """K5 as bench.py's GCUPS leg runs it (bench.py:423-467): operands on
+    the card, three passes of 10 launches, the median pass; GCUPS =
+    alignments * L * W / time. Launch counts read around the leg."""
+    from nvbio_tpu_torch.align import kernels as K
+    from nvbio_tpu_torch.bowtie.params import MapParams
+
+    dev = torch.device("cuda")
+    sc = MapParams().scoring
+    out = {}
+    reset_launches()
+    for wk in (W, 17):
+        ops = k5_operands(wk, G_K5, dev)
+        kw = k5_bench_flags(sc, wk)
+        K.regtile_score_blocked(*ops, **kw)
+        torch.cuda.synchronize()
+        passes = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(10):
+                K.regtile_score_blocked(*ops, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            passes.append(a.elapsed_time(b) / 10)
+        ms = sorted(passes)[1]
+        out[f"gcups_w{wk}"] = G_K5 * 1024 * L * wk / (ms * 1e-3) / 1e9
+        out[f"ms_w{wk}"] = ms
+        del ops
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    print(f"[gcups] K5 G={G_K5} L={L}: W={W} {out[f'ms_w{W}']:.3f} ms = "
+          f"{out[f'gcups_w{W}']:.2f} GCUPS; W=17 {out['ms_w17']:.3f} ms = "
+          f"{out['gcups_w17']:.2f} GCUPS; launches {launches}; card {card}",
+          flush=True)
+    require_launches("gcups", launches, {"regtile_score_blocked": 31}, 2)
+    return launches, out
+
+
 def phase_profile(label, dispatch):
     """Device time of one batch's ``dispatch()`` by kernel (torch.profiler):
     busy share of the wall time and the largest device-time consumers."""
@@ -600,16 +978,23 @@ def phase_profile(label, dispatch):
                      for us, c, k in rows[:12]])
 
 
-def phase_gpu_equals_cpu(label, gpu_fn, cpu_fn, n_records):
-    """The same reads mapped on cuda and on cpu: identical SAM records."""
-    gpu = [r.line() for r in gpu_fn()]
+def phase_gpu_equals_cpu(label, gpu_fn, cpu_fn, n_records=None,
+                         secondaries=False):
+    """The same reads mapped on cuda and on cpu: identical SAM records (and
+    ``n_records`` of them where the path writes a fixed number; some of
+    them secondary where ``secondaries``)."""
+    recs = gpu_fn()
+    gpu = [r.line() for r in recs]
     t0 = time.time()
     cpu = [r.line() for r in cpu_fn()]
     diff = sum(a != b for a, b in zip(gpu, cpu))
-    print(f"[gpu=cpu] {label}: {len(gpu)} records, {diff} differ "
-          f"(cpu map {time.time() - t0:.2f} s)", flush=True)
-    require(len(gpu) == len(cpu) == n_records and diff == 0,
+    n_sec = sum(bool(r.flag & 0x100) for r in recs)
+    print(f"[gpu=cpu] {label}: {len(gpu)} records ({n_sec} secondary), "
+          f"{diff} differ (cpu map {time.time() - t0:.2f} s)", flush=True)
+    require(len(gpu) == len(cpu) == (n_records or len(gpu)) and diff == 0,
             f"{label}: SAM records differ between cuda and cpu")
+    require(n_sec > 0 or not secondaries,
+            f"{label}: no secondary record among those compared")
 
 
 def head(batch, n=N_CMP):
@@ -626,7 +1011,9 @@ def main() -> int:
     from nvbio_tpu_torch.align import kernels as K
     from nvbio_tpu_torch.bowtie.paired import (
         dispatch_pair_batch,
+        dispatch_pair_batch_all,
         map_pair_batch,
+        map_pair_batch_all,
     )
     from nvbio_tpu_torch.bowtie.params import MapParams
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
@@ -640,10 +1027,8 @@ def main() -> int:
     t0 = time.time()
     info = K.build()
     for name, d in info.items():
-        regs = [ln.strip() for ln in d["ptxas"].splitlines()
-                if "registers" in ln]
-        print(f"[build] {name}: {d['seconds']:.1f} s; {' | '.join(regs)}",
-              flush=True)
+        print(f"[build] {name}: {d['seconds']:.1f} s; "
+              f"{' | '.join(ptxas_summary(d['ptxas']))}", flush=True)
     print(f"[build] all kernels in {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda")
@@ -656,7 +1041,7 @@ def main() -> int:
     print(f"[genome] {GENOME_LEN} bp in {time.time() - t0:.2f} s",
           flush=True)
 
-    kernels = phase_kernels(genome, words, dev, rng)
+    kernels, extra = phase_kernels(genome, words, dev, rng)
 
     # one parameter set serves the single-end and paired-end paths
     # (-X 500, fr, rescue on); local mode is the --local preset
@@ -664,32 +1049,68 @@ def main() -> int:
                        hits_per_seed=6, max_dist=MAX_DIST, maxins=MAXINS)
     local_params = MapParams.local(max_read_len=L, seed_len=22,
                                    seed_stride=15, hits_per_seed=6)
+    full_params = dataclasses.replace(params, pe_full_traceback=True)
+    full_local = dataclasses.replace(local_params, pe_full_traceback=True)
     t0 = time.time()
     index = build_qgram_index(genome, params.qgram_q)
     print(f"[index] q-gram q={params.qgram_q} over {GENOME_LEN} bp on the "
           f"host in {time.time() - t0:.2f} s", flush=True)
     gpu_mapper, batch0, se_launches, stats = phase_main_path(
         genome, ref, index, params, card)
+    gpu_index = gpu_mapper.index
     pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card)
-    gpu_local = ReadMapper.build(ref, local_params, index=index, device="cuda")
+
+    def gpu(prm):
+        return ReadMapper.build(ref, prm, index=gpu_index, device="cuda")
+
+    gpu_local = gpu(local_params)
     local0, local_launches, local_stats = phase_local(genome, gpu_local,
                                                       card)
+    gpu_full, gpu_full_local = gpu(full_params), gpu(full_local)
+    pf0, pf_launches, pf_stats = phase_paired_full(
+        genome, gpu_full, "paired-full", SEED + 600,
+        {"banded_score_cands": 2, "banded_score": 2, "myers_semiglobal": 2,
+         "banded_traceback_wide": 2}, card)
+    pfl0, pfl_launches, pfl_stats = phase_paired_full(
+        genome, gpu_full_local, "paired-full-local", SEED + 700,
+        {"banded_score": 4, "myers_semiglobal": 2,
+         "banded_traceback_wide": 2}, card)
+    # the --all paths map against the genome with exact repeats planted
+    t0 = time.time()
+    rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
+    rep_ref = Reference(["sim100M_rep"], np.array([0, GENOME_LEN], np.int64),
+                        rep_genome, np.zeros(0, np.uint32))
+    gpu_rep = ReadMapper.build(
+        rep_ref, params, index=build_qgram_index(rep_genome, params.qgram_q),
+        device="cuda")
+    print(f"[index] repeat-planted genome ({N_REPEATS} x {REPEAT_LEN} bp) "
+          f"and its index in {time.time() - t0:.2f} s", flush=True)
+    all0, all_launches, all_stats = phase_all(rep_genome, gpu_rep, card)
+    pa0, pa_launches, pa_stats = phase_paired_all(rep_genome, gpu_rep, card)
+    gcups_launches, gcups = phase_gcups(card)
+
     # each kernel's launches in the run of the path it serves
-    own = {"banded_score_cands": (se_launches, N_BATCHES),
-           "banded_traceback": (se_launches, N_BATCHES),
-           "banded_traceback_local": (local_launches, N_BATCHES_LOCAL),
-           "banded_score": (pe_launches, N_BATCHES_PE),
-           "banded_score_local": (local_launches, N_BATCHES_LOCAL),
-           "myers_semiglobal": (pe_launches, N_BATCHES_PE)}
+    runs = {"single_end": se_launches, "paired_end": pe_launches,
+            "local": local_launches, "paired_full": pf_launches,
+            "paired_full_local": pfl_launches, "all": all_launches,
+            "paired_all": pa_launches, "gcups": gcups_launches}
+    own = {"banded_score_cands": ("single_end", N_BATCHES),
+           "banded_traceback": ("single_end", N_BATCHES),
+           "banded_traceback_local": ("local", N_BATCHES_LOCAL),
+           "banded_score": ("paired_end", N_BATCHES_PE),
+           "banded_score_local": ("local", N_BATCHES_LOCAL),
+           "myers_semiglobal": ("paired_end", N_BATCHES_PE),
+           "banded_traceback_wide": ("paired_full", 1),
+           "banded_traceback_wide_local": ("paired_full_local", 1),
+           "regtile_score_blocked": ("gcups", 2)}
     for k in kernels:
-        counts, n_batches = own[k["name"]]
+        path, n_batches = own[k["name"]]
         wrapper = k["name"].replace("_local", "")
-        k["launches"] = counts[wrapper]
-        k["launches_per_batch"] = counts[wrapper] / n_batches
-        k["launches_by_path"] = {"single_end": se_launches[wrapper],
-                                 "paired_end": pe_launches[wrapper],
-                                 "local": local_launches[wrapper]}
+        k["launches"] = runs[path][wrapper]
+        k["launches_per_batch"] = runs[path][wrapper] / n_batches
+        k["launches_by_path"] = {p: c[wrapper] for p, c in runs.items()}
         require(k["launches"] > 0, f"{k['name']} never launched on its path")
+    require(len(kernels) == 9, f"{len(kernels)} kernel entries, not 9")
 
     stats["profile"] = phase_profile(
         "single-end", lambda: gpu_mapper.dispatch(batch0))
@@ -697,9 +1118,19 @@ def main() -> int:
         "paired-end", lambda: dispatch_pair_batch(gpu_mapper, *pair0))
     local_stats["profile"] = phase_profile(
         "local", lambda: gpu_local.dispatch(local0))
+    pf_stats["profile"] = phase_profile(
+        "paired-full", lambda: dispatch_pair_batch(gpu_full, *pf0))
+    all_stats["profile"] = phase_profile(
+        "all", lambda: gpu_rep.dispatch_all(all0))
+    pa_stats["profile"] = phase_profile(
+        "paired-all", lambda: dispatch_pair_batch_all(gpu_rep, *pa0))
 
-    cpu_mapper = ReadMapper.build(ref, params, index=index, device="cpu")
-    cpu_local = ReadMapper.build(ref, local_params, index=index, device="cpu")
+    cpu_index = gpu_index.to("cpu")
+
+    def cpu(prm):
+        return ReadMapper.build(ref, prm, index=cpu_index, device="cpu")
+
+    cpu_mapper, cpu_local = cpu(params), cpu(local_params)
     small = head(batch0)
     phase_gpu_equals_cpu("single-end", lambda: gpu_mapper.map_batch(small),
                          lambda: cpu_mapper.map_batch(small), N_CMP)
@@ -711,9 +1142,28 @@ def main() -> int:
     small_local = head(local0)
     phase_gpu_equals_cpu("local", lambda: gpu_local.map_batch(small_local),
                          lambda: cpu_local.map_batch(small_local), N_CMP)
+    cpu_full = cpu(full_params)
+    f1, f2 = head(pf0[0]), head(pf0[1])
+    phase_gpu_equals_cpu("paired-full",
+                         lambda: map_pair_batch(gpu_full, f1, f2),
+                         lambda: map_pair_batch(cpu_full, f1, f2), 2 * N_CMP)
+    cpu_rep = ReadMapper.build(rep_ref, params,
+                               index=gpu_rep.index.to("cpu"), device="cpu")
+    small_all = head(all0)   # --all writes a record per kept locus
+    phase_gpu_equals_cpu("all", lambda: gpu_rep.map_batch_all(small_all),
+                         lambda: cpu_rep.map_batch_all(small_all),
+                         secondaries=True)
+    a1, a2 = head(pa0[0]), head(pa0[1])
+    phase_gpu_equals_cpu("paired-all",
+                         lambda: map_pair_batch_all(gpu_rep, a1, a2),
+                         lambda: map_pair_batch_all(cpu_rep, a1, a2),
+                         secondaries=True)
 
-    print(json.dumps({"kernels": kernels, "main_path": stats,
-                      "paired_end": pe_stats, "local": local_stats,
+    print(json.dumps({"kernels": kernels, "kernel_extra": extra,
+                      "main_path": stats, "paired_end": pe_stats,
+                      "local": local_stats, "paired_full": pf_stats,
+                      "paired_full_local": pfl_stats, "all": all_stats,
+                      "paired_all": pa_stats, "gcups": gcups,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 Each replaces a TPU kernel of ``nvbio_tpu/align/pallas_kernels.py``:
 ``banded_score_cands`` (K1) ``banded_score_cands_regtile`` (:963);
 ``banded_traceback`` (K2, and K2-LOCAL with ``local=True``)
-``banded_traceback_semiglobal_pallas`` (:568); ``banded_score`` (K3, and
-K3-LOCAL) ``banded_score_semiglobal_pallas`` (:133); ``myers_semiglobal``
-(K4) ``myers_semiglobal_pallas`` (:1132). Sources: ``nvbio_tpu_torch/csrc/*.cu``, built
+``banded_traceback_semiglobal_pallas`` (:568); ``banded_traceback_wide``
+(K2-WIDE, K2-WIDE-LOCAL) the same TPU kernel at the band T+M of the
+full-matrix traceback; ``banded_score`` (K3, and K3-LOCAL)
+``banded_score_semiglobal_pallas`` (:133); ``myers_semiglobal`` (K4)
+``myers_semiglobal_pallas`` (:1132); ``regtile_score_blocked`` (K5) the
+TPU function of that name (:839). Sources: ``nvbio_tpu_torch/csrc/*.cu``, built
 with nvcc for ``sm_90a`` at first use into ``csrc/build/`` (gitignored) —
 one shared library per source, all compiled in parallel — and bound with
 ctypes (a plain C interface; no PyTorch headers, so a build takes seconds).
@@ -48,6 +51,8 @@ _SOURCES = {
     "banded_traceback": "banded_traceback.cu",
     "banded_score": "banded_score.cu",
     "myers_semiglobal": "myers_semiglobal.cu",
+    "banded_traceback_wide": "banded_traceback_wide.cu",
+    "regtile_score_blocked": "regtile_score_blocked.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,6 +120,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "banded_score":
         fn = lib.nvbt_banded_score
         fn.argtypes = [P] * 5 + [I] * 10 + [P, P, P]
+    elif name == "banded_traceback_wide":
+        fn = lib.nvbt_banded_traceback_wide
+        fn.argtypes = [P] * 5 + [I] * 12 + [P, P, P]
+    elif name == "regtile_score_blocked":
+        fn = lib.nvbt_regtile_score_blocked
+        fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
     else:
         fn = lib.nvbt_myers_semiglobal
         fn.argtypes = [P] * 4 + [I] * 3 + [P, P, P]
@@ -233,18 +244,13 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
     """Plain torch version of ``banded_score_cands`` (same contract).
 
     Repeats ``_regtile_cand_kernel``'s arithmetic (pallas_kernels.py:
-    909-958) over a (B*C, W) band plane per pattern row. The sequential F
-    recurrence F[k] = max(F[k-1] + te, H0[k-1] + to) from F[0] =
-    min(H0[0], NEG_INF) is evaluated in closed form with a prefix max:
-    F[k] = max(F[0] + te*k, te*(k-1) + max_{k'<k}(H0[k'] + to - te*k')),
-    which is the same integer arithmetic unrolled.
+    909-958) over the (B*C) candidate rows (``_regtile_plain``), with the
+    sequential F when te >= to, as the kernel takes it.
     """
     B, L = reads.shape
     C = w0.shape[1]
     W = band
     dev = reads.device
-    match, po, pe, to, te = _gaps(scoring)
-    neg = NEG_INF
     is_rc = (torch.arange(C, device=dev) >= nch)[None, :, None]
     pat = torch.where(is_rc, rc[:, None, :], reads[:, None, :])
     pat = pat.reshape(B * C, L).to(torch.int32)
@@ -258,7 +264,31 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
     plen = lens.to(torch.int32)[:, None].expand(B, C).reshape(B * C)
     tlen = wlens.to(torch.int32).reshape(B * C)
 
-    N = B * C
+    smax, kb = _regtile_plain(
+        pat, mmv, text, plen, tlen, scoring, W, L,
+        seq_f=scoring.text_gap_ext >= scoring.text_gap_open)
+    return smax.reshape(B, C), kb.reshape(B, C)
+
+
+def _regtile_plain(pat, mmv, text, plen, tlen, scoring: GotohScoring, W: int,
+                   L: int, seq_f: bool, full_text: bool = False,
+                   uniform_plen: bool = False):
+    """The register-tiled scorers' recurrence (``_regtile_kernel``,
+    pallas_kernels.py:723-787, and its candidate twin :909-958) over an
+    (N, W) band plane per pattern row: patterns and penalties (N, >= L),
+    texts (N, >= L+W-1), lengths (N,). Returns (score, kbest), (N,) int32.
+
+    ``seq_f``: the sequential F[k] = max(F[k-1] + te, H0[k-1] + to) from
+    F[0] = min(H0[0], NEG_INF), evaluated in closed form with a prefix max,
+    F[k] = max(F[0] + te*k, te*(k-1) + max_{k'<k}(H0[k'] + to - te*k')),
+    the same integer arithmetic unrolled; otherwise the lazy F with F[0] =
+    min(H0[0] + to, NEG_INF). ``full_text`` drops the text-length mask;
+    ``uniform_plen`` takes the last row as FIN.
+    """
+    N = pat.shape[0]
+    dev = pat.device
+    match, po, pe, to, te = _gaps(scoring)
+    neg = NEG_INF
     kcol = torch.arange(W, dtype=torch.int32, device=dev)
     H = torch.zeros((N, W), dtype=torch.int32, device=dev)
     E = torch.full((N, W), neg, dtype=torch.int32, device=dev)
@@ -268,12 +298,14 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
         p = pat[:, im1:im1 + 1]
         trow = text[:, im1:im1 + W]
         sub = torch.where(p == trow, match, mmv[:, im1:im1 + 1])
-        sub = torch.where((im1 + kcol)[None, :] < tlen[:, None], sub, neg)
+        if not full_text:
+            sub = torch.where((im1 + kcol)[None, :] < tlen[:, None], sub,
+                              neg)
         diag = H + sub
         Erow = torch.cat([torch.maximum(E[:, 1:] + pe, H[:, 1:] + po),
                           torch.minimum(E[:, -1:], neg_col)], dim=1)
         H0 = torch.maximum(diag, Erow)
-        if te >= to:
+        if seq_f:
             F0 = torch.minimum(H0[:, :1], neg_col)
             if W > 1:
                 cm = torch.cummax(H0[:, :-1] + (to - te * kcol[:-1]),
@@ -288,12 +320,14 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
             F = torch.cat([torch.minimum(H0[:, :1] + to, neg_col),
                            G[:, :-1] + te * (kcol[1:] - 1)], dim=1)
         Hrow = torch.maximum(H0, F)
-        FIN = torch.where((plen == im1 + 1)[:, None], Hrow, FIN)
+        if not uniform_plen:
+            FIN = torch.where((plen == im1 + 1)[:, None], Hrow, FIN)
         H, E = Hrow, Erow
+    if uniform_plen:
+        FIN = H
     smax = FIN.max(dim=1).values
     kb = torch.argmax((FIN == smax[:, None]).to(torch.int32), dim=1)
-    return (smax.reshape(B, C).to(torch.int32),
-            kb.reshape(B, C).to(torch.int32))
+    return smax.to(torch.int32), kb.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +533,72 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
 
 
 # ---------------------------------------------------------------------------
+# K2-WIDE: K2 at bands beyond one thread's registers (the full-matrix mate
+# traceback's band T+M), one warp per read
+# ---------------------------------------------------------------------------
+
+# band cells per lane with a compiled instantiation, one for each band T+M
+# of a documented read length (230 at L = 100, 286 at 128, 1054 at 512); a
+# band W takes the smallest NC with 32*NC >= W
+WIDE_CELLS_PER_LANE = (8, 12, 36)
+WIDE_MAX_BAND = 32 * WIDE_CELLS_PER_LANE[-1]
+
+# any W: the plain K2 is written for every band width
+banded_traceback_wide_plain = banded_traceback_plain
+
+
+def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
+                          scoring: GotohScoring, band: int,
+                          mismatch_scores=None, local: bool = False):
+    """``banded_traceback``'s contract (the same eight outputs, SEMI_GLOBAL
+    or LOCAL) for any band 1 <= W <= ``WIDE_MAX_BAND`` (1152): the kernel
+    of the full-matrix traceback, whose band T+M is 230 at the operating
+    point and 1054 at a 512-base read. Raises ValueError beyond it (on any
+    device). For CPU tensors: ``banded_traceback_wide_plain``."""
+    if not 1 <= band <= WIDE_MAX_BAND:
+        raise ValueError(f"banded_traceback_wide: band {band} outside "
+                         f"[1, {WIDE_MAX_BAND}]")
+    if patterns.device.type == "cpu":
+        return banded_traceback_wide_plain(patterns, pattern_lens, texts,
+                                           text_lens, scoring, band,
+                                           mismatch_scores, local)
+    if patterns.device.type != "cuda":
+        raise ValueError(f"unsupported device {patterns.device}")
+    B, M = patterns.shape
+    W = band
+    TW = M + W - 1
+    MAXS = _round8(M + W)
+    nc = next(n for n in WIDE_CELLS_PER_LANE if 32 * n >= W)
+    dev = patterns.device
+    if mismatch_scores is None:
+        mismatch_scores = torch.full((B, M), scoring.mismatch,
+                                     dtype=torch.int32, device=dev)
+    _check(patterns, "patterns", torch.int32, (B, M), dev)
+    _check(mismatch_scores, "mismatch_scores", torch.int32, (B, M), dev)
+    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
+    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+    _check_texts(texts, B, dev)
+    texts = _text_tw(texts, TW)
+    # one byte per band cell, each warp's row contiguous (32*NC bytes)
+    dirs = torch.empty((B, M, 32 * nc), dtype=torch.uint8, device=dev)
+    outs = [torch.empty((B,), dtype=torch.int32, device=dev)
+            for _ in range(8)]
+    outs[2] = torch.empty((B, MAXS), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * 8)(*[o.data_ptr() for o in outs])
+    rc_code = _lib("banded_traceback_wide").nvbt_banded_traceback_wide(
+        patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
+        text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, MAXS, W,
+        nc, int(local), *_gaps(scoring), dirs.data_ptr(),
+        ctypes.cast(ptrs, ctypes.c_void_p), _stream(dev))
+    _raise_if_failed(rc_code, "banded_traceback_wide", W)
+    banded_traceback_wide.launches += 1
+    return tuple(outs)
+
+
+banded_traceback_wide.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K3: banded scoring of flat (pattern, text) pairs, SEMI_GLOBAL or LOCAL
 # ---------------------------------------------------------------------------
 
@@ -686,3 +786,141 @@ def myers_semiglobal_plain(patterns, pattern_lens, texts, text_lens,
         best = torch.where(upd, score, best)
         bend = torch.where(upd, j + 1, bend)
     return best.to(torch.int32), bend.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K5: the register-tiled scorer over pre-blocked (G, rows, 8, 128) operands
+# ---------------------------------------------------------------------------
+
+
+def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
+                          scoring: GotohScoring, band: int, length: int,
+                          seq_f: bool = True, full_text: bool = False,
+                          uniform_plen: bool = False, unroll: int = 1,
+                          t_regs: bool = True):
+    """SEMI_GLOBAL banded Gotoh score and first-max band index of every
+    alignment of a blocked batch: the contract of the TPU function of the
+    same name. ``patsb``/``mmb`` (G, Lp, 8, 128) int32 with Lp >= length,
+    ``txtsb`` (G, TWp, 8, 128) int32 with TWp >= length + band - 1,
+    ``plb``/``tlb`` (G, 1, 8, 128) int32; alignment g*1024 + s*128 + l is
+    element [g][row][s][l]. Returns (score, kbest), (G, 1, 8, 128) int32.
+
+    ``seq_f`` takes the sequential F (switched off when text_gap_ext <
+    text_gap_open, as on the TPU); ``full_text`` asserts every text spans
+    the band (no length mask; the padded text is read as it is);
+    ``uniform_plen`` asserts every pattern is ``length`` long (FIN is the
+    last row). ``unroll`` and ``t_regs`` schedule the TPU's VLIW bundles
+    and change no result: they are checked (``unroll`` must divide
+    ``length``) and do nothing on the card. For CPU tensors:
+    ``regtile_score_blocked_plain``.
+    """
+    if scoring.text_gap_ext < scoring.text_gap_open:
+        seq_f = False  # the sequential F needs te >= to
+    G = patsb.shape[0]
+    W = band
+    if unroll < 1 or length % unroll:
+        raise ValueError(f"unroll {unroll} must divide length {length}")
+    if not isinstance(t_regs, bool):
+        raise TypeError("t_regs must be a bool")
+    if patsb.dim() != 4 or tuple(patsb.shape[2:]) != (8, 128) \
+            or patsb.shape[1] < length or length < 1:
+        raise ValueError(f"patsb must be (G, >= {length}, 8, 128); got "
+                         f"{tuple(patsb.shape)}")
+    if txtsb.dim() != 4 or txtsb.shape[0] != G \
+            or txtsb.shape[1] < length + W - 1 \
+            or tuple(txtsb.shape[2:]) != (8, 128):
+        raise ValueError(f"txtsb must be (G, >= {length + W - 1}, 8, 128); "
+                         f"got {tuple(txtsb.shape)}")
+    if patsb.device.type == "cpu":
+        return regtile_score_blocked_plain(
+            patsb, plb, txtsb, tlb, mmb, scoring=scoring, band=band,
+            length=length, seq_f=seq_f, full_text=full_text,
+            uniform_plen=uniform_plen)
+    if patsb.device.type != "cuda":
+        raise ValueError(f"unsupported device {patsb.device}")
+    if band not in SUPPORTED_BANDS:
+        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
+    dev = patsb.device
+    Lp, TWp = patsb.shape[1], txtsb.shape[1]
+    _check(patsb, "patsb", torch.int32, (G, Lp, 8, 128), dev)
+    _check(mmb, "mmb", torch.int32, (G, Lp, 8, 128), dev)
+    _check(txtsb, "txtsb", torch.int32, (G, TWp, 8, 128), dev)
+    _check(plb, "plb", torch.int32, (G, 1, 8, 128), dev)
+    _check(tlb, "tlb", torch.int32, (G, 1, 8, 128), dev)
+    score = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
+    kbest = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
+    flags = int(seq_f) | (int(full_text) << 1) | (int(uniform_plen) << 2)
+    rc_code = _lib("regtile_score_blocked").nvbt_regtile_score_blocked(
+        patsb.data_ptr(), plb.data_ptr(), txtsb.data_ptr(), tlb.data_ptr(),
+        mmb.data_ptr(), G, Lp, TWp, length, W, flags, *_gaps(scoring),
+        score.data_ptr(), kbest.data_ptr(), _stream(dev))
+    _raise_if_failed(rc_code, "regtile_score_blocked", W)
+    regtile_score_blocked.launches += 1
+    return score, kbest
+
+
+regtile_score_blocked.launches = 0
+
+
+def _unblock(x):
+    """(G, rows, 8, 128) -> (G*1024, rows): alignment g*1024 + s*128 + l."""
+    G, rows = x.shape[0], x.shape[1]
+    return x.permute(0, 2, 3, 1).reshape(G * 1024, rows)
+
+
+def regtile_score_blocked_plain(patsb, plb, txtsb, tlb, mmb, *,
+                                scoring: GotohScoring, band: int,
+                                length: int, seq_f: bool = True,
+                                full_text: bool = False,
+                                uniform_plen: bool = False, unroll: int = 1,
+                                t_regs: bool = True):
+    """Plain torch version of ``regtile_score_blocked`` (same contract):
+    un-blocks the operands and repeats ``_regtile_kernel``'s arithmetic for
+    each flag (``_regtile_plain``), F[0] = min(H0[0], NEG_INF) and the
+    band-edge E = min(E, NEG_INF) included."""
+    if scoring.text_gap_ext < scoring.text_gap_open:
+        seq_f = False
+    G = patsb.shape[0]
+    score, kbest = _regtile_plain(
+        _unblock(patsb.to(torch.int32)), _unblock(mmb.to(torch.int32)),
+        _unblock(txtsb.to(torch.int32)), plb.reshape(G * 1024),
+        tlb.reshape(G * 1024), scoring, band, length, seq_f,
+        full_text=full_text, uniform_plen=uniform_plen)
+    return score.reshape(G, 1, 8, 128), kbest.reshape(G, 1, 8, 128)
+
+
+def banded_score_semiglobal_regtile(patterns, pattern_lens, texts,
+                                    text_lens, scoring: GotohScoring,
+                                    band: int, mismatch_scores=None):
+    """SEMI_GLOBAL banded Gotoh (score, kbest), (B,) int32, of flat
+    (pattern, text) pairs through K5: the TPU function of the same name
+    (pallas_kernels.py:792), its relayout included — patterns, penalties
+    and texts cut or zero-padded to Lp = round8(M) and Lp + W rows, the
+    batch padded to whole blocks of 1024 with empty alignments."""
+    B, M = patterns.shape
+    W = band
+    Lp = _round8(M)
+    TWp = Lp + W
+    G = (max(B, 1024) + 1023) // 1024
+    Bp = G * 1024
+    dev = patterns.device
+
+    def to_blocks(x, rows):
+        x = x.to(torch.int32)[:, :rows]
+        x = torch.nn.functional.pad(x, (0, rows - x.shape[1], 0, Bp - B))
+        return x.reshape(G, 8, 128, rows).permute(0, 3, 1, 2).contiguous()
+
+    def lens_blocks(x):
+        x = torch.nn.functional.pad(x.to(torch.int32), (0, Bp - B))
+        return x.reshape(G, 1, 8, 128)
+
+    if mismatch_scores is None:
+        mmb = torch.full((G, Lp, 8, 128), scoring.mismatch, dtype=torch.int32,
+                         device=dev)
+    else:
+        mmb = to_blocks(mismatch_scores, Lp)
+    score, kbest = regtile_score_blocked(
+        to_blocks(patterns, Lp), lens_blocks(pattern_lens),
+        to_blocks(texts, TWp), lens_blocks(text_lens), mmb,
+        scoring=scoring, band=W, length=M)
+    return score.reshape(Bp)[:B], kbest.reshape(Bp)[:B]

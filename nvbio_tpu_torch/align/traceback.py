@@ -1,11 +1,14 @@
-"""Banded traceback entry point and the host CIGAR/MD formatters.
+"""Banded and full-matrix traceback entry points and the host CIGAR/MD
+formatters.
 
 ``batch_traceback_banded_fast`` is the port of the JAX function of the same
 name (``nvbio_tpu/align/traceback.py:378``): one call of the fused
 traceback kernel (``align.kernels.banded_traceback``; its plain version for
 CPU tensors), returning ``(TracebackResult, nm)`` with ops END->START.
-``cigar_to_string`` and ``md_from_entries`` are copies of the JAX
-package's numpy helpers.
+``batch_traceback_full`` (``traceback.py:436``) is the same kernel at band
+T+M over left-padded text, in its wide form
+(``align.kernels.banded_traceback_wide``). ``cigar_to_string`` and
+``md_from_entries`` are copies of the JAX package's numpy helpers.
 
 Packed op entry layout: bits 0-1 op (1/2/3 = M/I/D), bit 2 mismatch (M
 cells only), bits 3-6 the reference symbol under the cell.
@@ -18,7 +21,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nvbio_tpu_torch.align.kernels import banded_traceback
+from nvbio_tpu_torch.align.kernels import (
+    banded_traceback,
+    banded_traceback_wide,
+)
 from nvbio_tpu_torch.align.types import GotohScoring
 
 OP_NONE, OP_M, OP_I, OP_D = 0, 1, 2, 3
@@ -48,6 +54,32 @@ def batch_traceback_banded_fast(patterns, pattern_lens, texts, text_lens,
         score=score, ops=ops, n_ops=n_ops,
         pattern_start=i_start, pattern_end=i_end,
         text_start=i_start + k_fin, text_end=i_end + k0,
+    ), nm
+
+
+def batch_traceback_full(patterns, pattern_lens, texts, text_lens,
+                         scoring: GotohScoring, mismatch_scores=None,
+                         local: bool = False):
+    """Full-matrix traceback: the pattern may align anywhere in its text
+    window, with any indel drift. A banded traceback at band W = T + M over
+    the text left-padded by M never-match symbols (code 8; it renders as
+    ``N`` in MD if a path ever touches it) covers every monotone path of
+    the M x T matrix; text coordinates are shifted back by M. Returns
+    ``(TracebackResult, nm)`` with ops END->START."""
+    B, M = patterns.shape
+    pad = M
+    W = texts.shape[1] + pad
+    texts_p = torch.cat([torch.full((B, pad), 8, dtype=torch.int32,
+                                    device=texts.device),
+                         texts.to(torch.int32)], dim=1)
+    tlens_p = text_lens.to(torch.int32) + pad
+    score, k0, ops, n_ops, k_fin, nm, i_end, i_start = banded_traceback_wide(
+        patterns, pattern_lens, texts_p, tlens_p, scoring, W,
+        mismatch_scores, local)
+    return TracebackResult(
+        score=score, ops=ops, n_ops=n_ops,
+        pattern_start=i_start, pattern_end=i_end,
+        text_start=i_start + k_fin - pad, text_end=i_end + k0 - pad,
     ), nm
 
 

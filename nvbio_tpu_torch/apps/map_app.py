@@ -3,16 +3,21 @@
     python -m nvbio_tpu_torch map <ref.fa | index-prefix> reads.fq -o out.sam
     python -m nvbio_tpu_torch map <ref.fa | index-prefix> -1 r1.fq -2 r2.fq
         [-I MIN] [-X MAX] [--no-rescue] [--pe-policy fr|rf|ff]
-        [--no-discordant] [--local] [--device cpu]
+        [--no-discordant] [--local] [--all] [--config FILE] [--device cpu]
 
 Port of the single-end and paired-end paths of ``nvbio_tpu/apps/
-map_app.py``, end-to-end or local (``--local``). The reference is a FASTA
-(q-gram index built on the fly) or the prefix of artifacts the JAX
+map_app.py``, end-to-end or local (``--local``), best-alignment or
+all-mapping (``--all``: every locus above threshold, SE and PE, the
+others as secondary records). ``--config FILE`` overlays ``key=value``
+lines onto the ``MapParams`` fields after the presets (for example
+``pe_full_traceback=1``, the full-matrix mate traceback); a value that
+selects a path not ported yet stops before any work. The reference is a
+FASTA (q-gram index built on the fly) or the prefix of artifacts the JAX
 package's ``index`` app wrote (``<prefix>.ref.npz``, and
 ``<prefix>.qgram.npz`` when present). Runs on the CUDA card unless
 ``--device cpu`` is given. Flags of ``nvbio_tpu map`` that select paths not
-ported yet (``--all``, FM seeding, option files, BAM, reports, ...) are
-rejected with a "not yet ported" error.
+ported yet (FM seeding, BAM, reports, multi-host, ...) are rejected with a
+"not yet ported" error.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ import time
 # flags of `nvbio_tpu map` whose paths are not ported yet
 NOT_PORTED = (
     "--seeding", "--report", "--profile", "--mapq-filter", "--debug-output",
-    "--config", "--all", "--dist", "--coordinator", "--num-processes",
-    "--process-id",
+    "--dist", "--coordinator", "--num-processes", "--process-id",
 )
 
 
@@ -51,6 +55,8 @@ def add_parser(sub):
     p.add_argument("--local", action="store_true",
                    help="local alignment (soft-clipped ends, bowtie2 "
                         "--local scoring + local MAPQ)")
+    p.add_argument("--config", help="option file: one key=value per line "
+                                    "(overrides CLI parameter defaults)")
     p.add_argument("-I", "--minins", type=int, default=0)
     p.add_argument("-X", "--maxins", type=int, default=500)
     p.add_argument("--no-rescue", action="store_true")
@@ -64,6 +70,9 @@ def add_parser(sub):
                    help="reseed queue capacity as a fraction of the batch")
     p.add_argument("--no-1mm-seeding", action="store_true",
                    help="disable 1-mismatch seeding in reseed passes")
+    p.add_argument("--all", action="store_true", dest="all_mode",
+                   help="report ALL alignments above threshold "
+                        "(secondary records), not just the best")
     p.set_defaults(func=run)
     return p
 
@@ -76,7 +85,7 @@ def reject_not_ported(argv: list[str]) -> None:
         flag = tok.split("=", 1)[0]
         if flag in NOT_PORTED:
             raise SystemExit(f"nvbio_tpu_torch map: {flag} is not yet ported "
-                             f"(best-alignment q-gram mapping to SAM only)")
+                             f"(q-gram mapping to SAM only)")
 
 
 def _load_reference(path: str):
@@ -100,9 +109,10 @@ def run(args):
     from nvbio_tpu_torch.bowtie.paired import (
         check_paired_supported,
         map_pair_batch,
+        map_pair_batch_all,
     )
     from nvbio_tpu_torch.bowtie.params import MapParams
-    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper, check_supported
     from nvbio_tpu_torch.io.fastq import fastq_batches
     from nvbio_tpu_torch.io.sam import SamWriter
 
@@ -134,7 +144,12 @@ def run(args):
         params = MapParams.edit_distance(**common)
     else:
         params = MapParams(**common)
-    if paired:
+    if args.config:
+        from nvbio_tpu_torch.utils.options import Options, apply_to_params
+
+        params = apply_to_params(Options.load(args.config), params)
+    check_supported(params)
+    if paired and not args.all_mode:  # --all pairs have no mate rescue
         check_paired_supported(params, args.max_read_len)
     t0 = time.time()
     ref, index = _load_reference(args.reference)
@@ -152,16 +167,20 @@ def run(args):
                              alphabet=Alphabet.DNA_N)
 
     if paired:
-        record_lists = (map_pair_batch(mapper, b1, b2) for b1, b2 in
+        map_pairs = map_pair_batch_all if args.all_mode else map_pair_batch
+        record_lists = (map_pairs(mapper, b1, b2) for b1, b2 in
                         zip(batches(args.mate1), batches(args.mate2)))
+    elif args.all_mode:
+        record_lists = (mapper.map_batch_all(b) for b in batches(args.reads))
     else:
         record_lists = (mapper.map_batch(b) for b in batches(args.reads))
     with SamWriter(out, ref.names, lengths) as w:
         for recs in record_lists:
             for rec in recs:
                 w.write(rec)
-                n_reads += 1
-                n_mapped += 0 if rec.flag & 0x4 else 1
+                if not rec.flag & 0x100:  # secondaries are not reads
+                    n_reads += 1
+                    n_mapped += 0 if rec.flag & 0x4 else 1
     dt = time.time() - t0
     print(f"[stats] {n_reads:,} reads in {dt:.1f}s "
           f"({n_reads / max(dt, 1e-9):,.0f} reads/s); {n_mapped:,} mapped "

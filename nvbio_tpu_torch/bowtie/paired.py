@@ -1,26 +1,31 @@
-"""Paired-end alignment, torch: concordant pairing + mate rescue.
+"""Paired-end alignment, torch: concordant pairing + mate rescue, and
+paired-end all-mapping.
 
 Port of ``nvbio_tpu.bowtie.paired`` (``align_paired_core`` :35,
-``map_pair_batch`` :321) on the JAX package's kernel path: both mates go
-through the single-end candidate stage (K1; in local mode the flat LOCAL
-scorer K3), an all-pairs (C x C) concordance matrix per read pair picks
-the best concordant pair, and a mate with no concordant partner is
-rescued in the fragment window of its mate's best locus — the Myers
-kernel (``align.kernels.myers_semiglobal``, K4) locates the best end in
-the window, then the flat banded scorer (``align.kernels.banded_score``,
-K3, SEMI_GLOBAL) rescores the mate at that locus. Each mate's final
-alignment goes through the fused traceback (K2). Per batch: K1 (or
-K3-LOCAL) x2, K4 x2, K3 x2, K2 x2.
+``map_pair_batch`` :321, ``align_paired_all`` :473, ``map_pair_batch_all``
+:567) on the JAX package's kernel path: both mates go through the
+single-end candidate stage (K1; in local mode the flat LOCAL scorer K3),
+an all-pairs (C x C) concordance matrix per read pair picks the best
+concordant pair, and a mate with no concordant partner is rescued in the
+fragment window of its mate's best locus — the Myers kernel
+(``align.kernels.myers_semiglobal``, K4) locates the best end in the
+window, then the flat banded scorer (``align.kernels.banded_score``, K3,
+SEMI_GLOBAL) rescores the mate at that locus. Each mate's final alignment
+goes through the fused traceback (K2), or with ``pe_full_traceback`` the
+full-matrix traceback (K2-WIDE, band T+M). Per batch: K1 (or K3-LOCAL) x2,
+K4 x2, K3 x2, K2 (or K2-WIDE) x2. All-mapping keeps the top K = 4 distinct
+pair loci of the matrix and traces each mate's B*K slots in one call (K1
+x2, K2 x2; no rescue).
 
 One deliberate difference from the JAX package: in local mode a mate's
 CIGAR carries its soft clips, as single-end records do, so that it spans
-the whole SEQ (``nvbio_tpu.bowtie.paired.map_pair_batch`` prints only the
-aligned ops there).
+the whole SEQ (``nvbio_tpu.bowtie.paired.map_pair_batch`` and
+``map_pair_batch_all`` print only the aligned ops there).
 
 Positions are int64, so the JAX package's clip-at-zero uint32 arithmetic
 becomes ``clamp(min=0)``. ``map_pair_batch`` is ``dispatch_pair_batch``
 (device work) then ``format_pair_batch`` (host SAM records), split so a
-caller can time or overlap the two.
+caller can time or overlap the two; likewise ``map_pair_batch_all``.
 """
 
 from __future__ import annotations
@@ -34,19 +39,18 @@ from nvbio_tpu_torch.align.kernels import (
     banded_score,
     myers_semiglobal,
 )
-from nvbio_tpu_torch.align.traceback import cigar_to_string, md_from_entries
 from nvbio_tpu_torch.align.types import NEG_INF
-from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.bowtie.pipeline import (
+    HostReads,
     _absdiff,
+    alignment_fields,
     finalize_best,
-    host_rc_ascii,
+    lazy_ops_rows,
     n_ceil_of,
     read_candidates,
     score_min_of,
-    soft_clipped,
 )
 from nvbio_tpu_torch.io.sam import (
     FLAG_FIRST_IN_PAIR,
@@ -56,6 +60,7 @@ from nvbio_tpu_torch.io.sam import (
     FLAG_PROPER_PAIR,
     FLAG_REVERSE,
     FLAG_SECOND_IN_PAIR,
+    FLAG_SECONDARY,
     FLAG_UNMAPPED,
     SamRecord,
 )
@@ -78,36 +83,20 @@ def check_paired_supported(params: MapParams, read_width: int) -> None:
             f"{MYERS_MAX_LEN} or --no-rescue")
 
 
-def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
-                      quals1, reads2, lens2, quals2, params: MapParams):
-    """Map one dense batch of read pairs. Returns (mate-1 result dict,
-    mate-2 result dict, pairing dict) of (B,) tensors: the JAX function's
-    keys and values, and each mate's ``pattern_start``/``pattern_end``
-    (its soft clips in local mode)."""
-    P = params
-    check_paired_supported(P, max(reads1.shape[1], reads2.shape[1]))
-    neg = NEG_INF
-    half = neg // 2
-    B = reads1.shape[0]
-    reads1, reads2 = reads1.to(torch.int32), reads2.to(torch.int32)
+def _mate_scores(c, reads, P: MapParams):
+    """A mate's candidate scores with those under score-min, or of a read
+    over the --n-ceil, set to NEG_INF; its score-min and n-ceil mask."""
+    score_min = score_min_of(c["lens"], P)
+    n_ok = n_ceil_of(reads, c["lens"], P)
+    s = torch.where((c["scores"] >= score_min[:, None]) & n_ok[:, None],
+                    c["scores"], NEG_INF)
+    return s, score_min, n_ok
 
-    c1 = read_candidates(index, genome_words, n_genome, reads1, lens1,
-                         quals1, P)
-    c2 = read_candidates(index, genome_words, n_genome, reads2, lens2,
-                         quals2, P)
-    score_min1 = score_min_of(c1["lens"], P)
-    score_min2 = score_min_of(c2["lens"], P)
 
-    # --n-ceil: an over-N mate can neither anchor a pair nor be rescued
-    n_ok1 = n_ceil_of(reads1, c1["lens"], P)
-    n_ok2 = n_ceil_of(reads2, c2["lens"], P)
-    s1 = torch.where((c1["scores"] >= score_min1[:, None]) & n_ok1[:, None],
-                     c1["scores"], neg)
-    s2 = torch.where((c2["scores"] >= score_min2[:, None]) & n_ok2[:, None],
-                     c2["scores"], neg)
-    C = s1.shape[1]
-
-    # ---- concordance matrix (B, C, C) ---------------------------------------
+def _pair_scores(c1, c2, s1, s2, P: MapParams):
+    """The (B, C, C) concordance matrix: s1 + s2 where the two candidates
+    form a concordant pair under the orientation policy and the fragment
+    window, NEG_INF elsewhere."""
     w1 = c1["w0"][:, :, None]
     w2 = c2["w0"][:, None, :]
     st1 = c1["strand"][:, :, None]
@@ -126,8 +115,30 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
     endB = w1 + c1["lens"].to(torch.int64)[:, None, None]
     okB = (condB & (endB + slack >= w2 + P.minins)
            & (endB <= w2 + (P.maxins + slack)))
-    pair_scores = torch.where(okA | okB, s1[:, :, None] + s2[:, None, :],
-                              neg)
+    return torch.where(okA | okB, s1[:, :, None] + s2[:, None, :], NEG_INF)
+
+
+def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
+                      quals1, reads2, lens2, quals2, params: MapParams):
+    """Map one dense batch of read pairs. Returns (mate-1 result dict,
+    mate-2 result dict, pairing dict) of (B,) tensors: the JAX function's
+    keys and values, and each mate's ``pattern_start``/``pattern_end``
+    (its soft clips in local mode)."""
+    P = params
+    check_paired_supported(P, max(reads1.shape[1], reads2.shape[1]))
+    neg = NEG_INF
+    half = neg // 2
+    B = reads1.shape[0]
+    reads1, reads2 = reads1.to(torch.int32), reads2.to(torch.int32)
+
+    c1 = read_candidates(index, genome_words, n_genome, reads1, lens1,
+                         quals1, P)
+    c2 = read_candidates(index, genome_words, n_genome, reads2, lens2,
+                         quals2, P)
+    s1, score_min1, n_ok1 = _mate_scores(c1, reads1, P)
+    s2, score_min2, n_ok2 = _mate_scores(c2, reads2, P)
+    C = s1.shape[1]
+    pair_scores = _pair_scores(c1, c2, s1, s2, P)
     flat = pair_scores.reshape(B, C * C)
     pair_idx = torch.argmax(flat, dim=1)
     pair_best = _take(flat, pair_idx)
@@ -234,8 +245,11 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
     fin2_st = torch.where(has_pair, pair2_strand, _take(strand2, se2_idx))
     fin1_score = torch.where(has_pair, pair1_score, se1_score)
     fin2_score = torch.where(has_pair, pair2_score, se2_score)
-    fin1 = finalize_best(c1, genome_words, n_genome, fin1_w0, fin1_st, P)
-    fin2 = finalize_best(c2, genome_words, n_genome, fin2_w0, fin2_st, P)
+    # pe_full_traceback: the full-matrix mate traceback (K2-WIDE)
+    fin1 = finalize_best(c1, genome_words, n_genome, fin1_w0, fin1_st, P,
+                         full_matrix=P.pe_full_traceback)
+    fin2 = finalize_best(c2, genome_words, n_genome, fin2_w0, fin2_st, P,
+                         full_matrix=P.pe_full_traceback)
     mapped1 = fin1_score > half
     mapped2 = fin2_score > half
 
@@ -306,29 +320,19 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
     mates = []
     for batch, res, dev_ops in ((batch1, res1, ops_dev[0]),
                                 (batch2, res2, ops_dev[1])):
-        codes = np.asarray(batch.codes, np.uint8)
-        q_ascii = np.asarray(batch.quals, np.uint8) + 33
         gpos = res["window_start"] + res["text_start"]
         cis, local = mapper.contig_of(gpos)
         need = res["mapped"] & ((res["nm"] > 0) | ~res["simple"])
-        rows = np.flatnonzero(need)
-        ops_of = {}
-        if len(rows):
-            got = dev_ops[torch.from_numpy(rows).to(dev_ops.device)].cpu()
-            ops_of = dict(zip(rows.tolist(), got.numpy()))
+        reads = HostReads(batch)
         mates.append(dict(
-            fwd=_FROM_CODE[Alphabet.DNA_N][codes], rc=host_rc_ascii(codes),
-            q=q_ascii, qr=q_ascii[:, ::-1],
-            lens=np.asarray(batch.lengths).tolist(),
-            mapped=res["mapped"].tolist(),
+            reads=reads, lens=reads.lens, mapped=res["mapped"].tolist(),
             strand=(res["strand"] & res["mapped"]).tolist(),
             gpos=gpos.tolist(), ci=cis.tolist(), local=local.tolist(),
             score=res["best_score"].tolist(), nm=res["nm"].tolist(),
             mapq=res["mapq"].tolist(), n_ops=res["n_ops"].tolist(),
-            simple=res["simple"].tolist(), ops=ops_of,
+            simple=res["simple"].tolist(), ops=lazy_ops_rows(need, dev_ops),
             clip=list(zip(res["pattern_start"].tolist(),
                           res["pattern_end"].tolist()))))
-    Lfull = np.asarray(batch1.codes).shape[1]
     names = mapper.ref_names
 
     out = []
@@ -351,12 +355,7 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
                 flag |= FLAG_MATE_UNMAPPED
             elif ot["strand"][b]:
                 flag |= FLAG_MATE_REVERSE
-            if strand:
-                seq = me["rc"][b, Lfull - L:].tobytes().decode()
-                qual = me["qr"][b, Lfull - L:].tobytes().decode()
-            else:
-                seq = me["fwd"][b, :L].tobytes().decode()
-                qual = me["q"][b, :L].tobytes().decode()
+            seq, qual = me["reads"].seq_qual(b, strand)
             if not mapped:
                 out.append(SamRecord(qname=name, flag=flag, rname="*",
                                      pos=0, mapq=0, cigar="*", seq=seq,
@@ -374,22 +373,15 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
                     if gpos > gpo or (gpos == gpo and m == 1):
                         tlen = -tlen
             yt = "CP" if proper[b] else "DP" if discordant[b] else "UP"
-            n_ops = me["n_ops"][b]
-            tags = {"AS": me["score"][b], "NM": me["nm"][b], "YT": yt}
-            if me["nm"][b] > 0:
-                md, xm, xo, xg = md_from_entries(me["ops"][b], n_ops,
-                                                 reverse=True)
-            else:
-                md, xm, xo, xg = str(n_ops), 0, 0, 0
-            tags.update(MD=md, XM=xm, XO=xo, XG=xg)
-            core = (f"{n_ops}M" if me["simple"][b] else
-                    cigar_to_string(me["ops"][b], n_ops, reverse=True))
-            cigar = soft_clipped(core, *me["clip"][b], L)
+            cigar, md_tags = alignment_fields(
+                me["ops"].get(b), me["n_ops"][b], me["nm"][b],
+                me["simple"][b], *me["clip"][b], L)
             out.append(SamRecord(
                 qname=name, flag=flag, rname=names[ci],
                 pos=me["local"][b] + 1, mapq=me["mapq"][b], cigar=cigar,
                 seq=seq, qual=qual, rnext=rnext, pnext=pnext, tlen=tlen,
-                tags=tags))
+                tags={"AS": me["score"][b], "NM": me["nm"][b], "YT": yt,
+                      **md_tags}))
     return out
 
 
@@ -398,3 +390,161 @@ def map_pair_batch(mapper, batch1, batch2) -> list[SamRecord]:
     a ``bowtie.pipeline.ReadMapper``."""
     return format_pair_batch(mapper, batch1, batch2,
                              dispatch_pair_batch(mapper, batch1, batch2))
+
+
+# pair loci kept per read pair by all-mapping (the JAX package's default
+# ``max_pairs``, which no caller there changes)
+PAIR_ALL_K = 4
+
+
+def top_k_stable(x, k: int):
+    """The k largest entries of each row of x and their indices, ties in
+    index order as ``jax.lax.top_k`` puts them (``torch.topk`` promises no
+    order among ties; every non-concordant cell of a pair matrix ties at
+    NEG_INF)."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def align_paired_all(index, genome_words, n_genome: int, reads1, lens1,
+                     quals1, reads2, lens2, quals2, params: MapParams):
+    """Paired-end all-mapping: up to ``PAIR_ALL_K`` concordant pair loci per
+    read pair, the top cells of the (C x C) concordance matrix with the
+    slots that repeat an earlier slot's locus (both mates within
+    2*max_dist) dropped, and one flattened traceback of the B*K slots per
+    mate. No mate rescue. Port of ``nvbio_tpu.bowtie.paired.
+    align_paired_all`` (:473). Returns keep, pair_score (B, K), mapq (B,)
+    and each mate's traceback fields (B, K)."""
+    P = params
+    if P.pe_policy not in ("fr", "rf", "ff"):
+        raise ValueError(f"unknown pe_policy {P.pe_policy!r}")
+    B = reads1.shape[0]
+    reads1, reads2 = reads1.to(torch.int32), reads2.to(torch.int32)
+    c1 = read_candidates(index, genome_words, n_genome, reads1, lens1,
+                         quals1, P)
+    c2 = read_candidates(index, genome_words, n_genome, reads2, lens2,
+                         quals2, P)
+    s1, score_min1, _ = _mate_scores(c1, reads1, P)
+    s2, score_min2, _ = _mate_scores(c2, reads2, P)
+    C = s1.shape[1]
+    flat = _pair_scores(c1, c2, s1, s2, P).reshape(B, C * C)
+
+    K = PAIR_ALL_K
+    top_vals, top_idx = top_k_stable(flat, K)
+    i1, i2 = top_idx // C, top_idx % C
+    pw1 = torch.gather(c1["w0"], 1, i1)
+    pw2 = torch.gather(c2["w0"], 1, i2)
+    pst1 = torch.gather(c1["strand"].expand(B, C), 1, i1)
+    pst2 = torch.gather(c2["strand"].expand(B, C), 1, i2)
+    keep = top_vals > NEG_INF // 2
+    # distinct loci among the K slots (neighbouring cells of the matrix
+    # are often the same pair locus)
+    tol = 2 * P.max_dist
+    for k in range(1, K):
+        samek = torch.zeros(B, dtype=torch.bool, device=keep.device)
+        for j in range(k):
+            samek |= ((_absdiff(pw1[:, k], pw1[:, j]) <= tol)
+                      & (_absdiff(pw2[:, k], pw2[:, j]) <= tol)
+                      & keep[:, j])
+        keep[:, k] &= ~samek
+
+    def fin_mates(c, w0k, stk):
+        # each read repeated K times: one flattened traceback of B*K rows
+        rep = {key: None if c[key] is None
+               else c[key].repeat_interleave(K, dim=0)
+               for key in ("reads", "rc", "lens", "mm", "mm_rc")}
+        fin = finalize_best(rep, genome_words, n_genome, w0k.reshape(B * K),
+                            stk.reshape(B * K), P)
+        return {key: v.reshape((B, K) + v.shape[1:])
+                for key, v in fin.items()}
+
+    mapq = mapq_v2_end_to_end(
+        top_vals[:, 0], torch.where(keep[:, 1], top_vals[:, 1], NEG_INF),
+        keep[:, 1], score_min1 + score_min2)
+    return dict(keep=keep, pair_score=top_vals, mapq=mapq,
+                fin1=fin_mates(c1, pw1, pst1), fin2=fin_mates(c2, pw2, pst2))
+
+
+def dispatch_pair_batch_all(mapper, batch1, batch2):
+    """Enqueue the paired-end all-mapping device work of one pair of
+    ``ReadBatch``es (``align_paired_all``)."""
+    return align_paired_all(mapper.index, mapper.genome_words,
+                            mapper.n_genome, *mapper.batch_tensors(batch1),
+                            *mapper.batch_tensors(batch2), mapper.params)
+
+
+def format_pair_batch_all(mapper, batch1, batch2, res) -> list[SamRecord]:
+    """SAM records of a dispatched paired-end all-mapping batch: for each
+    kept pair slot, mate 1 then mate 2 (proper, YT:Z:CP, the pair score as
+    AS), the first slot primary and the others secondary (0x100, SEQ/QUAL
+    ``*``); an unmapped pair of records where no slot is kept. The host
+    formatting of ``nvbio_tpu.bowtie.paired.map_pair_batch_all``, plus the
+    soft clips of local-mode CIGARs."""
+    keep = res["keep"].cpu().numpy()
+    mapqs = res["mapq"].cpu().numpy().tolist()
+    pscores = res["pair_score"].cpu().numpy().tolist()
+    B, K = keep.shape
+    mates = []
+    for batch, fin in ((batch1, res["fin1"]), (batch2, res["fin2"])):
+        ops_dev = fin["ops"]
+        f = {k: v.cpu().numpy() for k, v in fin.items() if k != "ops"}
+        cis, locs = mapper.contig_of(
+            (f["window_start"] + f["text_start"]).reshape(B * K))
+        reads = HostReads(batch)
+        mates.append(dict(
+            reads=reads, lens=reads.lens, strand=f["strand"].tolist(),
+            ci=cis.reshape(B, K).tolist(), local=locs.reshape(B, K).tolist(),
+            nm=f["nm"].tolist(), n_ops=f["n_ops"].tolist(),
+            simple=f["simple"].tolist(), ps=f["pattern_start"].tolist(),
+            pe=f["pattern_end"].tolist(),
+            ops=lazy_ops_rows(keep & ((f["nm"] > 0) | ~f["simple"]),
+                              ops_dev)))
+    names = mapper.ref_names
+
+    out = []
+    for b, name in enumerate(batch1.names):
+        if mates[0]["lens"][b] == 0:
+            continue  # batch padding
+        slots = np.flatnonzero(keep[b]).tolist()
+        for rank, k in enumerate(slots):
+            for m in range(2):
+                me, ot = mates[m], mates[1 - m]
+                strand = me["strand"][b][k]
+                flag = (FLAG_PAIRED | FLAG_PROPER_PAIR
+                        | (FLAG_FIRST_IN_PAIR if m == 0
+                           else FLAG_SECOND_IN_PAIR)
+                        | (FLAG_REVERSE if strand else 0)
+                        | (FLAG_SECONDARY if rank else 0)
+                        | (FLAG_MATE_REVERSE if ot["strand"][b][k] else 0))
+                # secondary records omit SEQ and QUAL
+                seq, qual = (("*", "*") if rank
+                             else me["reads"].seq_qual(b, strand))
+                nm = me["nm"][b][k]
+                cigar, md_tags = alignment_fields(
+                    me["ops"].get((b, k)), me["n_ops"][b][k], nm,
+                    me["simple"][b][k], me["ps"][b][k], me["pe"][b][k],
+                    me["lens"][b])
+                out.append(SamRecord(
+                    qname=name, flag=flag, rname=names[me["ci"][b][k]],
+                    pos=me["local"][b][k] + 1,
+                    mapq=mapqs[b] if rank == 0 else 0, cigar=cigar,
+                    seq=seq, qual=qual, rnext="=",
+                    pnext=ot["local"][b][k] + 1,
+                    tags={"AS": pscores[b][k], "YT": "CP", "NM": nm,
+                          **md_tags}))
+        if not slots:
+            for m in range(2):
+                seq, qual = mates[m]["reads"].seq_qual(b)
+                out.append(SamRecord(
+                    qname=name,
+                    flag=FLAG_PAIRED | FLAG_UNMAPPED
+                    | (FLAG_FIRST_IN_PAIR if m == 0 else FLAG_SECOND_IN_PAIR),
+                    rname="*", pos=0, mapq=0, cigar="*", seq=seq, qual=qual))
+    return out
+
+
+def map_pair_batch_all(mapper, batch1, batch2) -> list[SamRecord]:
+    """Paired-end all-mapping of two ``ReadBatch``es -> SAM records."""
+    return format_pair_batch_all(
+        mapper, batch1, batch2,
+        dispatch_pair_batch_all(mapper, batch1, batch2))

@@ -3,9 +3,10 @@
 
 Same fields and defaults as ``nvbio_tpu.bowtie.params.MapParams``, so one
 set of values configures both packages (see ``nvbio_tpu_torch.convert``).
-The port's pipeline implements the single-end q-gram path; fields of other
-paths are kept for parity and rejected by the pipeline when they select a
-path that is not ported yet. ``extension`` is ignored: the port always
+The port's pipeline implements the q-gram paths (single-end, paired-end,
+local, all-mapping, the full-matrix mate traceback); fields of other paths
+are kept for parity and rejected by the pipeline when they select a path
+that is not ported yet. ``extension`` is ignored: the port always
 scores with its CUDA kernel (its plain version for CPU tensors)."""
 
 from __future__ import annotations

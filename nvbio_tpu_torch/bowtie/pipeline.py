@@ -2,20 +2,25 @@
 extend -> reduce -> reseed -> traceback -> MAPQ -> SAM.
 
 Port of the q-gram path of ``nvbio_tpu.bowtie.pipeline``
-(``read_candidates`` :207, ``align_batch_core`` :809, ``ReadMapper`` :926).
-Every stage is fixed-shape tensor code on the mapper's device, apart from
-the hand kernels: candidate scoring (``align.kernels.banded_score_cands``,
-twice per batch: first pass and reseed pass; in local mode the flat LOCAL
-scorer ``align.kernels.banded_score`` instead) and the fused traceback
-(``align.kernels.banded_traceback``, once per batch, LOCAL in local mode).
-The JAX package's kernel path is the one followed: the flat scorer only
-where it sends local candidates (``pipeline.py:573-581``).
+(``read_candidates`` :207, ``finalize_best`` :627, ``align_batch_all``
+:714, ``align_batch_core`` :809, ``ReadMapper`` :926). Every stage is
+fixed-shape tensor code on the mapper's device, apart from the hand
+kernels: candidate scoring (``align.kernels.banded_score_cands``, twice per
+batch: first pass and reseed pass; in local mode the flat LOCAL scorer
+``align.kernels.banded_score`` instead) and the fused traceback
+(``align.kernels.banded_traceback``, once per batch, LOCAL in local mode;
+its wide form ``banded_traceback_wide`` for the full-matrix mate traceback
+of ``finalize_best(..., full_matrix=True)``). All-mapping (``--all``,
+``align_batch_all``) scores once, with no reseed pass, and traces every
+candidate in one flattened call. The JAX package's kernel path is the one
+followed: the flat scorer only where it sends local candidates
+(``pipeline.py:573-581``).
 
 Positions are int64 throughout, so the JAX package's clip-at-zero uint32
 helpers become plain clamps, and its dtype-max sentinels become one int64
-constant ``_BIG`` compared by value. FM-index seeding, the sharded indexes,
-randomized hit selection and the full-matrix mate traceback are not ported
-yet and raise ``NotImplementedError``.
+constant ``_BIG`` compared by value. FM-index seeding, the sharded indexes
+and randomized hit selection are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from nvbio_tpu_torch.align.kernels import (
 )
 from nvbio_tpu_torch.align.traceback import (
     batch_traceback_banded_fast,
+    batch_traceback_full,
     cigar_to_string,
     md_from_entries,
 )
@@ -41,7 +47,12 @@ from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end, mapq_v2_local
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.device import resolve_device
-from nvbio_tpu_torch.io.sam import FLAG_REVERSE, FLAG_UNMAPPED, SamRecord
+from nvbio_tpu_torch.io.sam import (
+    FLAG_REVERSE,
+    FLAG_SECONDARY,
+    FLAG_UNMAPPED,
+    SamRecord,
+)
 from nvbio_tpu_torch.qgram import (
     QGramIndex,
     build_qgram_index,
@@ -66,10 +77,6 @@ def check_supported(params: MapParams) -> None:
             f"select_mode={params.select_mode!r} is not ported yet")
     if params.mode not in ("end-to-end", "local"):
         raise ValueError(f"unknown mode {params.mode!r}")
-    if params.pe_full_traceback:
-        raise NotImplementedError(
-            "pe_full_traceback=True (the band-(T+M) mate traceback) is not "
-            "ported yet")
     if params.band not in SUPPORTED_BANDS:
         raise ValueError(f"max_dist={params.max_dist} gives band "
                          f"{params.band}; the kernels are built for bands "
@@ -87,6 +94,59 @@ def soft_clipped(core: str, ps: int, pe: int, L: int) -> str:
     """CIGAR of an L-base read aligned over pattern span [ps, pe): the
     aligned ops ``core`` between soft clips (none in end-to-end mode)."""
     return (f"{ps}S" if ps else "") + core + (f"{L - pe}S" if pe < L else "")
+
+
+class HostReads:
+    """A ``ReadBatch``'s SEQ and QUAL as host ASCII planes, both strands."""
+
+    def __init__(self, batch):
+        codes = np.asarray(batch.codes, np.uint8)
+        self.fwd = _FROM_CODE[Alphabet.DNA_N][codes]
+        self.rc = host_rc_ascii(codes)
+        self.q = np.asarray(batch.quals, np.uint8) + 33
+        self.qr = self.q[:, ::-1]
+        self.lens = np.asarray(batch.lengths).tolist()
+
+    def seq_qual(self, b: int, reverse: bool = False) -> tuple[str, str]:
+        """Read b's SEQ and QUAL as aligned: reverse-complemented (and
+        QUAL reversed) on the reverse strand."""
+        L = self.lens[b]
+        if reverse:
+            tail = slice(self.fwd.shape[1] - L, None)
+            return (self.rc[b, tail].tobytes().decode(),
+                    self.qr[b, tail].tobytes().decode())
+        return (self.fwd[b, :L].tobytes().decode(),
+                self.q[b, :L].tobytes().decode())
+
+
+def alignment_fields(ops_row, n_ops: int, nm: int, simple: bool, ps: int,
+                     pe: int, L: int) -> tuple[str, dict]:
+    """CIGAR (the aligned ops between soft clips) and the MD/XM/XO/XG tags
+    of one alignment of an L-base read over pattern span [ps, pe). Its
+    END->START op row ``ops_row`` is read only where the alignment has
+    gaps (not ``simple``) or edits (NM > 0)."""
+    core = (f"{n_ops}M" if simple else
+            cigar_to_string(ops_row, n_ops, reverse=True))
+    if nm > 0:
+        md, xm, xo, xg = md_from_entries(ops_row, n_ops, reverse=True)
+    else:
+        md, xm, xo, xg = str(n_ops), 0, 0, 0
+    return soft_clipped(core, ps, pe, L), dict(MD=md, XM=xm, XO=xo, XG=xg)
+
+
+def lazy_ops_rows(need: np.ndarray, ops_dev: torch.Tensor) -> dict:
+    """The op rows of ``ops_dev`` where the host mask ``need`` holds (its
+    leading dims), fetched in one gather: {b: row} for a 1-D mask, {(b, c):
+    row} for a 2-D one. Most mapped reads are all-M with NM = 0 and need
+    none."""
+    idx = np.nonzero(need)
+    if not len(idx[0]):
+        return {}
+    rows = ops_dev[tuple(torch.from_numpy(i).to(ops_dev.device)
+                         for i in idx)].cpu().numpy()
+    keys = (idx[0].tolist() if need.ndim == 1
+            else list(zip(*(i.tolist() for i in idx))))
+    return dict(zip(keys, rows))
 
 
 def _mm_penalties(reads, quals, params: MapParams):
@@ -280,9 +340,11 @@ def _reduce_best2(cands, params: MapParams):
 
 
 def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
-                  params: MapParams):
+                  params: MapParams, full_matrix: bool = False):
     """Traceback + NM of each read's chosen candidate (the fused traceback
-    kernel over the re-extracted winning windows; LOCAL in local mode)."""
+    kernel over the re-extracted winning windows; LOCAL in local mode).
+    ``full_matrix=True`` takes the full-matrix traceback instead (no band
+    inside the window: the paired-end mates of ``pe_full_traceback``)."""
     P = params
     W = P.band
     reads, lens, rc = cands["reads"], cands["lens"], cands["rc"]
@@ -295,9 +357,13 @@ def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
     bpat = torch.where(best_strand[:, None], rc, reads).contiguous()
     bmm = (None if mm is None
            else torch.where(best_strand[:, None], mm_rc, mm).contiguous())
-    tb, nm = batch_traceback_banded_fast(bpat, lens, btext, btlen,
-                                         P.scoring, W, bmm,
-                                         local=P.mode == "local")
+    local = P.mode == "local"
+    if full_matrix:
+        tb, nm = batch_traceback_full(bpat, lens, btext, btlen, P.scoring,
+                                      bmm, local=local)
+    else:
+        tb, nm = batch_traceback_banded_fast(bpat, lens, btext, btlen,
+                                             P.scoring, W, bmm, local=local)
 
     # pure-match reads (no I/D): their CIGAR is just "{L}M"; the host needs
     # their op rows only when NM > 0 (for the MD tag)
@@ -400,6 +466,63 @@ def align_batch_core(index: QGramIndex, genome_words, n_genome: int, reads,
     return out
 
 
+def align_batch_all(index: QGramIndex, genome_words, n_genome: int, reads,
+                    lens, quals, params: MapParams):
+    """All-mapping of one dense batch (single-end): a traceback of every
+    candidate of every read, in one flattened (B*C) call of the traceback
+    kernel; ``keep`` marks the candidates above threshold, ``is_best`` the
+    primary. Port of ``nvbio_tpu.bowtie.pipeline.align_batch_all`` (:714),
+    which traces SEMI_GLOBAL in local mode too and gives the primary the
+    end-to-end MAPQ; the port follows it. Returns (B, C) tensors, ``ops``
+    (B, C, MAXS) uint8 END->START, and the (B,) ``mapq``."""
+    P = params
+    W = P.band
+    cands = read_candidates(index, genome_words, n_genome, reads, lens,
+                            quals, P)
+    scores, w0 = cands["scores"], cands["w0"]
+    lens, reads, rc = cands["lens"], cands["reads"], cands["rc"]
+    mm, mm_rc = cands["mm"], cands["mm_rc"]
+    B, C = scores.shape
+    L = reads.shape[1]
+    TW = L + W - 1
+
+    score_min = score_min_of(lens, P)
+    keep = cands["valid"] & (scores >= score_min[:, None]) & \
+        (lens[:, None] >= P.seed_len) & n_ceil_of(reads, lens, P)[:, None]
+    best_idx = torch.argmax(scores, dim=1)
+    is_best = torch.arange(C, device=scores.device)[None, :] == \
+        best_idx[:, None]
+
+    # every candidate flattened into one traceback batch, read-major
+    w0f = w0.reshape(B * C)
+    btext = packed.extract_window(genome_words, w0f, TW, 2)
+    btlen = (n_genome - w0f).clamp(min=0, max=TW).to(torch.int32)
+    strand = cands["strand"].expand(B, C)
+    flip = strand.reshape(B * C)[:, None]
+    bpat = torch.where(flip, rc.repeat_interleave(C, dim=0),
+                       reads.repeat_interleave(C, dim=0))
+    blens = lens.repeat_interleave(C)
+    bmm = None if mm is None else torch.where(
+        flip, mm_rc.repeat_interleave(C, dim=0),
+        mm.repeat_interleave(C, dim=0))
+    tb, nm = batch_traceback_banded_fast(bpat, blens, btext, btlen,
+                                         P.scoring, W, bmm)
+    simple = (tb.n_ops == blens) & ((tb.text_end - tb.text_start) == blens)
+
+    # the primary's MAPQ: the best-only reduce
+    best_score, best_pos, best_strand, second_score = _reduce_best2(cands, P)
+    has_second = second_score >= score_min
+    mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
+                              score_min)
+    return dict(
+        keep=keep, is_best=is_best, scores=scores, strand=strand,
+        window_start=w0, text_start=tb.text_start.reshape(B, C),
+        ops=tb.ops.to(torch.uint8).reshape(B, C, -1),
+        n_ops=tb.n_ops.reshape(B, C), nm=nm.reshape(B, C),
+        simple=simple.reshape(B, C), mapq=mapq,
+    )
+
+
 @dataclasses.dataclass
 class ReadMapper:
     """Host-side driver owning the device index and reference metadata."""
@@ -460,16 +583,72 @@ class ReadMapper:
         """Map a ReadBatch -> SAM records (host-side formatting)."""
         return self.format_batch(batch, self.dispatch(batch))
 
+    def dispatch_all(self, batch) -> dict:
+        """Enqueue the all-mapping device work of one ``ReadBatch``
+        (``align_batch_all``)."""
+        return align_batch_all(self.index, self.genome_words, self.n_genome,
+                               *self.batch_tensors(batch), self.params)
+
+    def map_batch_all(self, batch) -> list[SamRecord]:
+        """All-mapping: every above-threshold locus of each read, the
+        primary first, then the secondaries (flag 0x100, SEQ/QUAL ``*``)."""
+        return self.format_batch_all(batch, self.dispatch_all(batch))
+
+    def format_batch_all(self, batch, res) -> list[SamRecord]:
+        """SAM records of a dispatched all-mapping batch: the host
+        formatting of ``nvbio_tpu``'s ``ReadMapper.map_batch_all``."""
+        ops_dev = res["ops"]
+        res = {k: v.cpu().numpy() for k, v in res.items() if k != "ops"}
+        keep = res["keep"]
+        need = keep & ((res["nm"] > 0) | ~res["simple"])
+        ops_of = lazy_ops_rows(need, ops_dev)
+        B, C = keep.shape
+        cis, locs = self.contig_of(
+            (res["window_start"] + res["text_start"]).reshape(B * C))
+        cis, locs = cis.reshape(B, C).tolist(), locs.reshape(B, C).tolist()
+        scores, strands = res["scores"].tolist(), res["strand"].tolist()
+        is_best, nms = res["is_best"].tolist(), res["nm"].tolist()
+        n_ops_l, simple = res["n_ops"].tolist(), res["simple"].tolist()
+        mapqs = res["mapq"].tolist()
+
+        reads = HostReads(batch)
+        out = []
+        for b, name in enumerate(batch.names):
+            L = reads.lens[b]
+            if L == 0:
+                continue  # batch padding
+            kept = np.flatnonzero(keep[b]).tolist()
+            if not kept:
+                seq, qual = reads.seq_qual(b)
+                out.append(SamRecord(
+                    qname=name, flag=FLAG_UNMAPPED, rname="*", pos=0,
+                    mapq=0, cigar="*", seq=seq, qual=qual))
+                continue
+            # the primary first, then by score (a stable sort)
+            order = sorted(kept, key=lambda c: (not is_best[b][c],
+                                                -scores[b][c]))
+            for rank, c in enumerate(order):
+                strand = strands[b][c]
+                # secondary records omit SEQ and QUAL
+                seq, qual = ("*", "*") if rank else reads.seq_qual(b, strand)
+                cigar, md_tags = alignment_fields(
+                    ops_of.get((b, c)), n_ops_l[b][c], nms[b][c],
+                    simple[b][c], 0, L, L)
+                out.append(SamRecord(
+                    qname=name,
+                    flag=(FLAG_REVERSE if strand else 0)
+                    | (FLAG_SECONDARY if rank else 0),
+                    rname=self.ref_names[cis[b][c]], pos=locs[b][c] + 1,
+                    mapq=mapqs[b] if rank == 0 else 0, cigar=cigar,
+                    seq=seq, qual=qual,
+                    tags={"AS": scores[b][c], "NM": nms[b][c], **md_tags}))
+        return out
+
     def format_batch(self, batch, res) -> list[SamRecord]:
         ops_dev = res["ops"]  # fetched below only for rows that need it
         res = {k: v.cpu().numpy() for k, v in res.items() if k != "ops"}
 
-        codes_np = np.asarray(batch.codes, np.uint8)
-        fwd_ascii = _FROM_CODE[Alphabet.DNA_N][codes_np]
-        rc_full = host_rc_ascii(codes_np)
-        q_ascii = np.asarray(batch.quals, np.uint8) + 33
-        qr_ascii = q_ascii[:, ::-1]
-        lengths = np.asarray(batch.lengths).tolist()
+        reads = HostReads(batch)
         mapped = res["mapped"].tolist()
         strands = res["strand"].tolist()
         cis, locals_ = self.contig_of(res["window_start"] + res["text_start"])
@@ -482,47 +661,30 @@ class ReadMapper:
         n_ops_l = res["n_ops"].tolist()
         pat_starts = res["pattern_start"].tolist()
         pat_ends = res["pattern_end"].tolist()
-        need = res["mapped"] & ((res["nm"] > 0) | ~res["simple"])
-        rows = np.flatnonzero(need)
-        ops_of = {}
-        if len(rows):
-            got = ops_dev[torch.from_numpy(rows).to(ops_dev.device)].cpu()
-            ops_of = dict(zip(rows.tolist(), got.numpy()))
-        need = need.tolist()
+        ops_of = lazy_ops_rows(
+            res["mapped"] & ((res["nm"] > 0) | ~res["simple"]), ops_dev)
         simple = res["simple"].tolist()
-        Lfull = fwd_ascii.shape[1]
 
         out = []
         for b, name in enumerate(batch.names):
-            L = lengths[b]
+            L = reads.lens[b]
             if L == 0:
                 continue  # batch padding
             if not mapped[b]:
+                seq, qual = reads.seq_qual(b)
                 out.append(SamRecord(
                     qname=name, flag=FLAG_UNMAPPED, rname="*", pos=0,
-                    mapq=0, cigar="*",
-                    seq=fwd_ascii[b, :L].tobytes().decode(),
-                    qual=q_ascii[b, :L].tobytes().decode()))
+                    mapq=0, cigar="*", seq=seq, qual=qual))
                 continue
             strand = strands[b]
-            if strand:
-                seq = rc_full[b, Lfull - L:].tobytes().decode()
-                qual = qr_ascii[b, Lfull - L:].tobytes().decode()
-            else:
-                seq = fwd_ascii[b, :L].tobytes().decode()
-                qual = q_ascii[b, :L].tobytes().decode()
+            seq, qual = reads.seq_qual(b, strand)
             tags = {"AS": scores[b], "NM": nms[b]}
             if has2[b]:
                 tags["XS"] = second[b]
-            if need[b]:
-                md, xm, xo, xg = md_from_entries(ops_of[b], n_ops_l[b],
-                                                 reverse=True)
-            else:
-                md, xm, xo, xg = str(n_ops_l[b]), 0, 0, 0
-            tags.update(MD=md, XM=xm, XO=xo, XG=xg)
-            core = (f"{n_ops_l[b]}M" if simple[b] else
-                    cigar_to_string(ops_of[b], n_ops_l[b], reverse=True))
-            cigar = soft_clipped(core, pat_starts[b], pat_ends[b], L)
+            cigar, md_tags = alignment_fields(
+                ops_of.get(b), n_ops_l[b], nms[b], simple[b], pat_starts[b],
+                pat_ends[b], L)
+            tags.update(md_tags)
             out.append(SamRecord(
                 qname=name, flag=FLAG_REVERSE if strand else 0,
                 rname=self.ref_names[cis[b]], pos=locals_[b] + 1,

@@ -3,8 +3,10 @@
 The JAX mappers take their accelerator path with ``extension="pallas"``:
 local-mode candidates through ``banded_score_semiglobal_pallas`` (K3),
 mate rescue through ``myers_semiglobal_pallas`` (K4) and K3, tracebacks
-through ``batch_traceback_banded_fast`` (K2). On the CPU those Pallas
-kernels run only in interpret mode, so ``kernel_path()`` rebinds the three
+through ``batch_traceback_banded_fast`` (K2) and, for
+``pe_full_traceback``, ``batch_traceback_full`` (K2 at band T+M; it passes
+its own ``interpret`` on to K2, so it is rebound too). On the CPU those
+Pallas kernels run only in interpret mode, so ``kernel_path()`` rebinds the
 entry points to ``interpret=True`` for the duration of a ``with`` block.
 The JAX callers import them at trace time, so the rebinding reaches them;
 nothing in ``nvbio_tpu`` changes. Batches must not be a multiple of 1024
@@ -25,6 +27,7 @@ _ENTRY_POINTS = (
     (jpk, "myers_semiglobal_pallas"),
     (jpk, "banded_score_semiglobal_pallas"),
     (jtb, "batch_traceback_banded_fast"),
+    (jtb, "batch_traceback_full"),
 )
 
 

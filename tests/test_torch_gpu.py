@@ -1,6 +1,7 @@
 """On a CUDA card: the port's kernels against their plain versions and the
-mappers (single-end, paired-end, local) on cuda against the same on cpu. Imports no JAX, so it also runs
-where only torch is installed:
+mappers (single-end, paired-end, local, the full-matrix mate traceback,
+all-mapping) on cuda against the same on cpu. Imports no JAX, so it also
+runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
@@ -18,6 +19,8 @@ SW = GotohScoring(0, -6, -8, -3, -8, -3)
 ED = GotohScoring(0, -1, -1, -1, -1, -1)
 LAZY = GotohScoring(1, -2, -5, -1, -2, -4)   # te < to: K1's lazy-F branch
 LOCAL = GotohScoring(2, -6, -8, -3, -8, -3)  # bowtie2 --local
+TB_NAMES = ("score", "k_best", "ops", "n_ops", "k_final", "nm", "i_end",
+            "i_start")
 
 
 def _card():
@@ -250,3 +253,151 @@ def test_pe_and_local_mappers_on_cuda_equal_cpu():
         if params is loc:
             assert [r.line() for r in gpu.map_batch(bl)] == \
                 [r.line() for r in cpu.map_batch(bl)]
+
+
+# K2-WIDE at the bands of the full-matrix traceback: M of 12, 100, 128 and
+# 512 bases (T = L + W - 1 text columns, W = T + M)
+WIDE_CASES = {38: 12, 230: 100, 286: 128, 1054: 512}
+
+
+def _full_matrix_inputs(rng, B, W, M, dev):
+    """batch_traceback_full's operands: patterns planted in their text
+    (a 1-9 bp deletion or insertion in some, 2% substitutions), the text
+    left-padded by M code-8 symbols; ragged lengths, a penalty plane."""
+    T = W - M
+    txt = rng.integers(0, 4, size=(B, T))
+    pats = rng.integers(0, 4, size=(B, M))
+    for b in range(B):
+        s0 = int(rng.integers(0, max(T - M, 1)))
+        seg = txt[b, s0:s0 + M + 9]
+        if b % 3 == 1:
+            cut = int(rng.integers(5, M - 5))
+            gap = int(rng.integers(1, 10))
+            seg = np.concatenate([seg[:cut], seg[cut + gap:]])
+        elif b % 3 == 2:
+            cut = int(rng.integers(5, M - 5))
+            seg = np.concatenate([seg[:cut], rng.integers(0, 4, 4), seg[cut:]])
+        n = min(M, len(seg))
+        pats[b, :n] = seg[:n]
+    pats = np.where(rng.random((B, M)) < 0.02, (pats + 1) % 4, pats)
+    texts = np.concatenate([np.full((B, M), 8), txt], axis=1)
+    plens = rng.integers(M // 2, M + 1, size=B)
+    plens[:2] = [0, 1]
+    tlens = M + rng.integers(T // 2, T + 1, size=B)
+    mm = -rng.integers(2, 7, size=(B, M))
+    return tuple(_t(x, dev) for x in (pats, plens, texts, tlens, mm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", sorted(WIDE_CASES))
+@pytest.mark.parametrize("local", [False, True])
+def test_wide_traceback_kernel_bit_equal_to_plain(W, local):
+    dev = _card()
+    rng = np.random.default_rng(W + local)
+    M = WIDE_CASES[W]
+    B = 256 if W > 512 else 2000
+    pats, plens, texts, tlens, mm = _full_matrix_inputs(rng, B, W, M, dev)
+    sc = LOCAL if local else SW
+    args = (pats, plens, texts, tlens, sc, W, mm)
+    before = K.banded_traceback_wide.launches
+    got = K.banded_traceback_wide(*args, local=local)
+    assert K.banded_traceback_wide.launches == before + 1
+    want = K.banded_traceback_wide_plain(*args, local=local)
+    for name, g, w in zip(TB_NAMES, got, want):
+        assert torch.equal(g, w), \
+            f"{name}: first differences at {(g != w).nonzero()[:4].tolist()}"
+    ops = got[2]
+    assert ((ops & 3) >= 2).any()                 # gaps were walked
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [7, 17, 31])
+@pytest.mark.parametrize("flags", range(8))
+def test_regtile_kernel_bit_equal_to_plain(W, flags):
+    dev = _card()
+    rng = np.random.default_rng(100 * W + flags)
+    seq_f, full_text, uniform = bool(flags & 1), bool(flags & 2), \
+        bool(flags & 4)
+    G, L = 4, 100
+    Lp, TWp = 104, 104 + W
+    pats = rng.integers(0, 5, (G, Lp, 8, 128))
+    txts = rng.integers(0, 4, (G, TWp, 8, 128))
+    txts[..., ::2] = np.pad(np.minimum(pats[:, :L], 3),
+                            ((0, 0), (2, TWp - L - 2), (0, 0), (0, 0)))[
+        ..., ::2]
+    mm = -rng.integers(1, 7, (G, Lp, 8, 128))
+    plen = np.full((G, 1, 8, 128), L) if uniform else \
+        rng.integers(0, L + 2, (G, 1, 8, 128))
+    tlen = np.full((G, 1, 8, 128), TWp) if full_text else \
+        rng.integers(0, TWp + 1, (G, 1, 8, 128))
+    ops = [_t(x, dev) for x in (pats, plen, txts, tlen, mm)]
+    for scoring in (SW, LAZY):
+        kw = dict(scoring=scoring, band=W, length=L, seq_f=seq_f,
+                  full_text=full_text, uniform_plen=uniform)
+        before = K.regtile_score_blocked.launches
+        got = K.regtile_score_blocked(*ops, **kw)
+        assert K.regtile_score_blocked.launches == before + 1
+        for g, w in zip(got, K.regtile_score_blocked_plain(*ops, **kw)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    rng = np.random.default_rng(2)
+    pats, plens, texts, tlens, mm = _full_matrix_inputs(rng, 64, 230, 100,
+                                                        dev)
+    with pytest.raises(ValueError):                   # beyond the widest
+        K.banded_traceback_wide(pats, plens, texts, tlens, SW,
+                                K.WIDE_MAX_BAND + 1)
+    with pytest.raises(TypeError):
+        K.banded_traceback_wide(pats, plens.to(torch.int64), texts, tlens,
+                                SW, 230)
+    with pytest.raises(ValueError):                   # texts on the host
+        K.banded_traceback_wide(pats, plens, texts.cpu(), tlens, SW, 230)
+    with pytest.raises(ValueError):
+        K.banded_traceback_wide(pats[:, ::2], plens, texts, tlens, SW, 230)
+    z = torch.zeros((2, 104, 8, 128), dtype=torch.int32, device=dev)
+    n = torch.zeros((2, 1, 8, 128), dtype=torch.int32, device=dev)
+    t = torch.zeros((2, 104 + 31, 8, 128), dtype=torch.int32, device=dev)
+    kw = dict(scoring=SW, length=100)
+    with pytest.raises(ValueError):                   # no W=13 build
+        K.regtile_score_blocked(z, n, t, n, z, band=13, **kw)
+    with pytest.raises(ValueError):                   # 3 does not divide 100
+        K.regtile_score_blocked(z, n, t, n, z, band=31, unroll=3, **kw)
+    with pytest.raises(TypeError):
+        K.regtile_score_blocked(z, n, t, n, z.to(torch.int64), band=31, **kw)
+    with pytest.raises(ValueError):                   # the mismatch plane
+        K.regtile_score_blocked(z, n, t, n, z.cpu(), band=31, **kw)
+
+
+@pytest.mark.gpu
+def test_full_traceback_and_all_mappers_on_cuda_equal_cpu():
+    _card()
+    import dataclasses
+
+    from nvbio_tpu_torch.bowtie.paired import (
+        map_pair_batch,
+        map_pair_batch_all,
+    )
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.io.reference import Reference
+
+    genome, b1, b2, bl = _pe_and_local_batches()
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    base = MapParams(max_read_len=100, hits_per_seed=6)
+    for params in (dataclasses.replace(base, pe_full_traceback=True),
+                   base, MapParams.local(max_read_len=100, hits_per_seed=6)):
+        gpu = ReadMapper.build(ref, params, device="cuda")
+        cpu = ReadMapper.build(ref, params, device="cpu",
+                               index=gpu.index.to("cpu"))
+        if params.pe_full_traceback:
+            runs = [lambda m: map_pair_batch(m, b1, b2)]
+        else:
+            runs = [lambda m: m.map_batch_all(bl),
+                    lambda m: map_pair_batch_all(m, b1, b2)]
+        for run in runs:
+            assert [r.line() for r in run(gpu)] == \
+                [r.line() for r in run(cpu)]

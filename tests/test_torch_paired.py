@@ -81,8 +81,8 @@ def pair_dataset(seed=41, n_pairs=60):
     return recs, reads1, reads2
 
 
-def _params(pkg, config):
-    kw = {**PARAMS, **CONFIGS[config]}
+def _params(pkg, config, **extra):
+    kw = {**PARAMS, **CONFIGS[config], **extra}
     local = kw.pop("local", False)
     if pkg == "jax":
         kw["extension"] = "pallas"

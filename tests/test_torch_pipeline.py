@@ -158,22 +158,23 @@ def test_cli_map_matches_jax_cli(tmp_path):
 def test_cli_rejects_what_is_not_ported(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    for flag in (["--config", "opts.txt"], ["-1", "a.fq", "-2", "b.fq",
-                                            "--all"], ["--all"],
-                 ["--seeding", "fmi"]):
+    for flag in (["--seeding", "fmi"], ["--report", "r.html"],
+                 ["-1", "a.fq", "-2", "b.fq", "--dist"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(["map", "ref.fa", "reads.fq", *flag])
     with pytest.raises(SystemExit, match="not yet ported"):
         main(["map", "ref.fa", "reads.fq", "-o", "x.bam", "--device", "cpu"])
+    # an option file that selects FM seeding stops too
+    (tmp_path / "fmi.txt").write_text("seeding=fmi\n")
+    with pytest.raises(NotImplementedError, match="seeding='fmi'"):
+        main(["map", "ref.fa", "reads.fq", "--config",
+              str(tmp_path / "fmi.txt"), "--all", "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
                           TMapParams(seeding="fmi"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
-                          TMapParams(pe_full_traceback=True), device="cpu")
     assert torch.device("cpu") == TReadMapper.build(
-        TReference.from_records([("c", "ACGT" * 50)]), TMapParams(),
-        device="cpu").device
+        TReference.from_records([("c", "ACGT" * 50)]),
+        TMapParams(pe_full_traceback=True), device="cpu").device
 
 
 def test_map_batch_sam_identical_on_repeat_rich_genome():
