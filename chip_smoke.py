@@ -12,13 +12,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      per call of 10 queued back to back, median of 3), with its bound and
      its instantiation's ptxas registers: K1 candidate scoring B=32768,
      C=24, L=100, W=31, 256 of the reads with penalties past the packed
-     path's guard (rescored in int32); K2 traceback and K2-LOCAL B=32768,
+     path's guard (rescored in int32), and its LOCAL instantiation (the
+     local path's candidates) on the same windows, beside the local stage
+     it replaced (torch.where + extract_window + K3-LOCAL over B*C flat
+     rows: time, peak device memory, equal scores); K2 traceback and
+     K2-LOCAL B=32768,
      L=100, W=31 under the lanes per read that k2_group picks (1), and K2
      beside it at the other group size (4) and at B=4096 under both; K3
-     (rescue rescore) B=32768, M=100, W=31; K3-LOCAL (local candidates)
-     B*C=786432, M=100, W=31; K4 (mate locate) B=32768, M=100, T=531;
-     K2-WIDE and K2-WIDE-LOCAL (full-matrix mate traceback) B=32768,
-     M=100, W=230 on left-padded windows; K5
+     (rescue rescore) B=32768, M=100, W=31; K3-LOCAL, the flat scorer the
+     local candidates no longer take, at its old shape B*C=786432, M=100,
+     W=31; K4 (mate locate) B=32768, M=100, T=531; K2-WIDE and
+     K2-WIDE-LOCAL (full-matrix mate traceback) B=32768, M=100, W=230 on
+     left-padded windows (directions in shared memory), and K2-WIDE at
+     W=1054, M=512 on 256 reads (the global-scratch route); K5
      (register-tiled scorer) G=4096 blocks, L=100, W=31 and 17 with
      bench.py's flags, and G=64 with every flag off and ragged lengths;
      K2 at the --all shape B*C=786432, W=31; K2-WIDE at K2's shape (W=31)
@@ -34,11 +40,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K2, K3 and K4 per batch; per-mate sensitivity >= 0.95, proper share
      >= 0.90, seedless mates placed >= 0.90;
   6. local path: 2 batches of 32768 reads under --local, a third with a
-     random 15-base genome-right tail; K3-LOCAL +2, K2-LOCAL +1, K1 +0
-     per batch; sensitivity >= 0.95, tailed reads soft-clipped >= 0.8;
+     random 15-base genome-right tail; K1 (LOCAL) +2 (first pass and
+     reseed), K2-LOCAL +1, K3 +0 per batch; sensitivity >= 0.95, tailed
+     reads soft-clipped >= 0.8; the peak device memory of one batch;
   7. paired-full: 1 batch of the paired-end pairs with
      pe_full_traceback=True (K2-WIDE +2, K2 +0, K1 +2, K3 +2, K4 +2), and
-     1 batch under --local (K2-WIDE-LOCAL +2, K3-LOCAL +2, K3 +2, K4 +2);
+     1 batch under --local (K2-WIDE-LOCAL +2, K1 (LOCAL) +2, K3 +2, K4
+     +2);
      per-mate sensitivity >= 0.95, proper share >= 0.90, every mapped
      CIGAR's query length equal to len(SEQ);
   8. all: the genome again with 2 Mbp of it pasted, exactly, over other
@@ -53,7 +61,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      three passes of 10 launches, median), its GCUPS and launch count;
  11. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
-     consumers;
+     consumers; the peak device memory of one single-end and one local
+     batch;
  12. GPU = CPU: 1024 reads or pairs of each of the six mapping paths
      mapped on cuda and on cpu must give identical SAM records (those of
      the two --all paths including secondaries).
@@ -125,6 +134,10 @@ K1_OPS_PER_CELL = 8
 # K1's packed path retires two cells per instruction (16-bit halves, DPX
 # u16x2): its bound counts 4 per cell; the int32 count stays beside it.
 K1_OPS_PER_CELL_PACKED = 4
+# K1's LOCAL packed path: per pair of cells K1's 8 with H = max(H0, F) made
+# the three-input max(H0, F, 0) (+0) and the running max FIN = max(FIN,
+# H0, F) (1): 9, so 4.5 per cell; its int32 count is K3-LOCAL's 9.
+K1L_OPS_PER_CELL_PACKED = 4.5
 N_GUARD_FAIL = 256   # K1's reads with penalties past the packed guard
 B_SMALL = 4096       # K2 beside the main shape at a batch that cannot fill
                      # the card
@@ -284,6 +297,14 @@ def phase_kernels(genome, words, dev, rng, regs):
           f"{float(best.float().median()):.1f}; packed guard limit "
           f"{K.k1_packed_limit(sc, W)}, {N_GUARD_FAIL * C} candidates of "
           f"{N_GUARD_FAIL} reads past it", flush=True)
+    # K1's LOCAL instantiation on the same windows (the local path's
+    # candidates), and the stage it replaced: the flat route over B*C rows
+    lsc = MapParams.local().scoring
+    k1l_args = (*k1_args[:6], lsc, W, NCH, *k1_args[9:])
+    k1l = check_kernel("banded_score_cands_local", K.banded_score_cands,
+                       K.banded_score_cands_plain, k1l_args, local=True)
+    stage = local_stage(K, k1l_args, k1l["out"], extract_window)
+    del k1l["out"]
 
     # traceback: genome-oriented read against its true window
     tw0 = t(true_w0, torch.int64)
@@ -325,10 +346,9 @@ def phase_kernels(genome, words, dev, rng, regs):
     # locus (SEMI_GLOBAL, bowtie2 end-to-end scoring)
     k3 = check_kernel("banded_score", K.banded_score, K.banded_score_plain,
                       k2_args)
-    # K3-LOCAL at the local path's shapes: every (read, candidate slot) of
-    # K1's inputs, flattened as the local branch of read_candidates does;
+    # K3-LOCAL at the shapes the local path gave it before K1 took its
+    # candidates: every (read, candidate slot) of K1's inputs, flattened;
     # K2 on the same rows is the --all traceback (align_batch_all)
-    lsc = MapParams.local().scoring
     slot_rc = (np.arange(C) >= NCH)[None, :, None]
     flat_pats = t(np.where(slot_rc, rc[:, None], reads[:, None]).reshape(
         B * C, L))
@@ -371,6 +391,30 @@ def phase_kernels(genome, words, dev, rng, regs):
                         (t(tailed), t(lens), full_texts, full_tlens, lsc,
                          W_FULL, t(tb_mm)), plain_reps=3, local=True)
     k2wl_steps = int(k2wl["out"][3].long().sum())
+    # K2-WIDE at a 512-base read's band T+M = 1054: its directions (276 KB
+    # a read) take the global-scratch route
+    nw, ml = 256, 512
+    wl, tl = 2 * ml + W - 1, ml + W - 1
+    require(K.wide_route(ml, wl) == "global",
+            f"K2-WIDE at M={ml}, W={wl} does not take the global route")
+    ws = rng.integers(MAX_DIST, n - tl - 2, size=nw)
+    cut = rng.integers(20, ml - 20, size=nw)[:, None]
+    j = np.arange(ml)[None, :]
+    # every other read lacks one base of its window (a deletion)
+    src = ws[:, None] + j + ((j >= cut) & (np.arange(nw) % 2 == 1)[:, None])
+    wp = genome[src].astype(np.int32)
+    wp = np.where(rng.random((nw, ml)) < 0.01, (wp + 1) % 4, wp)
+    wt = genome[(ws - MAX_DIST)[:, None] + np.arange(tl)].astype(np.int32)
+    w512 = (t(wp), t(np.full(nw, ml)),
+            torch.cat([torch.full((nw, ml), 8, dtype=torch.int32,
+                                  device=dev), t(wt)], dim=1),
+            t(np.full(nw, tl + ml)), sc, wl,
+            t(-rng.integers(2, 7, size=(nw, ml))))
+    k2w512 = check_kernel(f"banded_traceback_wide W={wl} M={ml} (global "
+                          f"route)", K.banded_traceback_wide,
+                          K.banded_traceback_wide_plain, w512, plain_reps=1)
+    k2w512_steps = int(k2w512["out"][3].long().sum())
+    del k2w512["out"]
     # K2-WIDE at K2's own shape: what K2 would cost if K2-WIDE replaced it
     k2w31 = check_kernel("banded_traceback_wide W=31 (K2's shape)",
                          K.banded_traceback_wide,
@@ -435,6 +479,7 @@ def phase_kernels(genome, words, dev, rng, regs):
     k3_bytes = 2 * B * L * 4 + B * TW * 4 + 4 * B * 4
     k3l_ops = K3L_OPS_PER_CELL * B * C * L * W
     k3l_bytes = C * k3_bytes
+    k1l_ops = K1L_OPS_PER_CELL_PACKED * k1_cells
     k4_word_steps = B * RW * ((L + 31) // 32)
     k4_ops = K4_OPS_PER_WORD_STEP * k4_word_steps + K4_OPS_PER_STEP * B * RW
     k4_bytes = B * L * 4 + B * RW * 4 + 4 * B * 4
@@ -448,6 +493,10 @@ def phase_kernels(genome, words, dev, rng, regs):
     k2wl_ops = K2L_OPS_PER_CELL * k2w_cells + K2L_OPS_PER_STEP * k2wl_steps
     k2w_bytes = (2 * B * L * 4 + B * TW_F * 4 + 2 * B * 4 + 7 * B * 4
                  + B * MAXS_F * 4)
+    k2w512_ops = (K2_OPS_PER_CELL * nw * ml * wl
+                  + K2_OPS_PER_STEP * k2w512_steps)
+    k2w512_bytes = nw * (2 * ml * 4 + (ml + wl - 1) * 4 + 9 * 4
+                         + (ml + wl + 7) // 8 * 8 * 4)
     n5 = G_K5 * 1024
 
     def k5_cost(wk, n):
@@ -474,7 +523,10 @@ def phase_kernels(genome, words, dev, rng, regs):
     rows = [
         ("banded_score_cands", "banded_score_cands.cu", 963, k1, k1_ops,
          k1_bytes, f"B={B} C={C} L={L} W={W}",
-         f"banded_score_cands_kernel<{W},1>"),
+         f"banded_score_cands_kernel<{W},1,0>"),
+        ("banded_score_cands_local", "banded_score_cands.cu", 133, k1l,
+         k1l_ops, k1_bytes, f"B={B} C={C} L={L} W={W} local",
+         f"banded_score_cands_kernel<{W},1,1>"),
         ("banded_traceback", "banded_traceback.cu", 568, k2, k2_ops,
          k2_bytes, f"B={B} L={L} W={W} group={gs}",
          f"banded_traceback_kernel<{W},{gs},0>"),
@@ -483,17 +535,14 @@ def phase_kernels(genome, words, dev, rng, regs):
          f"banded_traceback_kernel<{W},{gs},1>"),
         ("banded_score", "banded_score.cu", 133, k3, k3_ops, k3_bytes,
          f"B={B} M={L} W={W}", f"banded_score_kernel<{W},0>"),
-        ("banded_score_local", "banded_score.cu", 133, k3l, k3l_ops,
-         k3l_bytes, f"B*C={B * C} M={L} W={W} local",
-         f"banded_score_kernel<{W},1>"),
         ("myers_semiglobal", "myers_semiglobal.cu", 1132, k4, k4_ops,
          k4_bytes, f"B={B} M={L} T={RW}", "myers_semiglobal_kernel<4>"),
         ("banded_traceback_wide", "banded_traceback_wide.cu", 568, k2w,
          k2w_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M)",
-         "banded_traceback_wide_kernel<8,0>"),
+         f"banded_traceback_wide_kernel<8,{W_FULL},0,1>"),
         ("banded_traceback_wide_local", "banded_traceback_wide.cu", 568,
          k2wl, k2wl_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M) local",
-         "banded_traceback_wide_kernel<8,1>"),
+         f"banded_traceback_wide_kernel<8,{W_FULL},1,1>"),
         ("regtile_score_blocked", "regtile_score_blocked.cu", 839, k5[W],
          *k5_cost(W, n5), f"G={G_K5} L={L} W={W} seq_f full_text "
          f"uniform_plen", f"regtile_score_blocked_kernel<{W},1,1,1>"),
@@ -510,9 +559,11 @@ def phase_kernels(genome, words, dev, rng, regs):
             library_ms=None, shape=shape, instantiation=inst,
             registers=regs[inst][0]))
     out[0]["bound_int32_ms"] = bound(k1_ops_int32, k1_bytes)[0]
+    out[1]["bound_int32_ms"] = bound(k3l_ops, k1_bytes)[0]
     # measured beside the nine entries: K5 at W=17 and on a ragged batch,
     # K2 at the --all shape, K2 at the other group size, K2-WIDE at K2's
-    # shape
+    # shape and at W=1054 (global route), the flat K3-LOCAL at its old
+    # shape and the old local stage around it
     extra = []
     s_ops = K2_OPS_PER_CELL * B_SMALL * L * W + K2_OPS_PER_STEP * small_steps
     for name, res, (ops, nbytes), shape, inst in [(
@@ -533,16 +584,29 @@ def phase_kernels(genome, words, dev, rng, regs):
              f"banded_traceback_kernel<{W},{ga},0>"),
             ("banded_traceback_wide", k2w31, (k2_ops, k2_bytes),
              f"B={B} L={L} W={W} (K2's shape; K2 {k2['ms']:.3f} ms)",
-             "banded_traceback_wide_kernel<8,0>")]:
+             "banded_traceback_wide_kernel<8,0,0,1>"),
+            ("banded_traceback_wide", k2w512, (k2w512_ops, k2w512_bytes),
+             f"B={nw} M={ml} W={wl} (T+M; global route)",
+             f"banded_traceback_wide_kernel<36,{wl},0,0>"),
+            ("banded_score_local", k3l, (k3l_ops, k3l_bytes),
+             f"B*C={B * C} M={L} W={W} local (flat; the local path's "
+             f"candidates before K1 took them)",
+             f"banded_score_kernel<{W},1>"),
+            ("local stage, flat route", stage, (k3l_ops, k3l_bytes),
+             f"B={B} C={C}: torch.where + extract_window + K3-LOCAL",
+             f"banded_score_kernel<{W},1>")]:
         bms, by = bound(ops, nbytes)
         extra.append(dict(name=name, equal=res["equal"],
                           max_abs_err=res["max_abs_err"], ms=res["ms"],
                           ms_queued=res["ms_queued"],
                           plain_ms=res["plain_ms"], bound_ms=bms,
                           bound_by=by, shape=shape, instantiation=inst,
-                          registers=regs[inst][0]))
+                          registers=regs[inst][0],
+                          **{k: res[k] for k in ("peak_bytes",
+                                                 "cands_peak_bytes")
+                             if k in res}))
     print(f"[kernels] K2-WIDE {k2w_ops:.4g} ops {k2w_bytes:.4g} B "
-          f"(direction scratch {B * L * W_FULL:.4g} B); K2-WIDE-LOCAL "
+          f"(directions in shared memory); K2-WIDE-LOCAL "
           f"{k2wl_ops:.4g} ops; K5 W={W} {k5_cost(W, n5)[0]:.4g} ops "
           f"{k5_cost(W, n5)[1]:.4g} B, W=17 {k5_cost(17, n5)[0]:.4g} ops "
           f"{k5_cost(17, n5)[1]:.4g} B; K2 at --all {k2a_ops:.4g} ops "
@@ -553,8 +617,56 @@ def phase_kernels(genome, words, dev, rng, regs):
               f"{e['bound_ms']:.3f} ms ({e['bound_by']}), "
               f"{e['instantiation']} {e['registers']} registers", flush=True)
     print(f"[kernels] K1 bound {out[0]['bound_ms']:.3f} ms packed, "
-          f"{out[0]['bound_int32_ms']:.3f} ms int32", flush=True)
+          f"{out[0]['bound_int32_ms']:.3f} ms int32; K1-LOCAL "
+          f"{out[1]['bound_ms']:.3f} ms packed, "
+          f"{out[1]['bound_int32_ms']:.3f} ms int32", flush=True)
     return out, extra
+
+
+def local_stage(K, args, want, extract_window):
+    """The local candidate stage as read_candidates built it before K1
+    took it: (B*C, L) patterns and penalties by torch.where, (B*C, L+W-1)
+    windows by extract_window, the flat K3-LOCAL. Its outputs against K1's
+    LOCAL ones (``want``), its time and the peak device memory of it and
+    of K1-LOCAL above what was allocated before."""
+    reads, rc, lens, w0, wlens, words, sc, band, nch, mm, mm_rc = args
+    C = w0.shape[1]
+    TW = L + band - 1
+
+    def flat():
+        flip = (torch.arange(C, device=reads.device) >= nch)[None, :, None]
+        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
+        pens = torch.where(flip, mm_rc[:, None, :], mm[:, None, :])
+        win = extract_window(words, w0.reshape(B * C), TW)
+        s, k = K.banded_score(pats.reshape(B * C, L),
+                              lens[:, None].expand(B, C).reshape(B * C),
+                              win, wlens.reshape(B * C), sc, band,
+                              pens.reshape(B * C, L), local=True)
+        return s.reshape(B, C), k.reshape(B, C)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, got
+
+    flat_peak, got = peak(flat)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    del got
+    cands_peak, _ = peak(lambda: K.banded_score_cands(*args, local=True))
+    ms, ms_queued = cuda_ms(flat), cuda_ms_queued(flat)
+    print(f"[kernels] local stage, flat route: equal to K1-LOCAL={equal} "
+          f"ms={ms:.3f} queued {ms_queued:.3f}; peak device memory "
+          f"{flat_peak / 1e6:.1f} MB (K1-LOCAL {cands_peak / 1e6:.1f} MB)",
+          flush=True)
+    require(equal, "the flat local stage differs from K1-LOCAL")
+    return dict(equal=equal, max_abs_err=err, ms=ms, ms_queued=ms_queued,
+                plain_ms=None, peak_bytes=flat_peak,
+                cands_peak_bytes=cands_peak)
 
 
 def k5_operands(wk: int, g: int, dev):
@@ -834,9 +946,9 @@ def phase_local(genome, mapper, card):
           f"{', '.join(f'{x:.3f}' for x in t_fmt)}; sensitivity "
           f"{sens:.5f}; tailed reads soft-clipped {clipped:.5f}; launches "
           f"{launches}; card {card}", flush=True)
-    require_launches("local", launches, {"banded_score_cands": 0,
+    require_launches("local", launches, {"banded_score_cands": 2,
                                          "banded_traceback": 1,
-                                         "banded_score": 2,
+                                         "banded_score": 0,
                                          "myers_semiglobal": 0},
                      N_BATCHES_LOCAL)
     require(sens >= 0.95, f"local sensitivity {sens:.4f} < 0.95")
@@ -1077,6 +1189,21 @@ def phase_profile(label, dispatch):
                      for us, c, k in rows[:12]])
 
 
+def peak_memory(label, dispatch) -> int:
+    """Peak device memory of one batch's ``dispatch()`` above what was
+    allocated before it (torch.cuda.max_memory_allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = dispatch()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del res
+    print(f"[memory] {label}, one batch: peak device memory {peak / 1e6:.1f} "
+          f"MB above the {base / 1e6:.1f} MB held before", flush=True)
+    return peak
+
+
 def phase_gpu_equals_cpu(label, gpu_fn, cpu_fn, n_records=None,
                          secondaries=False):
     """The same reads mapped on cuda and on cpu: identical SAM records (and
@@ -1175,7 +1302,7 @@ def main() -> int:
          "banded_traceback_wide": 2}, card)
     pfl0, pfl_launches, pfl_stats = phase_paired_full(
         genome, gpu_full_local, "paired-full-local", SEED + 700,
-        {"banded_score": 4, "myers_semiglobal": 2,
+        {"banded_score_cands": 2, "banded_score": 2, "myers_semiglobal": 2,
          "banded_traceback_wide": 2}, card)
     # the --all paths map against the genome with exact repeats planted
     t0 = time.time()
@@ -1197,10 +1324,10 @@ def main() -> int:
             "paired_full_local": pfl_launches, "all": all_launches,
             "paired_all": pa_launches, "gcups": gcups_launches}
     own = {"banded_score_cands": ("single_end", N_BATCHES),
+           "banded_score_cands_local": ("local", N_BATCHES_LOCAL),
            "banded_traceback": ("single_end", N_BATCHES),
            "banded_traceback_local": ("local", N_BATCHES_LOCAL),
            "banded_score": ("paired_end", N_BATCHES_PE),
-           "banded_score_local": ("local", N_BATCHES_LOCAL),
            "myers_semiglobal": ("paired_end", N_BATCHES_PE),
            "banded_traceback_wide": ("paired_full", 1),
            "banded_traceback_wide_local": ("paired_full_local", 1),
@@ -1224,6 +1351,10 @@ def main() -> int:
         "paired-full", lambda: dispatch_pair_batch(gpu_full, *pf0))
     all_stats["profile"] = phase_profile(
         "all", lambda: gpu_rep.dispatch_all(all0))
+    stats["peak_bytes"] = peak_memory(
+        "single-end", lambda: gpu_mapper.dispatch(batch0))
+    local_stats["peak_bytes"] = peak_memory(
+        "local", lambda: gpu_local.dispatch(local0))
     pa_stats["profile"] = phase_profile(
         "paired-all", lambda: dispatch_pair_batch_all(gpu_rep, *pa0))
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels, their wrappers and their plain versions.
 
 Each replaces a TPU kernel of ``nvbio_tpu/align/pallas_kernels.py``:
-``banded_score_cands`` (K1) ``banded_score_cands_regtile`` (:963);
+``banded_score_cands`` (K1) ``banded_score_cands_regtile`` (:963), and
+with ``local=True`` the local candidates that the JAX package scores with
+``banded_score_semiglobal_pallas(local=True)`` (:133) over extracted
+windows;
 ``banded_traceback`` (K2, and K2-LOCAL with ``local=True``)
 ``banded_traceback_semiglobal_pallas`` (:568); ``banded_traceback_wide``
 (K2-WIDE, K2-WIDE-LOCAL) the same TPU kernel at the band T+M of the
@@ -121,7 +124,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if name == "banded_score_cands":
         fn = lib.nvbt_banded_score_cands
-        fn.argtypes = [P] * 8 + [L] + [I] * 11 + [P, P, P]
+        fn.argtypes = [P] * 8 + [L] + [I] * 12 + [P, P, P]
     elif name == "banded_traceback":
         fn = lib.nvbt_banded_traceback
         fn.argtypes = [P] * 5 + [I] * 12 + [P, P, P]
@@ -130,7 +133,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P] * 5 + [I] * 10 + [P, P, P]
     elif name == "banded_traceback_wide":
         fn = lib.nvbt_banded_traceback_wide
-        fn.argtypes = [P] * 5 + [I] * 12 + [P, P, P]
+        fn.argtypes = [P] * 5 + [I] * 13 + [P, P, P]
     elif name == "regtile_score_blocked":
         fn = lib.nvbt_regtile_score_blocked
         fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
@@ -202,16 +205,27 @@ K1_PACKED_RANGE = 1 << 13
 
 def k1_packed_limit(scoring: GotohScoring, band: int) -> int:
     """The packed path's guard: a read's pair of fast candidates (window
-    spanning every row's band) keeps its 16-bit result when S, the sum over
-    the rows scored of max(|mismatch_r|, |match|), is at most this limit and
-    every such term is at most 127 (the per-row substitution table holds
-    int8). -1 where no read can pass: positive gap scores or |match| > 127.
+    spanning every row's band) keeps its 16-bit result when S, a sum over
+    the rows scored, is at most this limit and so is every row's largest
+    magnitude max(|mismatch_r|, |match|), which must also be at most 127
+    (the per-row substitution table holds int8). -1 where no read can pass:
+    positive gap scores or |match| > 127.
 
-    Why: on a fast candidate H after i rows lies in [-S_i, S_i]; E, F, the
-    gap arms and the lazy F's H0 + to - te*k stay within S + |po| + |pe| +
-    |to| + band*|te| of 0; NEG16 and the values made from it reset every
-    row. The kernel keeps S as it loads the penalties; a pair over the
-    limit is rescored in int32."""
+    SEMI_GLOBAL: S sums max(|mismatch_r|, |match|). On a fast candidate H
+    after i rows lies in [-S_i, S_i]; E, F, the gap arms and the lazy F's
+    H0 + to - te*k stay within S + |po| + |pe| + |to| + band*|te| of 0;
+    NEG16 and the values made from it reset every row.
+
+    LOCAL (``local=True``): S sums max(match, mismatch_r, 0), the most a
+    row can add. Every H is floored at 0, so after i rows H lies in [0,
+    S_i]; a diagonal H + sub is at least -max|mismatch_r|; E >= po and the
+    F arms >= to + band*te are built from H >= 0; the unfloored H0 the
+    kernel feeds to F is at least the diagonal. So every finite value lies
+    within max(S, max|mismatch_r|) + |po| + |pe| + |to| + band*|te| of 0,
+    and NEG16 - band*|te| stays below all of them.
+
+    In both the kernel keeps S and the largest magnitude as it loads the
+    penalties; a pair over the limit is rescored in int32."""
     match, po, pe, to, te = _gaps(scoring)
     if max(po, pe, to, te) > 0 or abs(match) > 127:
         return -1
@@ -221,9 +235,9 @@ def k1_packed_limit(scoring: GotohScoring, band: int) -> int:
 
 def banded_score_cands(reads, rc, lens, w0, wlens, genome_words,
                        scoring: GotohScoring, band: int, nch: int,
-                       mm=None, mm_rc=None):
-    """SEMI_GLOBAL banded Gotoh score and first-max band index of every
-    (read b, candidate slot c) pair.
+                       mm=None, mm_rc=None, local: bool = False):
+    """SEMI_GLOBAL (or, ``local=True``, LOCAL) banded Gotoh score and
+    first-max band index of every (read b, candidate slot c) pair.
 
     reads/rc/mm/mm_rc: (B, L) int32 (``mm`` = per-position mismatch scores,
     negative; None = ``scoring.mismatch``); lens: (B,) int32; w0: (B, C)
@@ -233,12 +247,15 @@ def banded_score_cands(reads, rc, lens, w0, wlens, genome_words,
     int32 — the TPU kernel's slot-major (C*B) order is a TPU layout. The
     kernel scores pairs of slots in 16-bit halves where
     ``k1_packed_limit`` proves that exact, in int32 otherwise; the result
-    is the same.
+    is the same. LOCAL is ``banded_score``'s LOCAL function on the windows
+    that ``extract_window`` cuts at ``w0`` (H floored at 0, the best cell
+    with i <= plen and i-1+k < wlen): the local candidates of
+    ``read_candidates`` with no (B*C, .) operand built.
     """
     if reads.device.type == "cpu":
         return banded_score_cands_plain(reads, rc, lens, w0, wlens,
                                         genome_words, scoring, band, nch,
-                                        mm, mm_rc)
+                                        mm, mm_rc, local)
     if reads.device.type != "cuda":
         raise ValueError(f"unsupported device {reads.device}")
     B, L = reads.shape
@@ -267,8 +284,8 @@ def banded_score_cands(reads, rc, lens, w0, wlens, genome_words,
         reads.data_ptr(), rc.data_ptr(), mm.data_ptr(), mm_rc.data_ptr(),
         lens.data_ptr(), w0.data_ptr(), wlens.data_ptr(),
         genome_words.data_ptr(), genome_words.shape[0], B, C, nch, L, band,
-        *_gaps(scoring), k1_packed_limit(scoring, band), score.data_ptr(),
-        kbest.data_ptr(), _stream(dev))
+        *_gaps(scoring), k1_packed_limit(scoring, band), int(local),
+        score.data_ptr(), kbest.data_ptr(), _stream(dev))
     _raise_if_failed(rc_code, "banded_score_cands", band)
     banded_score_cands.launches += 1
     return score, kbest
@@ -279,12 +296,15 @@ banded_score_cands.launches = 0
 
 def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
                              scoring: GotohScoring, band: int, nch: int,
-                             mm=None, mm_rc=None):
+                             mm=None, mm_rc=None, local: bool = False):
     """Plain torch version of ``banded_score_cands`` (same contract).
 
     Repeats ``_regtile_cand_kernel``'s arithmetic (pallas_kernels.py:
     909-958) over the (B*C) candidate rows (``_regtile_plain``), with the
-    sequential F when te >= to, as the kernel takes it.
+    sequential F when te >= to, as the kernel takes it. LOCAL: the local
+    branch as it was built before the kernel took it over, windows from
+    ``extract_window`` and ``banded_score_plain(local=True)`` (K3-LOCAL's
+    plain version) over the flattened slots.
     """
     B, L = reads.shape
     C = w0.shape[1]
@@ -299,9 +319,14 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
     else:
         mmv = torch.where(is_rc, mm_rc[:, None, :], mm[:, None, :])
         mmv = mmv.reshape(B * C, L).to(torch.int32)
-    text = extract_window(genome_words, w0.reshape(B * C), L + W, 2)
     plen = lens.to(torch.int32)[:, None].expand(B, C).reshape(B * C)
     tlen = wlens.to(torch.int32).reshape(B * C)
+    if local:
+        text = extract_window(genome_words, w0.reshape(B * C), L + W - 1, 2)
+        smax, kb = batch_score_banded(pat, plen, text, tlen, scoring, W,
+                                      mmv, local=True)
+        return smax.reshape(B, C), kb.reshape(B, C)
+    text = extract_window(genome_words, w0.reshape(B * C), L + W, 2)
 
     smax, kb = _regtile_plain(
         pat, mmv, text, plen, tlen, scoring, W, L,
@@ -599,14 +624,43 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
 # traceback's band T+M), one warp per read
 # ---------------------------------------------------------------------------
 
-# band cells per lane with a compiled instantiation, one for each band T+M
-# of a documented read length (230 at L = 100, 286 at 128, 1054 at 512); a
-# band W takes the smallest NC with 32*NC >= W
+# band cells per lane with a compiled instantiation (one warp of 32 lanes per
+# read), one for each band T+M of a documented read length: 230 at L = 100
+# (8), 286 at 128 (12), 1054 at 512 (36, the widest); a band W takes the
+# fewest that hold it
 WIDE_CELLS_PER_LANE = (8, 12, 36)
 WIDE_MAX_BAND = 32 * WIDE_CELLS_PER_LANE[-1]
+# a read's rows of 4-bit directions stay in shared memory up to this size
+# (two reads a block); wider bands (1054 at M = 512: 276 KB) go to a global
+# scratch of the same layout
+WIDE_SMEM_READ_BYTES = 64 * 1024
 
 # any W: the plain K2 is written for every band width
 banded_traceback_wide_plain = banded_traceback_plain
+
+
+def wide_cells(band: int) -> int:
+    """K2-WIDE's band cells per lane for a band: the fewest compiled ones
+    that hold it. ValueError beyond ``WIDE_MAX_BAND``."""
+    if not 1 <= band <= WIDE_MAX_BAND:
+        raise ValueError(f"banded_traceback_wide: band {band} outside "
+                         f"[1, {WIDE_MAX_BAND}]")
+    return next(nc for nc in WIDE_CELLS_PER_LANE if 32 * nc >= band)
+
+
+def wide_row_bytes(band: int) -> int:
+    """Bytes of one row of K2-WIDE's direction nibbles: the cells of the
+    lanes that hold the band, four bits each."""
+    nc = wide_cells(band)
+    return -(-band // nc) * nc // 2
+
+
+def wide_route(M: int, band: int) -> str:
+    """Where K2-WIDE keeps its direction nibbles for patterns of M rows at
+    ``band``: "shared" when one read's rows (M x ``wide_row_bytes``) fit
+    ``WIDE_SMEM_READ_BYTES``, else "global"."""
+    return ("shared" if M * wide_row_bytes(band) <= WIDE_SMEM_READ_BYTES
+            else "global")
 
 
 def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
@@ -616,10 +670,9 @@ def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
     or LOCAL) for any band 1 <= W <= ``WIDE_MAX_BAND`` (1152): the kernel
     of the full-matrix traceback, whose band T+M is 230 at the operating
     point and 1054 at a 512-base read. Raises ValueError beyond it (on any
-    device). For CPU tensors: ``banded_traceback_wide_plain``."""
-    if not 1 <= band <= WIDE_MAX_BAND:
-        raise ValueError(f"banded_traceback_wide: band {band} outside "
-                         f"[1, {WIDE_MAX_BAND}]")
+    device); ``wide_route`` picks where the directions live. For CPU
+    tensors: ``banded_traceback_wide_plain``."""
+    nc = wide_cells(band)
     if patterns.device.type == "cpu":
         return banded_traceback_wide_plain(patterns, pattern_lens, texts,
                                            text_lens, scoring, band,
@@ -630,7 +683,7 @@ def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
     W = band
     TW = M + W - 1
     MAXS = _round8(M + W)
-    nc = next(n for n in WIDE_CELLS_PER_LANE if 32 * n >= W)
+    shared = wide_route(M, W) == "shared"
     dev = patterns.device
     if mismatch_scores is None:
         mismatch_scores = torch.full((B, M), scoring.mismatch,
@@ -641,20 +694,25 @@ def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
     _check(text_lens, "text_lens", torch.int32, (B,), dev)
     _check_texts(texts, B, dev)
     texts = _text_tw(texts, TW)
-    # one byte per band cell, each warp's row contiguous (32*NC bytes)
-    dirs = torch.empty((B, M, 32 * nc), dtype=torch.uint8, device=dev)
-    outs = [torch.empty((B,), dtype=torch.int32, device=dev)
-            for _ in range(8)]
-    outs[2] = torch.empty((B, MAXS), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * 8)(*[o.data_ptr() for o in outs])
+    # four bits per band cell, a read's row contiguous: only the global
+    # route has a scratch
+    dirs = (None if shared else
+            torch.empty((B, M, wide_row_bytes(W)), dtype=torch.uint8,
+                        device=dev))
+    flat = torch.empty((7, B), dtype=torch.int32, device=dev)
+    ops = torch.empty((B, MAXS), dtype=torch.int32, device=dev)
+    row = flat.data_ptr()
+    ptrs = (ctypes.c_void_p * 8)(row, row + 4 * B, ops.data_ptr(),
+                                 *[row + 4 * B * i for i in range(2, 7)])
     rc_code = _lib("banded_traceback_wide").nvbt_banded_traceback_wide(
         patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
         text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, MAXS, W,
-        nc, int(local), *_gaps(scoring), dirs.data_ptr(),
+        nc, int(shared), int(local), *_gaps(scoring),
+        None if dirs is None else dirs.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), _stream(dev))
     _raise_if_failed(rc_code, "banded_traceback_wide", W)
     banded_traceback_wide.launches += 1
-    return tuple(outs)
+    return (flat[0], flat[1], ops, *flat[2:])
 
 
 banded_traceback_wide.launches = 0

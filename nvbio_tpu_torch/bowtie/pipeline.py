@@ -6,15 +6,16 @@ Port of the q-gram path of ``nvbio_tpu.bowtie.pipeline``
 :714, ``align_batch_core`` :809, ``ReadMapper`` :926). Every stage is
 fixed-shape tensor code on the mapper's device, apart from the hand
 kernels: candidate scoring (``align.kernels.banded_score_cands``, twice per
-batch: first pass and reseed pass; in local mode the flat LOCAL scorer
-``align.kernels.banded_score`` instead) and the fused traceback
+batch: first pass and reseed pass; LOCAL in local mode) and the fused
+traceback
 (``align.kernels.banded_traceback``, once per batch, LOCAL in local mode;
 its wide form ``banded_traceback_wide`` for the full-matrix mate traceback
 of ``finalize_best(..., full_matrix=True)``). All-mapping (``--all``,
 ``align_batch_all``) scores once, with no reseed pass, and traces every
 candidate in one flattened call. The JAX package's kernel path is the one
-followed: the flat scorer only where it sends local candidates
-(``pipeline.py:573-581``).
+followed; where it sends local candidates to its flat scorer over
+extracted windows (``pipeline.py:573-581``), the port computes the same
+function in the candidate kernel, straight from the packed genome.
 
 Positions are int64 throughout, so the JAX package's clip-at-zero uint32
 helpers become plain clamps, and its dtype-max sentinels become one int64
@@ -33,7 +34,6 @@ import torch
 from nvbio_tpu_torch import packed
 from nvbio_tpu_torch.align.kernels import (
     SUPPORTED_BANDS,
-    banded_score,
     banded_score_cands,
 )
 from nvbio_tpu_torch.align.traceback import (
@@ -303,22 +303,12 @@ def read_candidates(index: QGramIndex, genome_words, n_genome: int, reads,
 
     # ---- extension scoring -------------------------------------------------
     wlens = (n_genome - w0).clamp(min=0, max=TW).to(torch.int32)
-    if P.mode == "local":
-        # the flat LOCAL scorer over B*C extracted windows (the JAX kernel
-        # path's local branch: its candidate kernel is SEMI_GLOBAL only)
-        flip = cand_strand[:, :, None]
-        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
-        mm_flat = (None if mm is None else torch.where(
-            flip, mm_rc[:, None, :], mm[:, None, :]).reshape(B * C, L))
-        win = packed.extract_window(genome_words, w0.reshape(B * C), TW)
-        sc, _ = banded_score(
-            pats.reshape(B * C, L), lens[:, None].expand(B, C).reshape(B * C),
-            win, wlens.reshape(B * C), P.scoring, W, mm_flat, local=True)
-        sc = sc.reshape(B, C)
-    else:
-        sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens,
-                                   w0, wlens, genome_words, P.scoring, W, NCH,
-                                   mm, mm_rc)
+    # local mode: the JAX kernel path's local branch scores B*C extracted
+    # windows with its flat LOCAL scorer; the same function, read from the
+    # packed genome
+    sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens, w0,
+                               wlens, genome_words, P.scoring, W, NCH, mm,
+                               mm_rc, local=P.mode == "local")
     scores = torch.where(cand_valid, sc, NEG_INF)
 
     return dict(scores=scores, w0=w0, strand=cand_strand, valid=cand_valid,

@@ -47,6 +47,28 @@
 //     guard refuses) takes the int32 loop with the mask, one row a trip, as
 //     the first design: no preset scoring fails the guard, so the packed
 //     loop carries all but the genome-end windows.
+//
+// LOCAL (template flag; `banded_score_cands(..., local=True)`): the same
+// slots and windows scored as the TPU kernel `banded_score_semiglobal_pallas`
+// scores them with local=True (pallas_kernels.py:133, cell rules :81-115)
+// over the local branch's extracted windows (nvbio_tpu/bowtie/pipeline.py:
+// 546-581): H0 floored at 0, the score the best cell with i <= plen and
+// i-1+k < tlen (a running max FIN[k] per band index), kbest its first k.
+// This replaces the flat K3-LOCAL launch over (B*C, L) patterns and (B*C,
+// L+W-1) windows that the local branch used to build: the text comes from
+// the packed genome here as for K1, and no (B*C, .) operand exists.
+//   * A read longer than L scores its first L rows (LOCAL has no FIN row to
+//     lose); a read of length 0 gives (NEG_INF, 0).
+//   * The floor makes the sequential and the lazy F give the same H: they
+//     differ only in NEG_INF-derived terms and in open arms built from the
+//     unfloored H0, all below 0. So both loops keep K1's F and feed it the
+//     unfloored H0: H = max3(H0, F, 0) and FIN = max3(FIN, H0, F) (FIN >= 0
+//     after the first row of a spanning window, so the floor is implied).
+//   * The packed guard (align/kernels.py `k1_packed_limit`): in LOCAL every
+//     H lies in [0, S] for S the running sum of max(match, mismatch_r, 0),
+//     and every diagonal is at least -max|mismatch_r|; the pair keeps its
+//     16-bit result when S and that largest magnitude are both within the
+//     limit (and the magnitude within int8).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,8 +132,8 @@ __device__ __forceinline__ uint32_t stream_take(SymStream& st,
 // int32: any candidate, the length mask, one row a trip
 // ---------------------------------------------------------------------------
 
-template <int W, bool SEQ_F>
-__device__ __forceinline__ void row32(int (&H)[W], int (&E)[W],
+template <int W, bool SEQ_F, bool LOCAL>
+__device__ __forceinline__ void row32(int (&H)[W], int (&E)[W], int (&FIN)[W],
                                       const int (&T)[W], int p, int mmv,
                                       int tlim, const Scoring& s) {
   int fprev = 0, hprev = 0, g = 0;
@@ -137,36 +159,46 @@ __device__ __forceinline__ void row32(int (&H)[W], int (&E)[W],
         g = max(g, h0 + s.to - s.te * k);
       }
     }
-    H[k] = max(h0, f);
+    if constexpr (LOCAL) {
+      H[k] = __vimax3_s32(h0, f, 0);
+      if (k < tlim) FIN[k] = max(FIN[k], H[k]);
+    } else {
+      H[k] = max(h0, f);
+    }
     E[k] = er;
   }
 }
 
-template <int W, bool SEQ_F>
+template <int W, bool SEQ_F, bool LOCAL>
 __device__ __forceinline__ void score32(
     const int32_t* __restrict__ prow, const int32_t* __restrict__ mrow,
     int rows, int64_t start, int tlen,
     const uint32_t* __restrict__ words, int64_t n_words, const Scoring& s,
     int& smax, int& kb) {
-  int H[W], E[W], T[W];
+  int H[W], E[W], T[W], FIN[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     H[k] = 0;
     E[k] = kNegInf;
+    FIN[k] = kNegInf;
     T[k] = genome_sym(words, n_words, start + k);
   }
   for (int im1 = 0; im1 < rows; ++im1) {
-    row32<W, SEQ_F>(H, E, T, prow[im1], mrow[im1], tlen - im1, s);
+    row32<W, SEQ_F, LOCAL>(H, E, FIN, T, prow[im1], mrow[im1], tlen - im1, s);
 #pragma unroll
     for (int k = 0; k + 1 < W; ++k) T[k] = T[k + 1];
     T[W - 1] = genome_sym(words, n_words, start + im1 + W);
   }
-  smax = H[0];
+  if constexpr (!LOCAL) {
 #pragma unroll
-  for (int k = 1; k < W; ++k) smax = max(smax, H[k]);
+    for (int k = 0; k < W; ++k) FIN[k] = H[k];
+  }
+  smax = FIN[0];
+#pragma unroll
+  for (int k = 1; k < W; ++k) smax = max(smax, FIN[k]);
   kb = W;
 #pragma unroll
-  for (int k = W - 1; k >= 0; --k) kb = (H[k] == smax) ? k : kb;
+  for (int k = W - 1; k >= 0; --k) kb = (FIN[k] == smax) ? k : kb;
 }
 
 // ---------------------------------------------------------------------------
@@ -189,8 +221,9 @@ __device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
   return __viaddmax_u16x2(a, 0u, b);
 }
 
-template <int W, bool SEQ_F, int NT>
+template <int W, bool SEQ_F, bool LOCAL, int NT>
 __device__ __forceinline__ void row16(uint32_t (&H)[W], uint32_t (&E)[W],
+                                      uint32_t (&FIN)[W],
                                       const uint32_t (&T)[NT], int u,
                                       uint32_t tab, const Scoring& s) {
   // a constant added by a 32-bit add (exact per biased half: c * 0x10001),
@@ -219,25 +252,32 @@ __device__ __forceinline__ void row16(uint32_t (&H)[W], uint32_t (&E)[W],
       g = __viaddmax_u16x2(h0, (uint32_t(s.to - s.te * k) & 0xffffu) * 0x10001u,
                            g);
     }
-    H[k] = max2(h0, f);
+    if constexpr (LOCAL) {
+      // the floor at 0 (kBias2) and the running max of H (FIN >= 0 here)
+      H[k] = __vimax3_u16x2(h0, f, kBias2);
+      FIN[k] = __vimax3_u16x2(FIN[k], h0, f);
+    } else {
+      H[k] = max2(h0, f);
+    }
     E[k] = er;
   }
 }
 
 // Returns false when the pair's penalties fail the range guard (the halves
 // may then have wrapped; the caller rescores in int32).
-template <int W, bool SEQ_F>
+template <int W, bool SEQ_F, bool LOCAL>
 __device__ __forceinline__ bool score_pair16(
     const int32_t* __restrict__ prow, const int32_t* __restrict__ mrow, int L,
     int rows, int64_t start0, int64_t start1,
     const uint32_t* __restrict__ words, int64_t n_words, const Scoring& s,
     int lim, int& s0, int& k0, int& s1, int& k1) {
   constexpr int NT = W + kU - 1;
-  uint32_t H[W], E[W], T[NT];
+  uint32_t H[W], E[W], T[NT], FIN[W];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     H[k] = kBias2;
     E[k] = kNeg2;
+    FIN[k] = kBias2;  // LOCAL: every H is >= 0
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -247,7 +287,9 @@ __device__ __forceinline__ bool score_pair16(
   SymStream st1 = stream_at(words, n_words, start1 + NT);
   const uint32_t match_b = uint32_t(s.match) & 0xffu;
   const int amatch = abs(s.match);
-  int sum = 0, big = amatch;  // the guard: sum and max of per-row magnitudes
+  // the guard: a sum over the rows scored (of magnitudes; LOCAL: of each
+  // row's largest gain) and the largest magnitude
+  int sum = 0, big = amatch;
   for (int r0 = 0; r0 < rows; r0 += kU) {
     int p[kU], mm[kU];
 #pragma unroll
@@ -260,7 +302,10 @@ __device__ __forceinline__ bool score_pair16(
     for (int u = 0; u < kU; ++u) {
       if (r0 + u < rows) {
         const int m = max(abs(mm[u]), amatch);
-        sum += m;
+        if constexpr (LOCAL)
+          sum += max(max(mm[u], s.match), 0);
+        else
+          sum += m;
         big = max(big, m);
         // byte t of the table: match where t is the pattern symbol, else
         // the row's mismatch score (a code >= 4 matches no text symbol)
@@ -268,7 +313,7 @@ __device__ __forceinline__ bool score_pair16(
         const uint32_t put =
             (unsigned(p[u]) < 4u) ? (0xffu << (8 * p[u])) : 0u;
         const uint32_t tab = (mm4 & ~put) | (match_b * 0x01010101u & put);
-        row16<W, SEQ_F>(H, E, T, u, tab, s);
+        row16<W, SEQ_F, LOCAL>(H, E, FIN, T, u, tab, s);
       }
     }
     const uint32_t bits0 = stream_take(st0, words, n_words);
@@ -280,13 +325,19 @@ __device__ __forceinline__ bool score_pair16(
       T[W - 1 + i] = pair_sel((bits0 >> (2 * i)) & 3u, (bits1 >> (2 * i)) & 3u);
   }
   if (sum > lim || big > 127) return false;
+  if constexpr (LOCAL) {
+    if (big > lim) return false;
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) FIN[k] = H[k];
+  }
   int m0 = -65536, m1 = -65536;
   k0 = W;
   k1 = W;
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    const int v0 = int(H[k] & 0xffffu) - 0x8000;
-    const int v1 = int(H[k] >> 16) - 0x8000;
+    const int v0 = int(FIN[k] & 0xffffu) - 0x8000;
+    const int v1 = int(FIN[k] >> 16) - 0x8000;
     if (v0 > m0) {
       m0 = v0;
       k0 = k;
@@ -303,7 +354,7 @@ __device__ __forceinline__ bool score_pair16(
 
 // ---------------------------------------------------------------------------
 
-template <int W, bool SEQ_F>
+template <int W, bool SEQ_F, bool LOCAL>
 __global__ void __launch_bounds__(128)
 banded_score_cands_kernel(const int32_t* __restrict__ reads,     // (B, L)
                           const int32_t* __restrict__ rc,        // (B, L)
@@ -327,7 +378,8 @@ banded_score_cands_kernel(const int32_t* __restrict__ reads,     // (B, L)
   const bool has1 = c0 + 1 < (is_rc ? C : nch);
   const int64_t cand0 = int64_t(b) * C + c0;
   const int plen = lens[b];
-  if (plen < 1 || plen > L) {  // no FIN row
+  // SEMI_GLOBAL: no FIN row; LOCAL: no cell (a read over L scores L rows)
+  if (plen < 1 || (!LOCAL && plen > L)) {
     score[cand0] = kNegInf;
     kbest[cand0] = 0;
     if (has1) {
@@ -343,19 +395,21 @@ banded_score_cands_kernel(const int32_t* __restrict__ reads,     // (B, L)
   const int tlen0 = wlens[cand0];
   const int64_t start1 = has1 ? w0[cand0 + 1] : start0;
   const int tlen1 = has1 ? wlens[cand0 + 1] : tlen0;
-  const bool fast0 = tlen0 >= plen + W - 1;
-  const bool fast1 = tlen1 >= plen + W - 1;
+  const int rows = LOCAL ? min(plen, L) : plen;
+  const bool fast0 = tlen0 >= rows + W - 1;
+  const bool fast1 = tlen1 >= rows + W - 1;
   int s0, k0, s1 = 0, k1 = 0;
   const bool packed = lim >= 0 && fast0 && fast1 &&
-                      score_pair16<W, SEQ_F>(prow, mrow, L, plen, start0,
-                                             start1, words, n_words, s, lim,
-                                             s0, k0, s1, k1);
+                      score_pair16<W, SEQ_F, LOCAL>(prow, mrow, L, rows,
+                                                    start0, start1, words,
+                                                    n_words, s, lim, s0, k0,
+                                                    s1, k1);
   if (!packed) {
-    score32<W, SEQ_F>(prow, mrow, plen, start0, tlen0, words, n_words, s, s0,
-                      k0);
+    score32<W, SEQ_F, LOCAL>(prow, mrow, rows, start0, tlen0, words, n_words,
+                             s, s0, k0);
     if (has1)
-      score32<W, SEQ_F>(prow, mrow, plen, start1, tlen1, words, n_words, s,
-                        s1, k1);
+      score32<W, SEQ_F, LOCAL>(prow, mrow, rows, start1, tlen1, words,
+                               n_words, s, s1, k1);
   }
   score[cand0] = s0;
   kbest[cand0] = k0;
@@ -365,7 +419,7 @@ banded_score_cands_kernel(const int32_t* __restrict__ reads,     // (B, L)
   }
 }
 
-template <int W>
+template <int W, bool LOCAL>
 cudaError_t launch(const void* reads, const void* rc, const void* mm,
                    const void* mmrc, const void* lens, const void* w0,
                    const void* wlens, const void* words, int64_t n_words,
@@ -383,9 +437,11 @@ cudaError_t launch(const void* reads, const void* rc, const void* mm,
       static_cast<const uint32_t*>(words), n_words, B, C, nch, L, s, lim,  \
       static_cast<int32_t*>(score), static_cast<int32_t*>(kbest)
   if (s.te >= s.to)
-    banded_score_cands_kernel<W, true><<<blocks, threads, 0, stream>>>(NVBT_ARGS);
+    banded_score_cands_kernel<W, true, LOCAL>
+        <<<blocks, threads, 0, stream>>>(NVBT_ARGS);
   else
-    banded_score_cands_kernel<W, false><<<blocks, threads, 0, stream>>>(NVBT_ARGS);
+    banded_score_cands_kernel<W, false, LOCAL>
+        <<<blocks, threads, 0, stream>>>(NVBT_ARGS);
 #undef NVBT_ARGS
   return cudaGetLastError();
 }
@@ -395,23 +451,28 @@ cudaError_t launch(const void* reads, const void* rc, const void* mm,
 extern "C" {
 
 // lim: the packed path's guard (`k1_packed_limit`), -1 to score every
-// candidate in int32. Returns 0 on success, a cudaError_t code after a
-// failed launch, or -1 for a band width without an instantiation.
+// candidate in int32; local selects the LOCAL variant. Returns 0 on
+// success, a cudaError_t code after a failed launch, or -1 for a band width
+// without an instantiation.
 int nvbt_banded_score_cands(const void* reads, const void* rc,
                             const void* mm, const void* mmrc,
                             const void* lens, const void* w0,
                             const void* wlens, const void* words,
                             int64_t n_words, int B, int C, int nch, int L,
                             int W, int match, int po, int pe, int to, int te,
-                            int lim, void* score, void* kbest, void* stream) {
+                            int lim, int local, void* score, void* kbest,
+                            void* stream) {
   if (int64_t(B) * C == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   const Scoring s{match, po, pe, to, te};
 #define NVBT_CALL(WW)                                                       \
   case WW:                                                                  \
-    return int(launch<WW>(reads, rc, mm, mmrc, lens, w0, wlens,             \
-                          words, n_words, B, C, nch, L, s, lim, score,      \
-                          kbest, st));
+    return int(local ? launch<WW, true>(reads, rc, mm, mmrc, lens, w0,     \
+                                        wlens, words, n_words, B, C, nch, \
+                                        L, s, lim, score, kbest, st)      \
+                     : launch<WW, false>(reads, rc, mm, mmrc, lens, w0,    \
+                                         wlens, words, n_words, B, C, nch, \
+                                         L, s, lim, score, kbest, st));
   switch (W) {
     NVBT_CALL(7)
     NVBT_CALL(9)

@@ -18,52 +18,124 @@
 // cells 3, sinks at the best in-range cell of the first row that reaches it
 // and stops the walk in the H state on a zero cell.
 //
-// What bounds it on an H100: integer instructions of the forward pass
-// (at least 17 per cell, 22 for LOCAL, as K2; counted in chip_smoke.py);
-// the direction bytes it writes, M * W per read (754 MB at B = 32768,
-// W = 230), are scratch, not inputs or outputs. K2 keeps a read's band in
-// one thread's registers, which already takes 254 registers at W = 31.
-// Design: one warp per read. Lane j holds the contiguous run of NC band
-// cells [j*NC, j*NC + NC) (NC a template constant: 32*NC >= W; the cells
-// past W in the last lanes are computed and never read). A row:
-//   1. E's k+1 neighbour is in the lane except at the run's last cell,
-//      which takes lane j+1's first cell (one __shfl_down_sync each for H
-//      and E, taken before the row overwrites them);
-//   2. the lazy F's prefix max: an in-lane running max, then a 5-step
-//      __shfl_up_sync max-scan of the lane totals, made exclusive with one
-//      more shuffle; f_ext at cell k is P[k-1] == P[k-2] for the floored
-//      prefix max P (the same integer test as F[k] == F[k-1] + te), so each
-//      lane also takes P[j*NC - 2] from lane j-1;
-//   3. one direction byte per cell (hdir, e_ext, f_ext, mism; the MD symbol
-//      is re-read from the text during the walk), packed four to a word and
-//      stored to a [B][M][32*NC] byte scratch, so a warp's row is one
-//      contiguous run;
-//   4. the LOCAL sink by a warp max (__reduce_max_sync) and a ballot for the
-//      first lane holding it.
-// The text window rolls by one shuffle per row. After the forward pass,
-// the SEMI_GLOBAL sink is the FIN row's warp max and its first k; then lane
-// 0 walks the read's directions from the scratch, END -> START, bounded by
-// 2*(M+W) steps as K2.
+// What bounds it on an H100: integer instructions of the forward pass (at
+// least 17 per cell, 22 for LOCAL, as K2; counted in chip_smoke.py). The
+// first design (one warp per read, 8 cells a lane at W = 230) wrote one
+// direction byte per cell to a 839 MB global scratch (B = 32768), walked it
+// one dependent global byte load a step by lane 0, made two full passes
+// over a lane's cells per row with a runtime band-edge test in both, and
+// rolled the text window through seven register moves and a shuffle. This
+// design:
+//   * One warp per read, two reads per block: lane j owns the contiguous
+//     band cells [j*NC, j*NC + NC) (template NC, 32*NC >= W; cells past W
+//     are computed and never read). Sixteen lanes of 16 cells at W = 230
+//     were slower on an H100 (PERF.md).
+//   * Four direction bits per cell (hdir 2, e_ext, f_ext); the walk
+//     recomputes the mismatch bit from the pattern and text symbols, as K2.
+//     A read's row of directions is its band's nibbles in band order (RB
+//     bytes: the lanes that hold band cells), so the walk reads cell k of
+//     row r at byte r*RB + k/2.
+//   * The directions live in shared memory wherever a read's rows fit
+//     (route SMEM; `kernels.wide_route` picks it from (M, W): 11.6 KB a read
+//     at W = 230, M = 100); only bands that do not fit (1054 at M = 512,
+//     276 KB a read) write them to a global scratch of the same layout. The
+//     read's pattern and text are staged in shared memory in both routes, so
+//     the walk touches global memory only for its op stores.
+//   * DPX: the lazy F's prefix max is one __viaddmax_s32 a cell, LOCAL's
+//     floored H0 one __vimax3_s32. Its per-cell offsets (to - te*c and
+//     te*(c-1), relative to the lane's first cell) are the same for every
+//     lane, kernel parameters in the constant bank; the cross-lane scan
+//     works in absolute values, moved by te*j*NC at the lane boundary.
+//   * One full pass per row (diag, E, e_ext, H0 and the lane's prefix) and
+//     a light second one (F, f_ext, H, hdir) after the cross-lane scan:
+//     K2's R-lane row (csrc/banded_traceback.cu). Each direction bit is a
+//     compare and an OR into the row's nibble word.
+//   * The band edge (cell W-1, whose E arms are NEG_INF) costs a test per
+//     cell at run time; the bands of the documented read lengths (230,
+//     286, 1054) are compiled in, so only one cell of one lane tests it.
+//   * The text window advances by one shared-memory load a row per lane.
+// The warp-level work per row: two shuffles for the k+1 neighbour, a
+// 5-step scan plus two shuffles for F, and in LOCAL the row's sink (two
+// warp reductions). After the forward pass the warp walks END -> START from
+// shared memory, bounded by 2*(M+W) steps as K2: 32 diagonal steps at a time
+// (lane j reads the cell j rows up; a ballot ends the run; the run's op
+// entries go out as one coalesced store), the other steps one at a time, so
+// a read's walk takes one warp step per run where one lane took a step per
+// op.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kNegInf = -(1 << 24);
+constexpr int kLanes = 32;    // a warp per read
+constexpr int kThreads = 64;  // two reads per block
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int NC, bool LOCAL>
-__global__ void __launch_bounds__(128)
+// per band cell c of a lane: te*(c-1) (F) and to - te*c (the prefix's G),
+// both relative to the lane's first cell
+template <int NC>
+struct CellConsts {
+  int fk[NC];
+  int gk[NC];
+};
+
+// bytes of one read's staged pattern and text (int32, the text zero-padded
+// to M + 32*NC so the last lane's window needs no bound)
+__host__ __device__ constexpr int64_t stage_bytes(int M, int NC) {
+  return ((int64_t(M) + M + kLanes * NC) * 4 + 15) / 16 * 16;
+}
+
+// bytes of one row of a read's directions: the nibbles of the lanes that
+// hold band cells (lanes past W store nothing)
+__host__ __device__ constexpr int row_bytes(int W, int NC) {
+  return (W + NC - 1) / NC * NC / 2;
+}
+
+// one read's shared memory: its staged pattern and text, and its rows of
+// directions in the SMEM route
+__host__ __device__ constexpr int64_t read_bytes(int M, int W, int NC,
+                                                 bool smem) {
+  return (stage_bytes(M, NC) + (smem ? int64_t(M) * row_bytes(W, NC) : 0) +
+          15) / 16 * 16;
+}
+
+// the warp's max of v and, among lanes holding it, the least k
+__device__ __forceinline__ void warp_argmax(int& v, int& k) {
+  const int m = __reduce_max_sync(kFull, v);
+  k = __reduce_min_sync(kFull, v == m ? k : INT_MAX);
+  v = m;
+}
+
+// a lane's NC nibbles (NC/8 words or NC/4 half-words) at byte lane*NC/2
+template <int NC>
+__device__ __forceinline__ void store_row(unsigned char* row, int lane,
+                                          const uint32_t (&w)[(NC + 7) / 8]) {
+  unsigned char* p = row + lane * (NC / 2);
+  if constexpr (NC % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < NC / 8; ++i) reinterpret_cast<uint32_t*>(p)[i] = w[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < NC / 4; ++i)
+      reinterpret_cast<uint16_t*>(p)[i] = uint16_t(w[i >> 1] >> (16 * (i & 1)));
+  }
+}
+
+template <int NC, int WT, bool LOCAL, bool SMEM>
+__global__ void __launch_bounds__(kThreads)
 banded_traceback_wide_kernel(const int32_t* __restrict__ pats,    // (B, M)
                              const int32_t* __restrict__ lens,    // (B,)
                              const int32_t* __restrict__ texts,   // (B, TW)
                              const int32_t* __restrict__ tlens,   // (B,)
                              const int32_t* __restrict__ mms,     // (B, M)
-                             int B, int M, int TW, int MAXS, int W,
+                             int B, int M, int TW, int MAXS, int W_arg,
                              int match, int po, int pe, int to, int te,
-                             uint32_t* __restrict__ dirs,  // (B, M, 8*NC)
+                             const CellConsts<NC> cc,
+                             unsigned char* __restrict__ gdirs,  // B*M*RB
                              int32_t* __restrict__ score,
                              int32_t* __restrict__ kbest,
                              int32_t* __restrict__ ops,    // (B, MAXS)
@@ -72,121 +144,148 @@ banded_traceback_wide_kernel(const int32_t* __restrict__ pats,    // (B, M)
                              int32_t* __restrict__ nm_out,
                              int32_t* __restrict__ i_end,
                              int32_t* __restrict__ i_start) {
-  static_assert(NC % 4 == 0 && NC <= 64, "NC: whole words, one e_ext mask");
-  const int lane = threadIdx.x & 31;
-  const int b = int((int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  if (b >= B) return;  // b is the same for the whole warp
+  static_assert(NC % 4 == 0 && NC <= 64, "NC: whole half-words of nibbles");
+  static_assert(WT <= kLanes * NC, "a compiled band fits its lanes");
+  constexpr int RPB = kThreads / kLanes;  // reads per block
+  constexpr int NW = (NC + 7) / 8;        // direction words per lane, row
+  const int W = WT ? WT : W_arg;
+  const int RB = row_bytes(W, NC);        // direction bytes per read, row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int grp = int(threadIdx.x) / kLanes;
+  const int lane = int(threadIdx.x) % kLanes;
+  const int b = int(blockIdx.x) * RPB + grp;
+  if (b >= B) return;  // the whole warp
   const int plen = lens[b];
   const int tlen = tlens[b];
   const int32_t* __restrict__ txt = texts + int64_t(b) * TW;
   const int32_t* __restrict__ pat = pats + int64_t(b) * M;
   const int32_t* __restrict__ mmr = mms + int64_t(b) * M;
   const int rows = plen < M ? plen : M;
-  const int kl = lane * NC;          // this lane's first band cell
-  constexpr int kRowWords = 8 * NC;  // 32 lanes * NC bytes / 4
-  uint32_t* __restrict__ dread = dirs + int64_t(b) * M * kRowWords;
+  const int kl = lane * NC;  // this lane's first band cell
 
-  int H[NC], E[NC], T[NC];
+  // ---- stage the pattern and the text (zero past TW) ----------------------
+  const int64_t stage = stage_bytes(M, NC);
+  unsigned char* mine = smem + grp * read_bytes(M, W, NC, SMEM);
+  int32_t* spat = reinterpret_cast<int32_t*>(mine);
+  int32_t* stxt = spat + M;
+  const int tws = M + kLanes * NC;
+  for (int x = lane; x < M; x += kLanes) spat[x] = pat[x];
+  for (int x = lane; x < tws; x += kLanes) stxt[x] = x < TW ? txt[x] : 0;
+  unsigned char* dirs = SMEM ? mine + stage : gdirs + int64_t(b) * M * RB;
+  __syncwarp();
+
+  // H: the previous row's H, then this row's H0; D: this row's diagonal
+  int H[NC], E[NC], D[NC], T[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     H[c] = 0;
     E[c] = kNegInf;
-    T[c] = (kl + c < TW) ? txt[kl + c] : 0;
+    T[c] = stxt[kl + c];
   }
   int bst = 0, bi = 0, bk = 0;  // LOCAL sink: best in-range cell, row, k
+  // band index W-1, whose E arms are both NEG_INF, is cell CL of lane JL:
+  // a compile-time cell for a compiled band, else a runtime test per cell
+  const int JL = (W - 1) / NC, CL = (W - 1) % NC;
+  const bool edge_lane = lane == JL;
+  const int er_edge = max(kNegInf + pe, kNegInf + po);
+  const bool eb_edge = kNegInf + pe >= kNegInf + po;
+  const int off = te * kl;  // relative prefix values = absolute + off
+  const int nreal = W - kl;  // this lane's cells with k < W: c < nreal
 
   // ---- forward pass: rows 1..plen (later rows are never walked) ----------
+  int p_next = rows > 0 ? spat[0] : 0;
+  int mm_next = rows > 0 ? mmr[0] : 0;
   for (int im1 = 0; im1 < rows; ++im1) {
-    const int p = pat[im1];
-    const int mmv = mmr[im1];
-    // cell k+1 of the run's last cell, from the previous row
+    const int p = p_next;
+    const int mmv = mm_next;
+    if (im1 + 1 < rows) {  // the next row's loads, a row ahead
+      p_next = spat[im1 + 1];
+      mm_next = mmr[im1 + 1];
+    }
+    // the previous row's H and E at cell k+1 of this lane's last cell
     const int hn = __shfl_down_sync(kFull, H[0], 1);
     const int en = __shfl_down_sync(kFull, E[0], 1);
-    uint64_t ee = 0;     // e_ext bit of each cell
-    int gl = kNegInf;    // in-lane running max of G[k] = H0[k] + to - te*k
-    int gl2 = kNegInf;   // the same over all but the run's last cell
+    const int tl = tlen - im1 - kl;  // cells c < tl lie in the text
+    uint32_t wv[NW];                 // this row's direction nibbles
+#pragma unroll
+    for (int i = 0; i < NW; ++i) wv[i] = 0;
+    int gl = kNegInf + off;  // the lane's floored prefix max (relative)
+    int gl2 = gl;            // the same over all but its last cell
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int k = kl + c;
+      uint32_t& w = wv[c >> 3];
+      const int sh = 4 * (c & 7);
       int sub = (p == T[c]) ? match : mmv;
-      sub = (im1 + k < tlen) ? sub : kNegInf;
+      sub = (c < tl) ? sub : kNegInf;
       const int diag = H[c] + sub;
-      const bool nb = k + 1 < W;
-      const int ep = (nb ? ((c + 1 < NC) ? E[c + 1] : en) : kNegInf) + pe;
-      const int hp = (nb ? ((c + 1 < NC) ? H[c + 1] : hn) : kNegInf) + po;
-      const int er = max(ep, hp);
-      ee |= uint64_t(ep >= hp) << c;
-      int h0 = max(diag, er);
-      if (LOCAL) h0 = max(h0, 0);
+      const int ep = ((c + 1 < NC) ? E[c + 1] : en) + pe;
+      const int hp = ((c + 1 < NC) ? H[c + 1] : hn) + po;
+      int er = max(ep, hp);
+      bool eb = ep >= hp;
+      if (c == CL && edge_lane) {
+        er = er_edge;
+        eb = eb_edge;
+      }
+      if (eb) w |= 4u << sh;  // e_ext
+      const int h0 = LOCAL ? __vimax3_s32(diag, er, 0) : max(diag, er);
       if (c + 1 == NC) gl2 = gl;
-      gl = max(gl, h0 + to - te * k);
-      H[c] = diag;  // the previous row's H[c] is no longer needed
+      gl = __viaddmax_s32(h0, cc.gk[c], gl);
+      H[c] = h0;  // the previous row's H[c] is no longer needed
       E[c] = er;
+      D[c] = diag;
     }
-    // exclusive max-scan of the lane totals: g = P[kl - 1], floored at
-    // NEG_INF (gl starts there, as the TPU's shift-in does)
-    int x = gl;
+    // exclusive max-scan of the lane totals (absolute): P[kl - 1], floored
+    // at NEG_INF; and P[kl - 2] from lane j-1 (for cell 0, NEG_INF + 2te,
+    // so that f_ext there is (te == 0), as F[0] = NEG_INF - te gives)
+    int x = gl - off;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x = max(x, y);
-    }
-    int g = __shfl_up_sync(kFull, x, 1);
-    if (lane == 0) g = kNegInf;
-    // P[kl - 2]: lane j-1's prefix before its last cell
-    int gp = __shfl_up_sync(kFull, max(g, gl2), 1);
-    if (lane == 0) gp = kNegInf;
+    for (int d = 1; d < kLanes; d <<= 1)  // lanes below d get their own x
+      x = max(x, __shfl_up_sync(kFull, x, d));
+    int gin = __shfl_up_sync(kFull, x, 1);
+    if (lane == 0) gin = kNegInf;
+    int gpa = __shfl_up_sync(kFull, max(gin, gl2 - off), 1);
+    if (lane == 0) gpa = kNegInf + 2 * te;
+    int g = gin + off, gp = gpa + off;
 
-    uint32_t* __restrict__ drow = dread + int64_t(im1) * kRowWords +
-                                  lane * (NC / 4);
-    uint32_t word = 0;
-    int rb = kNegInf, rk = 0;
+    int rb = kNegInf, rk = 0;  // LOCAL: this lane's best in-range cell
+    const int lim = min(nreal, tl);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int k = kl + c;
-      const int diag = H[c];
-      const int er = E[c];
-      int h0 = max(diag, er);
-      if (LOCAL) h0 = max(h0, 0);
-      const int f = (k == 0) ? kNegInf - te : g + te * (k - 1);
-      const int fe = (k == 0) ? int(kNegInf - te == kNegInf + te)
-                              : int(g == gp);
+      uint32_t& w = wv[c >> 3];
+      const int sh = 4 * (c & 7);
+      const int h0 = H[c];
+      const int f = g + cc.fk[c];
+      if (g == gp) w |= 8u << sh;  // f_ext
       gp = g;
-      g = max(g, h0 + to - te * k);
+      g = __viaddmax_s32(h0, cc.gk[c], g);
       const int h = max(h0, f);
-      int hdir = (h == diag) ? 0 : ((h == er) ? 1 : 2);
+      // hdir: diag (0) where h is H0 and diag reaches E, E (1) where h is
+      // H0 above diag, F (2) where F is above H0; LOCAL: 3 on a zero cell
+      const bool fw = h != h0;
+      if (fw) w |= 2u << sh;
+      if (!fw && D[c] < E[c]) w |= 1u << sh;
       if (LOCAL) {
-        hdir = (h == 0) ? 3 : hdir;  // zero-stop cell
-        if (k < W && im1 + k < tlen && h > rb) {
+        if (h == 0) w |= 3u << sh;  // zero-stop cell
+        if (c < lim && h > rb) {
           rb = h;
-          rk = k;
+          rk = kl + c;
         }
-      }
-      const int mism = p != T[c];
-      word |= uint32_t(hdir | (int((ee >> c) & 1) << 2) | (fe << 3) |
-                       (mism << 4))
-              << (8 * (c & 3));
-      if ((c & 3) == 3) {
-        drow[c >> 2] = word;
-        word = 0;
       }
       H[c] = h;
     }
+    if (kl < W) store_row<NC>(dirs + int64_t(im1) * RB, lane, wv);
     if (LOCAL) {
-      const int wb = __reduce_max_sync(kFull, rb);
-      if (wb > bst) {  // the same on every lane
-        const int src = __ffs(__ballot_sync(kFull, rb == wb)) - 1;
-        bk = __shfl_sync(kFull, rk, src);
-        bst = wb;
+      warp_argmax(rb, rk);
+      if (rb > bst) {  // the same on every lane
+        bst = rb;
         bi = im1 + 1;
+        bk = rk;
       }
     }
-    // roll the text window one column
-    const int tn = __shfl_down_sync(kFull, T[0], 1);
+    // the text window moves one column
 #pragma unroll
     for (int c = 0; c + 1 < NC; ++c) T[c] = T[c + 1];
-    const int nxt = im1 + 1 + kl + NC - 1;
-    T[NC - 1] = (lane < 31) ? tn : ((nxt < TW) ? txt[nxt] : 0);
+    T[NC - 1] = stxt[im1 + 1 + kl + NC - 1];
   }
 
   int smax, k0, i0;
@@ -200,110 +299,173 @@ banded_traceback_wide_kernel(const int32_t* __restrict__ pats,    // (B, M)
     int lm = INT_MIN, lk = 0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int v = (kl + c < W) ? (has_fin ? H[c] : kNegInf) : INT_MIN;
+      const int v = (c < nreal) ? (has_fin ? H[c] : kNegInf) : INT_MIN;
       if (v > lm) {
         lm = v;
         lk = kl + c;
       }
     }
-    smax = __reduce_max_sync(kFull, lm);
-    const int src = __ffs(__ballot_sync(kFull, lm == smax)) - 1;
-    k0 = min(__shfl_sync(kFull, lk, src), W - 1);
+    warp_argmax(lm, lk);
+    smax = lm;
+    k0 = min(lk, W - 1);
     i0 = plen;
   }
+  __syncwarp();  // the warp's direction stores, then the walk
 
-  // ---- traceback walk, END -> START, by lane 0 ----------------------------
+  // ---- traceback walk, END -> START, by the whole warp ------------------
+  // A step reads cell k of row i-1 (byte (i-1)*RB + k/2), the pattern
+  // symbol i-1 and the text symbol x = i-1+k from shared memory. In the H
+  // state a run of diagonal (M) steps moves up one row at a time with k
+  // fixed, so the warp takes 32 of them at once: lane j reads the cell j
+  // rows up, a ballot finds the first that is not diagonal, and the lanes
+  // before it write their op entries and count their mismatches. Every
+  // other step (a gap, the step that ends a run, a zero-stop) is taken by
+  // all lanes alike, one at a time.
   int32_t* __restrict__ orow = ops + int64_t(b) * MAXS;
-  for (int c = lane; c < MAXS; c += 32) orow[c] = 0;
-  __syncwarp();  // the warp's direction and zero stores before lane 0 reads
-  if (lane != 0) return;
-  const uint8_t* __restrict__ dbytes =
-      reinterpret_cast<const uint8_t*>(dread);
-  int i = i0, k = k0, st = 0, cursor = 0, nm = 0;
+  int i = i0, k = k0, st = 0, nm = 0, cursor = 0;
   if (LOCAL || plen <= M) {
     const int cap = 2 * (M + W);
-    for (int step = 0; step < cap && i >= 1; ++step) {
-      const int cell = dbytes[int64_t(i - 1) * (4 * kRowWords) + k];
+    int x = i - 1 + k;
+    auto nibble = [&](int r) {
+      return (dirs[int64_t(r) * RB + (k >> 1)] >> ((k & 1) << 2)) & 15;
+    };
+    while (cursor < cap && i >= 1) {
+      if (st == 0) {
+        const bool ok = i - lane >= 1 && cursor + lane < cap;
+        const bool dg = ok && (nibble(i - 1 - lane) & 3) == 0;
+        const unsigned run = ~__ballot_sync(kFull, dg);
+        const int n = run ? __ffs(run) - 1 : kLanes;  // diagonal steps
+        bool mism = false;
+        if (lane < n) {
+          const int tc = stxt[x - lane];
+          mism = spat[i - 1 - lane] != tc;
+          if (cursor + lane < MAXS)
+            orow[cursor + lane] = 1 | (int(mism) << 2) | ((tc & 15) << 3);
+        }
+        nm += __popc(__ballot_sync(kFull, mism));
+        cursor += n;
+        i -= n;
+        x -= n;
+        if (n == kLanes || !(cursor < cap && i >= 1)) continue;
+      }
+      const int cell = nibble(i - 1);
       const int hdir = cell & 3;
       if (LOCAL && st == 0 && hdir == 3) break;  // zero-stop: (i, k) stay
-      const int e_ext = (cell >> 2) & 1;
-      const int f_ext = (cell >> 3) & 1;
-      const int mism = (cell >> 4) & 1;
-      const int sym = txt[i - 1 + k] & 15;
-      const int sel = (st == 1) ? 1 : ((st == 2) ? 2 : hdir);
-      const int op = (sel == 0) ? 1 : ((sel == 1) ? 2 : 3);
-      nm += (sel == 0) ? mism : 1;
-      if (cursor < MAXS)
-        orow[cursor] = op | (((sel == 0) ? mism : 0) << 2) | (sym << 3);
+      // the op: M (sel 0), I (1, from E) or D (2, from F); the state stays
+      // in a gap while its extension bit is set
+      const int sel = st ? st : hdir;
+      const int tc = stxt[x];
+      const int mism = (sel == 0) & (spat[i - 1] != tc);
+      nm += sel ? 1 : mism;
+      if (lane == 0 && cursor < MAXS)
+        orow[cursor] = (sel + 1) | (mism << 2) | ((tc & 15) << 3);
       ++cursor;
-      const int di = (sel == 2) ? 0 : 1;
-      const int dk = (sel == 0) ? 0 : ((sel == 1) ? 1 : -1);
-      st = (sel == 0) ? 0 : ((sel == 1) ? (e_ext ? 1 : 0) : (f_ext ? 2 : 0));
-      i -= di;
-      k = min(max(k + dk, 0), W - 1);
+      st = sel == 1 ? ((cell >> 2) & 1) : (sel == 2 ? ((cell >> 2) & 2) : 0);
+      const int up = sel != 2;
+      const int kn = min(max(k + (sel == 1) - (sel == 2), 0), W - 1);
+      i -= up;
+      x += kn - k - up;
+      k = kn;
     }
   }
-  score[b] = smax;
-  kbest[b] = k0;
-  n_ops[b] = cursor;
-  k_final[b] = k;
-  nm_out[b] = nm;
-  i_end[b] = i0;
-  i_start[b] = i;
+  if (lane == 0) {
+    score[b] = smax;
+    kbest[b] = k0;
+    n_ops[b] = cursor;
+    k_final[b] = k;
+    nm_out[b] = nm;
+    i_end[b] = i0;
+    i_start[b] = i;
+  }
+  // the rest of the op row, zeros
+  for (int q = cursor + lane; q < MAXS; q += kLanes) orow[q] = 0;
 }
 
-template <int NC, bool LOCAL>
+template <int NC, int WT, bool LOCAL, bool SMEM>
 cudaError_t launch(const void* pats, const void* lens, const void* texts,
                    const void* tlens, const void* mms, int B, int M, int TW,
                    int MAXS, int W, int match, int po, int pe, int to, int te,
                    void* dirs, void* const* outs, cudaStream_t stream) {
-  const int threads = 128;  // four reads per block, one warp each
-  const unsigned blocks = unsigned((int64_t(B) * 32 + threads - 1) / threads);
-  banded_traceback_wide_kernel<NC, LOCAL><<<blocks, threads, 0, stream>>>(
+  constexpr int RPB = kThreads / kLanes;
+  const int64_t shmem = RPB * read_bytes(M, W, NC, SMEM);
+  auto kern = banded_traceback_wide_kernel<NC, WT, LOCAL, SMEM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(shmem));
+  if (err != cudaSuccess) return err;
+  CellConsts<NC> cc;
+  for (int c = 0; c < NC; ++c) {
+    cc.fk[c] = te * (c - 1);
+    cc.gk[c] = to - te * c;
+  }
+  const unsigned blocks = unsigned((int64_t(B) + RPB - 1) / RPB);
+  kern<<<blocks, kThreads, size_t(shmem), stream>>>(
       static_cast<const int32_t*>(pats), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(texts), static_cast<const int32_t*>(tlens),
       static_cast<const int32_t*>(mms), B, M, TW, MAXS, W, match, po, pe, to,
-      te, static_cast<uint32_t*>(dirs), static_cast<int32_t*>(outs[0]),
-      static_cast<int32_t*>(outs[1]), static_cast<int32_t*>(outs[2]),
-      static_cast<int32_t*>(outs[3]), static_cast<int32_t*>(outs[4]),
-      static_cast<int32_t*>(outs[5]), static_cast<int32_t*>(outs[6]),
-      static_cast<int32_t*>(outs[7]));
+      te, cc, static_cast<unsigned char*>(dirs),
+      static_cast<int32_t*>(outs[0]), static_cast<int32_t*>(outs[1]),
+      static_cast<int32_t*>(outs[2]), static_cast<int32_t*>(outs[3]),
+      static_cast<int32_t*>(outs[4]), static_cast<int32_t*>(outs[5]),
+      static_cast<int32_t*>(outs[6]), static_cast<int32_t*>(outs[7]));
   return cudaGetLastError();
+}
+
+// WB: the band compiled in for this NC; any other W tests its band edge at
+// run time
+template <int NC, int WB>
+cudaError_t launch_v(int local, int smem, const void* pats, const void* lens,
+                     const void* texts, const void* tlens, const void* mms,
+                     int B, int M, int TW, int MAXS, int W, int match, int po,
+                     int pe, int to, int te, void* dirs, void* const* outs,
+                     cudaStream_t st) {
+#define NVBT_ARGS                                                          \
+  pats, lens, texts, tlens, mms, B, M, TW, MAXS, W, match, po, pe, to, te, \
+      dirs, outs, st
+#define NVBT_W(WT)                                            \
+  if (local)                                                 \
+    return smem ? launch<NC, WT, true, true>(NVBT_ARGS)      \
+                : launch<NC, WT, true, false>(NVBT_ARGS);    \
+  return smem ? launch<NC, WT, false, true>(NVBT_ARGS)       \
+              : launch<NC, WT, false, false>(NVBT_ARGS);
+  if (W == WB) {
+    NVBT_W(WB)
+  }
+  NVBT_W(0)
+#undef NVBT_W
+#undef NVBT_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// nc: band cells per lane (an instantiated value with 32*nc >= W); dirs:
-// B*M*32*nc bytes of scratch; outs: score, k_best, ops, n_ops, k_final, nm,
-// i_end, i_start (device pointers). Returns 0 on success, a cudaError_t code
-// after a failed launch, or -1 for an nc without an instantiation or too
-// small for W.
+// nc: band cells per lane (an instantiated value with 32*nc >= W); smem:
+// 1 keeps the directions in shared memory, 0 writes them to dirs (B*M*16*nc
+// bytes of scratch; unused with 1); outs: score, k_best, ops, n_ops,
+// k_final, nm, i_end, i_start (device pointers). Returns 0 on success, a
+// cudaError_t code after a failed launch, or -1 for an nc without an
+// instantiation or too small for W.
 int nvbt_banded_traceback_wide(const void* pats, const void* lens,
                                const void* texts, const void* tlens,
                                const void* mms, int B, int M, int TW,
-                               int MAXS, int W, int nc, int local, int match,
-                               int po, int pe, int to, int te, void* dirs,
-                               void* const* outs, void* stream) {
-  if (W < 1 || 32 * nc < W) return -1;
+                               int MAXS, int W, int nc, int smem, int local,
+                               int match, int po, int pe, int to, int te,
+                               void* dirs, void* const* outs, void* stream) {
+  if (W < 1 || kLanes * nc < W) return -1;
   if (B == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
-#define NVBT_CALL(NN)                                                       \
+#define NVBT_CALL(NN, WB)                                                   \
   case NN:                                                                  \
-    return int(local ? launch<NN, true>(pats, lens, texts, tlens, mms, B, M, \
-                                        TW, MAXS, W, match, po, pe, to, te,  \
-                                        dirs, outs, st)                      \
-                     : launch<NN, false>(pats, lens, texts, tlens, mms, B,   \
-                                         M, TW, MAXS, W, match, po, pe, to,  \
-                                         te, dirs, outs, st));
-  // the bands T + M = 2L + W - 1 of the documented read lengths: 230 (L =
-  // 100) -> 8, 286 (the CLI's 128) -> 12, 1054 (MapParams' cap of 512) ->
-  // 36, the cap; any W <= 1152 takes the smallest that holds it
+    return int(launch_v<NN, WB>(local, smem, pats, lens, texts, tlens, mms, \
+                                B, M, TW, MAXS, W, match, po, pe, to, te,   \
+                                dirs, outs, st));
+  // the bands T + M = 2L + W - 1 of the documented read lengths, each
+  // compiled in: 230 (L = 100) -> 8 cells a lane, 286 (the CLI's 128) ->
+  // 12, 1054 (MapParams' cap of 512) -> 36, the cap
   switch (nc) {
-    NVBT_CALL(8)
-    NVBT_CALL(12)
-    NVBT_CALL(36)
+    NVBT_CALL(8, 230)
+    NVBT_CALL(12, 286)
+    NVBT_CALL(36, 1054)
     default:
       return -1;
   }

@@ -11,15 +11,21 @@ Needs a CUDA card and the CUDA toolkit (nvcc, cuobjdump). It
      card's max SM clock, beside the issue ceiling of 4 schedulers x 32
      lanes = 128 per SM per clock;
   2. reads the SASS of the candidate-scoring kernel
-     (``banded_score_cands_kernel<31, true>``, the main path's
-     instantiation): the instructions per band cell of its packed loop
-     (two cells per thread) and its int32 loop, and their opcode mix;
+     (``banded_score_cands_kernel<31, true, LOCAL>``: the single-end path's
+     SEMI_GLOBAL instantiation and the local path's LOCAL one): the
+     instructions per band cell of its packed loop (two cells per thread)
+     and its int32 loop, and their opcode mix;
   3. times that kernel at the main path's shapes (B=32768, C=24, L=100,
      W=31) on random windows and reports the thread-instructions per SM per
      clock its packed loop retires;
   4. reads the SASS of the traceback kernel
      (``banded_traceback_kernel<31, R, LOCAL>``, every group size and both
-     variants): its forward row loop per band cell and its walk step.
+     variants): its forward row loop per band cell and its walk step;
+  5. reads the SASS of the wide traceback kernel at the full-matrix band
+     W = 230 (``banded_traceback_wide_kernel<8, 230, LOCAL, true>``: 8
+     cells a lane, the band compiled in, both variants, the shared-memory
+     route): its forward row loop per lane-cell and per band cell, and its
+     walk loop.
 Prints one JSON object as its last line (and writes it to ``--out``).
 """
 
@@ -169,27 +175,30 @@ K1_ROWS_PER_TRIP = 8
 
 
 def k1_loops(W: int = 31) -> dict:
-    """SASS per band cell of the main path's K1 instantiation (W=31, the
-    sequential F): the packed loop (the one with 16x2 instructions,
+    """SASS per band cell of K1's instantiations at W=31 with the
+    sequential F, SEMI_GLOBAL (the main path's) and LOCAL (the local
+    path's): the packed loop (the one with 16x2 instructions,
     K1_ROWS_PER_TRIP rows a trip, two cells per thread) and the masked
     int32 loop (the largest other loop, one row a trip)."""
-    loops = sass_loops(os.path.join(K._BUILD, "libbanded_score_cands.so"),
-                       f"banded_score_cands_kernelILi{W}ELb1E")
-    packed = [lp for lp in loops if any("16x2" in op.lower() for op in lp)]
-    plain = [lp for lp in loops if lp not in packed]
-    if not packed or not plain:
-        raise RuntimeError(f"K1: {len(packed)} packed and {len(plain)} "
-                           "int32 loops")
     out = {}
-    for name, lp, n in (("packed", packed[0], 2 * K1_ROWS_PER_TRIP * W),
-                        ("int32_masked", plain[0], W)):
-        out[name] = dict(loop_instructions=len(lp), cells_per_trip=n,
-                         instructions_per_cell=len(lp) / n,
-                         loads=sum(op.startswith("LDG") for op in lp),
-                         opcodes=_hist(lp, 12))
-        print(f"[k1] {name}: {len(lp)} SASS for {n} cells = "
-              f"{len(lp) / n:.2f} per cell; {out[name]['opcodes']}",
-              flush=True)
+    for local in (0, 1):
+        loops = sass_loops(os.path.join(K._BUILD, "libbanded_score_cands.so"),
+                           f"banded_score_cands_kernelILi{W}ELb1ELb{local}E")
+        packed = [lp for lp in loops if any("16x2" in op.lower() for op in lp)]
+        plain = [lp for lp in loops if lp not in packed]
+        if not packed or not plain:
+            raise RuntimeError(f"K1: {len(packed)} packed and {len(plain)} "
+                               "int32 loops")
+        for name, lp, n in (("packed", packed[0], 2 * K1_ROWS_PER_TRIP * W),
+                            ("int32_masked", plain[0], W)):
+            key = f"{name}_local" if local else name
+            out[key] = dict(loop_instructions=len(lp), cells_per_trip=n,
+                            instructions_per_cell=len(lp) / n,
+                            loads=sum(op.startswith("LDG") for op in lp),
+                            opcodes=_hist(lp, 12))
+            print(f"[k1] {key}: {len(lp)} SASS for {n} cells = "
+                  f"{len(lp) / n:.2f} per cell; {out[key]['opcodes']}",
+                  flush=True)
     return out
 
 
@@ -232,6 +241,43 @@ def k2_loops(W: int = 31) -> dict:
                   f"{len(span) * R / W:.2f} per band cell (masked row "
                   f"{len(masked)}); walk step {len(step)}; {_hist(span, 8)}",
                   flush=True)
+    return out
+
+
+def wide_loops(W: int = 230) -> dict:
+    """SASS of K2-WIDE's forward row loop and walk loop at band W (compiled
+    in), both variants, shared-memory route. The forward row is the
+    smallest loop with shuffles and a shared-memory store (a larger span
+    with both is the compiler's path for diverged shuffles); the walk loop
+    is the smallest with a shared-memory load and a ballot, one trip of
+    which takes a run of up to 32 diagonal steps and then one other step."""
+    lib = os.path.join(K._BUILD, "libbanded_traceback_wide.so")
+    nc = K.wide_cells(W)
+    out = {}
+    for local in (0, 1):
+        loops = sass_loops(lib, f"banded_traceback_wide_kernelILi{nc}E"
+                                f"Li{W}ELb{local}ELb1E")
+        fwd = [lp for lp in loops
+               if any(op.startswith("SHFL") for op in lp)
+               and any(op.startswith("STS") for op in lp)]
+        walk = [lp for lp in loops
+                if any(op.startswith("LDS") for op in lp)
+                and any(op.startswith("VOTE") for op in lp)]
+        if not fwd or not walk:
+            raise RuntimeError(f"K2-WIDE local={local}: {len(fwd)} forward, "
+                               f"{len(walk)} walk loops")
+        row, step = min(fwd, key=len), min(walk, key=len)
+        key = "local" if local else "semiglobal"
+        out[key] = dict(forward_instructions=len(row), cells_per_lane=nc,
+                        per_lane_cell=len(row) / nc,
+                        per_band_cell=len(row) * 32 / W,
+                        forward_opcodes=_hist(row, 12),
+                        walk_loop_instructions=len(step),
+                        walk_opcodes=_hist(step))
+        print(f"[wide] {key}: forward row {len(row)} SASS for {nc} cells a "
+              f"lane = {len(row) / nc:.2f} per lane-cell, "
+              f"{len(row) * 32 / W:.2f} per band cell at W={W}; walk loop "
+              f"{len(step)}; {_hist(row, 8)}", flush=True)
     return out
 
 
@@ -282,10 +328,12 @@ def main() -> int:
     k1 = k1_loops()
     k1["rate"] = k1_rate(sms, hz, k1["packed"]["instructions_per_cell"])
     k2 = k2_loops()
+    wide = wide_loops()
     res = dict(card=card, sms=sms, max_sm_mhz=mhz,
                sm_mhz_after=smi("clocks.sm"),
                issue_ceiling_per_sm_clock=ISSUE_LANES_PER_SM_CLOCK,
-               probe=rates, k1=k1, k2=k2, seconds=time.time() - t0)
+               probe=rates, k1=k1, k2=k2, wide=wide,
+               seconds=time.time() - t0)
     line = json.dumps(res)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)

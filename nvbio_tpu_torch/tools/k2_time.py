@@ -1,18 +1,33 @@
-"""K2 (``kernels.banded_traceback``) timed on the card, for comparing two
-checkouts and for choosing its lanes per read.
+"""K2 (``kernels.banded_traceback``), K2-WIDE (``banded_traceback_wide``) and
+the local candidate stage timed on the card, for comparing two checkouts
+and for choosing K2's lanes per read.
 
-    python nvbio_tpu_torch/tools/k2_time.py [--root DIR] [--sweep] [--out FILE]
+    python nvbio_tpu_torch/tools/k2_time.py [--root DIR] [--what k2,wide,local]
+                                            [--sweep] [--out FILE]
 
-Times the wrapper of the checkout at ``--root`` (default: the one holding
-this file) at the single-end shape, B=32768 reads of M=100 against their
-windows of M+W-1 at W=31, SEMI_GLOBAL and LOCAL (every other read ending
-in 15 random bases), on seeded inputs: the median of 7 single calls (CUDA
-events around each call, so the host's work before the launch counts) and
-the per-call time of 10 calls queued back to back (median of 5; the card's
-time). Each output is checked bit for bit against the plain version once.
-Only the wrapper's contract is used, so an older checkout's K2 runs too:
-time two checkouts in one machine by running this once per checkout, in
-alternation.
+Times the wrappers of the checkout at ``--root`` (default: the one holding
+this file) on seeded inputs: the median of 7 single calls (CUDA events
+around each call, so the host's work before the launch counts) and the
+per-call time of 10 calls queued back to back (median of 5; the card's
+time). Each output is checked bit for bit against the plain version (or,
+for the local stage, the two routes against each other) once. Only the
+wrappers' contracts are used, so an older checkout runs too: time two
+checkouts in one machine by running this once per checkout, in
+alternation. ``--what`` (default ``k2``) picks, comma-separated:
+
+- ``k2``: K2 at the single-end shape, B=32768 reads of M=100 against their
+  windows of M+W-1 at W=31, SEMI_GLOBAL and LOCAL (every other read ending
+  in 15 random bases).
+- ``wide``: K2-WIDE and K2-WIDE-LOCAL at the full-matrix mate traceback's
+  shape, the same reads against their windows left-padded by M never-match
+  symbols, W = T+M = 230.
+- ``local``: the local candidate stage at B=32768, C=24, L=100, W=31
+  (--local scoring, slots split forward/reverse at 12, windows at the
+  truth, near it and at random): the route of the flat scorer (the
+  (B*C, L) patterns and penalties by torch.where, the (B*C, L+W-1)
+  windows by extract_window, K3-LOCAL) and, where the checkout's
+  ``banded_score_cands`` takes ``local=``, the candidate kernel's LOCAL
+  route; each with its peak device memory above what was allocated before.
 
 ``--sweep`` also times, queued, every batch size of ``SWEEP_B`` under each
 group size of ``kernels.K2_GROUPS`` (the checkout's wrapper must take
@@ -37,6 +52,7 @@ W = 2 * MAX_DIST + 1
 SWEEP_B = (2048, 4096, 8192, 12288, 16384, 20480, 24576, 32768)
 GENOME_LEN = 4_000_000
 SEED = 20261017
+C, NCH = 24, 12
 
 
 def cuda_ms(fn, reps: int = 7) -> float:
@@ -95,8 +111,102 @@ def inputs(dev):
     mm = -(2 + (4 * rng.integers(2, 41, size=(B, M))) // 40)
     t = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    # local candidates: reads on either strand, slot 0 of their half at the
+    # truth, slot 1 near it, the rest at random
+    is_rc = rng.random(B) < 0.5
+    reads = np.where(is_rc[:, None], (3 - tailed)[:, ::-1], tailed)
+    w0 = rng.integers(0, GENOME_LEN - TW, size=(B, C))
+    half = np.where(is_rc, NCH, 0)
+    w0[np.arange(B), half] = starts - MAX_DIST
+    w0[np.arange(B), half + 1] = np.clip(
+        starts - MAX_DIST + rng.integers(-9, 10, B), 0, GENOME_LEN - TW)
     return dict(pats=t(pats), tailed=t(tailed), lens=t(np.full(B, M)),
-                texts=t(texts), tlens=t(np.full(B, TW)), mm=t(mm))
+                texts=t(texts), tlens=t(np.full(B, TW)), mm=t(mm),
+                genome=genome, reads=t(reads), rc=t((3 - reads)[:, ::-1]),
+                mm_rc=t(mm[:, ::-1]),
+                w0=torch.from_numpy(w0).to(dev),
+                wlens=t(np.full((B, C), TW)))
+
+
+def time_k2(K, MapParams, x, res):
+    for name, pats, sc, local in (
+            ("semiglobal", x["pats"], MapParams().scoring, False),
+            ("local", x["tailed"], MapParams.local().scoring, True)):
+        args = (pats, x["lens"], x["texts"], x["tlens"], sc, W, x["mm"])
+        got = K.banded_traceback(*args, local=local)
+        want = K.banded_traceback_plain(*args, local=local)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"k2_time: {name} differs from the plain version")
+        fn = lambda: K.banded_traceback(*args, local=local)  # noqa: E731
+        res[name] = dict(equal=True, ms=cuda_ms(fn),
+                         ms_queued=cuda_ms_queued(fn))
+        print(f"[k2] {name}: {res[name]}", flush=True)
+
+
+def time_wide(K, MapParams, x, res):
+    """K2-WIDE at W = T+M over the windows left-padded by M code-8 symbols
+    (as traceback.batch_traceback_full builds them)."""
+    wf = M + W - 1 + M
+    texts = torch.cat([torch.full((B, M), 8, dtype=torch.int32,
+                                  device=x["texts"].device), x["texts"]], 1)
+    tlens = x["tlens"] + M
+    for name, pats, sc, local in (
+            ("wide_semiglobal", x["pats"], MapParams().scoring, False),
+            ("wide_local", x["tailed"], MapParams.local().scoring, True)):
+        args = (pats, x["lens"], texts, tlens, sc, wf, x["mm"])
+        got = K.banded_traceback_wide(*args, local=local)
+        want = K.banded_traceback_wide_plain(*args, local=local)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"k2_time: {name} differs from the plain version")
+        del got, want
+        fn = lambda: K.banded_traceback_wide(*args, local=local)  # noqa: E731
+        res[name] = dict(W=wf, ms=cuda_ms(fn), ms_queued=cuda_ms_queued(fn))
+        print(f"[wide] {name}: {res[name]}", flush=True)
+
+
+def time_local_stage(K, MapParams, x, res):
+    """The local candidate stage: the flat route as the local branch of
+    read_candidates built it, and the candidate kernel's LOCAL route."""
+    from nvbio_tpu_torch.packed import extract_window, pack, words_to_tensor
+
+    sc = MapParams.local().scoring
+    TW = M + W - 1
+    words = words_to_tensor(pack(x["genome"], 2), x["reads"].device)
+    reads, rc, mm, mm_rc = x["reads"], x["rc"], x["mm"], x["mm_rc"]
+    lens, w0, wlens = x["lens"], x["w0"], x["wlens"]
+
+    def flat():
+        flip = (torch.arange(C, device=reads.device) >= NCH)[None, :, None]
+        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
+        mm_flat = torch.where(flip, mm_rc[:, None, :], mm[:, None, :])
+        win = extract_window(words, w0.reshape(B * C), TW)
+        s, _ = K.banded_score(pats.reshape(B * C, M),
+                              lens[:, None].expand(B, C).reshape(B * C), win,
+                              wlens.reshape(B * C), sc, W,
+                              mm_flat.reshape(B * C, M), local=True)
+        return s.reshape(B, C)
+
+    routes = [("local_stage_flat", flat)]
+    if "local" in inspect.signature(K.banded_score_cands).parameters:
+        routes.append(("local_stage_cands", lambda: K.banded_score_cands(
+            reads, rc, lens, w0, wlens, words, sc, W, NCH, mm, mm_rc,
+            local=True)[0]))
+    want = None
+    for name, fn in routes:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if want is None:
+            want = got
+        elif not torch.equal(got, want):
+            raise SystemExit(f"k2_time: {name} differs from the flat route")
+        del got
+        res[name] = dict(B=B, C=C, ms=cuda_ms(fn),
+                         ms_queued=cuda_ms_queued(fn), peak_bytes=peak)
+        print(f"[local] {name}: {res[name]}", flush=True)
 
 
 def main() -> int:
@@ -104,6 +214,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
                     help="checkout whose nvbio_tpu_torch is timed")
+    ap.add_argument("--what", default="k2",
+                    help="comma-separated: k2, wide, local")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every SWEEP_B under each group size")
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -122,19 +234,11 @@ def main() -> int:
     x = inputs("cuda")
     res = dict(root=os.path.abspath(a.root), kernels_file=K.__file__,
                card=card, shape=f"B={B} M={M} W={W}")
-    for name, pats, sc, local in (
-            ("semiglobal", x["pats"], MapParams().scoring, False),
-            ("local", x["tailed"], MapParams.local().scoring, True)):
-        args = (pats, x["lens"], x["texts"], x["tlens"], sc, W, x["mm"])
-        got = K.banded_traceback(*args, local=local)
-        want = K.banded_traceback_plain(*args, local=local)
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        if not equal:
-            raise SystemExit(f"k2_time: {name} differs from the plain version")
-        fn = lambda: K.banded_traceback(*args, local=local)  # noqa: E731
-        res[name] = dict(equal=equal, ms=cuda_ms(fn),
-                         ms_queued=cuda_ms_queued(fn))
-        print(f"[k2] {name}: {res[name]}", flush=True)
+    what = a.what.split(",")
+    for part, fn in (("k2", time_k2), ("wide", time_wide),
+                     ("local", time_local_stage)):
+        if part in what:
+            fn(K, MapParams, x, res)
     if a.sweep:
         if "group" not in inspect.signature(K.banded_traceback).parameters:
             raise SystemExit("k2_time: --sweep needs a wrapper with group=")

@@ -119,6 +119,37 @@ def test_k1_pairs_ends_lengths_and_guard(W, C, nch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", K.SUPPORTED_BANDS)
+@pytest.mark.parametrize("C,nch", K1_SLOTS)
+def test_local_cands_kernel_bit_equal_to_plain(W, C, nch):
+    """K1's LOCAL instantiation (the local branch's candidate scoring):
+    odd slot halves, windows at the genome's end, plen 0, 1, L and over L,
+    penalties past int8 on some reads and gap scores that rule the packed
+    path out for all, beside the presets."""
+    dev = _card()
+    rng = np.random.default_rng(20 * W + C)
+    B, L = 1001, 2 * W + 9
+    d = _inputs(rng, B, C, L, W, dev)
+    lens = d["lens"].clone()
+    lens[3] = L + 4
+    mm = d["mm"].clone()
+    mm[::7] = -torch.from_numpy(rng.integers(100, 1000, size=(len(
+        range(0, B, 7)), L))).to(torch.int32).to(dev)
+    mm_rc = mm.flip(1).contiguous()
+    for sc in (LOCAL, GotohScoring(2, -2, -5, -1, -2, -4),
+               GotohScoring(2, -6, -5000, -3, -5000, -3)):
+        args = (d["reads"], d["rc"], lens, d["w0"], d["wlens"], d["words"],
+                sc, W, nch, mm, mm_rc)
+        before = K.banded_score_cands.launches
+        got = K.banded_score_cands(*args, local=True)
+        assert K.banded_score_cands.launches == before + 1
+        want = K.banded_score_cands_plain(*args, local=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (got[0][lens > 0] >= 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", K.SUPPORTED_BANDS)
 @pytest.mark.parametrize("group", K.K2_GROUPS)
 @pytest.mark.parametrize("local", [False, True])
 def test_k2_at_each_group_size(W, group, local):
@@ -321,8 +352,11 @@ def test_pe_and_local_mappers_on_cuda_equal_cpu():
 
 
 # K2-WIDE at the bands of the full-matrix traceback: M of 12, 100, 128 and
-# 512 bases (T = L + W - 1 text columns, W = T + M)
+# 512 bases (T = L + W - 1 text columns, W = T + M). 38, 230 and 286 keep
+# their directions in shared memory, 1054 (276 KB a read) in the global
+# scratch: kernels.wide_route
 WIDE_CASES = {38: 12, 230: 100, 286: 128, 1054: 512}
+WIDE_ROUTES = {38: "shared", 230: "shared", 286: "shared", 1054: "global"}
 
 
 def _full_matrix_inputs(rng, B, W, M, dev):
@@ -360,7 +394,8 @@ def test_wide_traceback_kernel_bit_equal_to_plain(W, local):
     dev = _card()
     rng = np.random.default_rng(W + local)
     M = WIDE_CASES[W]
-    B = 256 if W > 512 else 2000
+    assert K.wide_route(M, W) == WIDE_ROUTES[W]
+    B = 256 if W > 512 else 2001
     pats, plens, texts, tlens, mm = _full_matrix_inputs(rng, B, W, M, dev)
     sc = LOCAL if local else SW
     args = (pats, plens, texts, tlens, sc, W, mm)
@@ -373,6 +408,23 @@ def test_wide_traceback_kernel_bit_equal_to_plain(W, local):
             f"{name}: first differences at {(g != w).nonzero()[:4].tolist()}"
     ops = got[2]
     assert ((ops & 3) >= 2).any()                 # gaps were walked
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,M", [(29, 12), (200, 60), (300, 100)])
+def test_wide_traceback_at_bands_not_compiled_in(W, M):
+    """Bands other than 230, 286 and 1054 test the band edge at run time."""
+    dev = _card()
+    rng = np.random.default_rng(W)
+    args = (*_full_matrix_inputs(rng, 999, W, M, dev),)
+    pats, plens, texts, tlens, mm = args
+    for local, sc in ((False, SW), (True, LOCAL)):
+        targs = (pats, plens, texts, tlens, sc, W, mm)
+        for name, g, w in zip(TB_NAMES,
+                              K.banded_traceback_wide(*targs, local=local),
+                              K.banded_traceback_wide_plain(*targs,
+                                                            local=local)):
+            assert torch.equal(g, w), f"{name} local={local}"
 
 
 @pytest.mark.gpu
