@@ -4,8 +4,10 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi);
-  2. build: every CUDA kernel compiled by nvcc for sm_90a (one nvcc per
-     source, in parallel), build seconds and ptxas registers;
+  2. build: every CUDA kernel compiled by nvcc for sm_90a, and K1, K2, K3
+     and K5 once more at band 21 (max_dist 10, outside the precompiled
+     bands) — one nvcc per library, all in parallel — build seconds and
+     ptxas registers;
   3. kernels: each kernel against its plain torch version on the card, at
      its path's shapes, bit for bit on every output (integer DPs: no
      tolerance), timed with CUDA events (median of 7 single calls, and
@@ -19,16 +21,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K2-LOCAL B=32768,
      L=100, W=31 under the lanes per read that k2_group picks (1), and K2
      beside it at the other group size (4) and at B=4096 under both; K3
-     (rescue rescore) B=32768, M=100, W=31; K3-LOCAL, the flat scorer the
+     (rescue rescore) B=32768, M=100, W=31, in the contract form and
+     through its packed-window entry (the mapping path's; with the penalty
+     plane, the scalar mismatch, and LOCAL); K3-LOCAL, the flat scorer the
      local candidates no longer take, at its old shape B*C=786432, M=100,
-     W=31; K4 (mate locate) B=32768, M=100, T=531; K2-WIDE and
+     W=31; K4 (mate locate) B=32768, M=100, T=531, in the contract form
+     and through its packed-window entry, both at M=150, 256 and 512 on
+     4096 mates, and the contract form over 5 symbols; K2-WIDE and
      K2-WIDE-LOCAL (full-matrix mate traceback) B=32768, M=100, W=230 on
      left-padded windows (directions in shared memory), and K2-WIDE at
      W=1054, M=512 on 256 reads (the global-scratch route); K5
      (register-tiled scorer) G=4096 blocks, L=100, W=31 and 17 with
      bench.py's flags, and G=64 with every flag off and ragged lengths;
      K2 at the --all shape B*C=786432, W=31; K2-WIDE at K2's shape (W=31)
-     beside K2;
+     beside K2; K1, K2, K3 (both entries) and K5 at band 21;
   4. main path (single-end): a seeded uniform 100 Mbp genome, its q-gram
      index built on the host, ReadMapper.build(...) on cuda, 4 batches of
      32768 reads of 100 bp with 1% substitutions through dispatch +
@@ -37,16 +43,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      strand) >= 0.95;
   5. paired-end path: 2 batches of 32768 FR pairs (fragments 200-500,
      -X 500), 5% with a seedless mate 2; launch counters +2 each for K1,
-     K2, K3 and K4 per batch; per-mate sensitivity >= 0.95, proper share
-     >= 0.90, seedless mates placed >= 0.90;
+     K2 and the packed-window entries of K3 and K4 (the rescue reads its
+     windows from the packed genome) per batch, +0 for their contract
+     forms; per-mate sensitivity >= 0.95, proper share >= 0.90, seedless
+     mates placed >= 0.90; then single-end at max_dist 10 (band 21): 1
+     batch of 32768 reads, K1 +2 and K2 +1 through the band-21 libraries,
+     sensitivity >= 0.95; and paired-end with 150-base mates and rescue
+     on (K4 over 5 words): 1 batch of 32768 pairs, as the paired-end path;
   6. local path: 2 batches of 32768 reads under --local, a third with a
      random 15-base genome-right tail; K1 (LOCAL) +2 (first pass and
      reseed), K2-LOCAL +1, K3 +0 per batch; sensitivity >= 0.95, tailed
      reads soft-clipped >= 0.8; the peak device memory of one batch;
   7. paired-full: 1 batch of the paired-end pairs with
-     pe_full_traceback=True (K2-WIDE +2, K2 +0, K1 +2, K3 +2, K4 +2), and
-     1 batch under --local (K2-WIDE-LOCAL +2, K1 (LOCAL) +2, K3 +2, K4
-     +2);
+     pe_full_traceback=True (K2-WIDE +2, K2 +0, K1 +2, K3 +2, K4 +2,
+     packed entries), and 1 batch under --local (K2-WIDE-LOCAL +2, K1
+     (LOCAL) +2, K3 +2, K4 +2);
      per-mate sensitivity >= 0.95, proper share >= 0.90, every mapped
      CIGAR's query length equal to len(SEQ);
   8. all: the genome again with 2 Mbp of it pasted, exactly, over other
@@ -63,7 +74,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
      batch;
- 12. GPU = CPU: 1024 reads or pairs of each of the six mapping paths
+ 12. GPU = CPU: 1024 reads or pairs of each of the eight mapping paths
      mapped on cuda and on cpu must give identical SAM records (those of
      the two --all paths including secondaries).
 Prints one JSON line of kernels before the card's line and the last line,
@@ -149,6 +160,15 @@ K2L_OPS_PER_CELL = 22
 K2L_OPS_PER_STEP = 15
 K4_OPS_PER_WORD_STEP = 15
 K4_OPS_PER_STEP = 9
+#   K4's packed entry: its text symbol from the stream word a step, a shift
+#       and a mask (2), and one word load per 16 steps (not counted).
+K4W_OPS_PER_STEP = K4_OPS_PER_STEP + 2
+MAX_DIST_2 = 10                 # the any-band phases: max_dist 10, band 21
+W2 = 2 * MAX_DIST_2 + 1
+L_PE2 = 150                     # the wide-rescue phase's read length
+K4_WIDTHS = (150, 256, 512)     # K4 beside the main shape, both entries
+B_K4_WIDE = 4096
+G_K5_2 = 1024                   # K5 at band 21
 
 
 def require(cond: bool, msg: str) -> None:
@@ -173,7 +193,7 @@ def ptxas_entries(log: str) -> dict:
         if m:
             nm = re.search(r"\d([A-Za-z_]+_kernel)I(.*?)EEv", m.group(1))
             entry = (f"{nm.group(1)}<"
-                     f"{','.join(re.findall(r'L[ib](\d+)E', nm.group(2)))}>"
+                     f"{','.join(re.findall(r'L[ib](\d+)', nm.group(2)))}>"
                      if nm else m.group(1)[:40])
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -374,6 +394,22 @@ def phase_kernels(genome, words, dev, rng, regs):
     k2l = check_kernel("banded_traceback_local", K.banded_traceback,
                        K.banded_traceback_plain, k2l_args, local=True)
     k2l_steps = int(k2l["out"][3].long().sum())
+    # K3's packed entry, the mapping path's rescue rescore: each mate
+    # against the window at its locus read from the packed genome, with the
+    # penalty plane, with the scalar mismatch (no plane) and LOCAL
+    k3w_args = (t(pats), t(lens), words, tw0, tlens, sc, W, t(tb_mm))
+    k3w = check_kernel("banded_score_windows", K.banded_score_windows,
+                       K.banded_score_windows_plain, k3w_args)
+    k3w_np = check_kernel("banded_score_windows (no plane)",
+                          K.banded_score_windows,
+                          K.banded_score_windows_plain,
+                          (*k3w_args[:7], None), plain_reps=1)
+    k3w_l = check_kernel("banded_score_windows local",
+                         K.banded_score_windows,
+                         K.banded_score_windows_plain,
+                         (t(tailed), *k3w_args[1:5], lsc, W, t(tb_mm)),
+                         plain_reps=1, local=True)
+    k3_rows = int(np.minimum(lens, L).sum())
     # K2-WIDE at the full-matrix traceback's band T+M = 230: each read's
     # window of T = L+W-1 left-padded by M never-match symbols, as
     # traceback.batch_traceback_full builds it
@@ -454,7 +490,17 @@ def phase_kernels(genome, words, dev, rng, regs):
                extract_window(words, t(wstart, torch.int64), RW),
                t(mtlens))
     k4 = check_kernel("myers_semiglobal", K.myers_semiglobal,
-                      K.myers_semiglobal_plain, k4_args)
+                      K.myers_semiglobal_plain, k4_args, plain_reps=1)
+    # its packed entry, the mapping path's: the same mates and windows, the
+    # text read from the packed genome
+    k4w_args = (t(pats), t(mplens), words, t(wstart, torch.int64),
+                t(mtlens), RW)
+    k4w = check_kernel("myers_semiglobal_windows",
+                       K.myers_semiglobal_windows,
+                       K.myers_semiglobal_windows_plain, k4w_args,
+                       plain_reps=1)
+    k4_steps = int(np.minimum(mtlens, RW).sum())   # the loop's own length
+    k4x = k4_widths(K, genome, words, rng, starts, k4_args, t)
     k4_found = float((k4["out"][0][128:] <= 3).float().mean())
     print(f"[kernels] K2-LOCAL mean walk {k2l_steps / B:.2f} steps; K4 "
           f"share of mates found at distance <= 3: {k4_found:.4f}",
@@ -480,9 +526,15 @@ def phase_kernels(genome, words, dev, rng, regs):
     k3l_ops = K3L_OPS_PER_CELL * B * C * L * W
     k3l_bytes = C * k3_bytes
     k1l_ops = K1L_OPS_PER_CELL_PACKED * k1_cells
-    k4_word_steps = B * RW * ((L + 31) // 32)
-    k4_ops = K4_OPS_PER_WORD_STEP * k4_word_steps + K4_OPS_PER_STEP * B * RW
+    k4_word_steps = k4_steps * ((L + 31) // 32)
+    k4_ops = K4_OPS_PER_WORD_STEP * k4_word_steps + K4_OPS_PER_STEP * k4_steps
     k4_bytes = B * L * 4 + B * RW * 4 + 4 * B * 4
+    k4w_ops = (K4_OPS_PER_WORD_STEP * k4_word_steps
+               + K4W_OPS_PER_STEP * k4_steps)
+    # patterns, lengths, starts and outputs, and the words of each window
+    k4w_bytes = B * L * 4 + B * (3 * 4 + 8) + B * (RW // 16 + 2) * 4
+    k3w_ops = K3_OPS_PER_CELL * k3_rows * W
+    k3w_bytes = 2 * B * L * 4 + B * (4 * 4 + 8) + B * (TW // 16 + 2) * 4
     k2a_cells = B * C * L * W
     k2a_ops = K2_OPS_PER_CELL * k2a_cells + K2_OPS_PER_STEP * k2a_steps
     k2a_bytes = C * k2_bytes
@@ -510,6 +562,18 @@ def phase_kernels(genome, words, dev, rng, regs):
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
 
+    def k4_cost(mw, steps, form):
+        # K4 at M = mw ("n5": M = L over 5 symbols) on B_K4_WIDE mates
+        m = L if mw == "n5" else mw
+        per_step = K4W_OPS_PER_STEP if form == "windows" else K4_OPS_PER_STEP
+        nbytes = B_K4_WIDE * (m * 4 + 24 + (RW // 16 + 2) * 4 if form ==
+                              "windows" else m * 4 + RW * 4 + 16)
+        return (K4_OPS_PER_WORD_STEP * steps * ((m + 31) // 32)
+                + per_step * steps, nbytes)
+
+    band21 = band_checks(K, genome, words, rng, dev, k1_args, true_w0,
+                         k2_args, t)
+
     print(f"[kernels] issue ceiling {rate:.4g} op/s; K1 {k1_ops:.4g} ops "
           f"packed ({k1_ops_int32:.4g} int32) "
           f"{k1_bytes:.4g} B; K2 {k2_ops:.4g} ops {k2_bytes:.4g} B; "
@@ -533,10 +597,12 @@ def phase_kernels(genome, words, dev, rng, regs):
         ("banded_traceback_local", "banded_traceback.cu", 568, k2l,
          k2l_ops, k2_bytes, f"B={B} L={L} W={W} local group={gs}",
          f"banded_traceback_kernel<{W},{gs},1>"),
-        ("banded_score", "banded_score.cu", 133, k3, k3_ops, k3_bytes,
-         f"B={B} M={L} W={W}", f"banded_score_kernel<{W},0>"),
-        ("myers_semiglobal", "myers_semiglobal.cu", 1132, k4, k4_ops,
-         k4_bytes, f"B={B} M={L} T={RW}", "myers_semiglobal_kernel<4>"),
+        ("banded_score_windows", "banded_score.cu", 133, k3w, k3w_ops,
+         k3w_bytes, f"B={B} M={L} W={W} (rescue rescore, packed windows)",
+         f"banded_score_windows_kernel<{W},0>"),
+        ("myers_semiglobal_windows", "myers_semiglobal.cu", 1132, k4w,
+         k4w_ops, k4w_bytes, f"B={B} M={L} T={RW} (mate locate, packed "
+         f"windows)", "myers_regs_windows_kernel<4>"),
         ("banded_traceback_wide", "banded_traceback_wide.cu", 568, k2w,
          k2w_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M)",
          f"banded_traceback_wide_kernel<8,{W_FULL},0,1>"),
@@ -547,6 +613,7 @@ def phase_kernels(genome, words, dev, rng, regs):
          *k5_cost(W, n5), f"G={G_K5} L={L} W={W} seq_f full_text "
          f"uniform_plen", f"regtile_score_blocked_kernel<{W},1,1,1>"),
     ]
+    rows += band21["rows"]
     out = []
     for name, src, line, res, ops, nbytes, shape, inst in rows:
         bms, by = bound(ops, nbytes)
@@ -594,7 +661,25 @@ def phase_kernels(genome, words, dev, rng, regs):
              f"banded_score_kernel<{W},1>"),
             ("local stage, flat route", stage, (k3l_ops, k3l_bytes),
              f"B={B} C={C}: torch.where + extract_window + K3-LOCAL",
-             f"banded_score_kernel<{W},1>")]:
+             f"banded_score_kernel<{W},1>"),
+            ("banded_score", k3, (k3_ops, k3_bytes),
+             f"B={B} M={L} W={W} (contract form, extracted windows)",
+             f"banded_score_kernel<{W},0>"),
+            ("myers_semiglobal", k4, (k4_ops, k4_bytes),
+             f"B={B} M={L} T={RW} (contract form, extracted windows)",
+             "myers_regs_kernel<4>"),
+            ("banded_score_windows", k3w_np, (k3w_ops, k3w_bytes - B * L * 4),
+             f"B={B} M={L} W={W} (no plane: the scalar mismatch)",
+             f"banded_score_windows_kernel<{W},0>"),
+            ("banded_score_windows", k3w_l,
+             (K3L_OPS_PER_CELL * k3_rows * W, k3w_bytes),
+             f"B={B} M={L} W={W} local", f"banded_score_windows_kernel<{W},1>"),
+    ] + [(f"myers_semiglobal{'_windows' if form == 'windows' else ''}", res,
+          k4_cost(mw, steps, form),
+          f"B={B_K4_WIDE} M={L if mw == 'n5' else mw} T={RW}"
+          + (" n_symbols=5 (generic)" if mw == "n5" else ""), inst)
+         for (mw, form), (res, steps, inst) in k4x.items()
+         ] + band21["extra"]:
         bms, by = bound(ops, nbytes)
         extra.append(dict(name=name, equal=res["equal"],
                           max_abs_err=res["max_abs_err"], ms=res["ms"],
@@ -621,6 +706,131 @@ def phase_kernels(genome, words, dev, rng, regs):
           f"{out[1]['bound_ms']:.3f} ms packed, "
           f"{out[1]['bound_int32_ms']:.3f} ms int32", flush=True)
     return out, extra
+
+
+def k4_widths(K, genome, words, rng, starts, k4_args, t):
+    """K4 at 5, 8 and 16 words (M = 150, 256, 512) on B_K4_WIDE mates in
+    windows of RW that hold them, both entries, and the contract form over
+    a 5-symbol alphabet (the generic instantiation). Returns {(M, form):
+    (check, text steps run, instantiation)}."""
+    from nvbio_tpu_torch.packed import extract_window
+
+    n = len(genome)
+    nb = B_K4_WIDE
+    out = {}
+    for mw in K4_WIDTHS:
+        st = np.clip(starts[:nb], 0, n - mw - 1)
+        ws = np.clip(st - rng.integers(0, RW - mw, size=nb), 0, n - RW)
+        wp = genome[st[:, None] + np.arange(mw)].astype(np.int32)
+        wp = np.where(rng.random(wp.shape) < 0.02, (wp + 1) % 4, wp)
+        plens = np.full(nb, mw)
+        plens[:8] = rng.integers(0, mw, size=8)
+        tlens = np.full(nb, RW)
+        tlens[8:16] = rng.integers(0, RW, size=8)
+        wst = t(ws, torch.int64)
+        args = (t(wp), t(plens), extract_window(words, wst, RW), t(tlens))
+        steps = int(np.minimum(tlens, RW).sum())
+        nw = (mw + 31) // 32
+        out[(mw, "rows")] = (check_kernel(
+            f"myers_semiglobal M={mw} B={nb}", K.myers_semiglobal,
+            K.myers_semiglobal_plain, args, plain_reps=0), steps,
+            f"myers_regs_kernel<{nw}>")
+        out[(mw, "windows")] = (check_kernel(
+            f"myers_semiglobal_windows M={mw} B={nb}",
+            K.myers_semiglobal_windows, K.myers_semiglobal_windows_plain,
+            (args[0], args[1], words, wst, args[3], RW), plain_reps=0),
+            steps, f"myers_regs_windows_kernel<{nw}>")
+    # 5 symbols: code 4 (N) now matches itself, in patterns and texts
+    pats, plens, texts, tlens = (x[:nb].contiguous() for x in k4_args)
+    pats = torch.where(torch.rand(pats.shape, device=pats.device) < 0.05,
+                       4, pats).to(torch.int32)
+    texts = torch.where(torch.rand(texts.shape, device=texts.device) < 0.05,
+                        4, texts).to(torch.int32)
+    out[("n5", "rows")] = (check_kernel(
+        f"myers_semiglobal n_symbols=5 B={nb}", K.myers_semiglobal,
+        K.myers_semiglobal_plain, (pats, plens, texts, tlens), plain_reps=0,
+        n_symbols=5), int(tlens.clamp(max=RW).long().sum()),
+        "myers_generic_kernel<0>")
+    for v in out.values():
+        del v[0]["out"]
+    return out
+
+
+def band_checks(K, genome, words, rng, dev, k1_args, true_w0, k2_args, t):
+    """K1, K2, K3 (both entries) and K5 at band W2 = 21 (max_dist 10, a
+    library built beside the precompiled ones) against their plain
+    versions: K1 on K1's reads and candidates with windows moved to the
+    band's start, K2 and K3 on each read's window at its truth, K5 as the
+    GCUPS leg runs it on G_K5_2 blocks. Returns {"rows": kernel rows of
+    the single-end band-21 path (K1, K2), "extra": the others}, as
+    phase_kernels lays them out, with their costs."""
+    from nvbio_tpu_torch.packed import extract_window
+
+    n = len(genome)
+    sc = k1_args[6]
+    TW2 = L + W2 - 1
+    shift = MAX_DIST - MAX_DIST_2
+    reads, rc, lens, w0, wlens, _, _, _, nch, mm, mm_rc = k1_args
+    C = w0.shape[1]
+    w0_2 = (w0 + shift).clamp(max=n - 1)
+    wl2 = (n - w0_2).clamp(max=TW2).to(torch.int32)
+    k1 = check_kernel(f"banded_score_cands W={W2}", K.banded_score_cands,
+                      K.banded_score_cands_plain,
+                      (reads, rc, lens, w0_2, wl2, words, sc, W2, nch, mm,
+                       mm_rc), plain_reps=1)
+    tw0 = t(np.minimum(true_w0 + shift, n - 1), torch.int64)
+    texts = extract_window(words, tw0, TW2)
+    tl = (n - tw0).clamp(max=TW2).to(torch.int32)
+    pats, plens, mmv = k2_args[0], k2_args[1], k2_args[6]
+    k2 = check_kernel(f"banded_traceback W={W2}", K.banded_traceback,
+                      K.banded_traceback_plain,
+                      (pats, plens, texts, tl, sc, W2, mmv), plain_reps=1)
+    k2_steps = int(k2["out"][3].long().sum())
+    del k1["out"], k2["out"]
+    k3 = check_kernel(f"banded_score W={W2}", K.banded_score,
+                      K.banded_score_plain,
+                      (pats, plens, texts, tl, sc, W2, mmv), plain_reps=1)
+    k3w = check_kernel(f"banded_score_windows W={W2}",
+                       K.banded_score_windows, K.banded_score_windows_plain,
+                       (pats, plens, words, tw0, tl, sc, W2, mmv),
+                       plain_reps=1)
+    k5 = check_kernel(f"regtile_score_blocked W={W2} G={G_K5_2}",
+                      K.regtile_score_blocked, K.regtile_score_blocked_plain,
+                      k5_operands(W2, G_K5_2, dev), plain_reps=1,
+                      **k5_bench_flags(sc, W2))
+    for r in (k3, k3w, k5):
+        del r["out"]
+    nr = reads.shape[0]
+    cells = nr * L * W2
+    k1_bytes = (4 * nr * L * 4 + nr * 4 + nr * C * (8 + 4)
+                + nr * C * ((TW2 + 15) // 16 + 1) * 4 + 2 * nr * C * 4)
+    maxs = (L + W2 + 7) // 8 * 8
+    k2_bytes = (2 * nr * L * 4 + nr * TW2 * 4 + 2 * nr * 4 + 7 * nr * 4
+                + nr * maxs * 4)
+    k3_bytes = 2 * nr * L * 4 + nr * TW2 * 4 + 4 * nr * 4
+    k3w_bytes = 2 * nr * L * 4 + nr * (4 * 4 + 8) + nr * (TW2 // 16 + 2) * 4
+    n5 = G_K5_2 * 1024
+    src = "nvbio_tpu_torch/csrc"
+    return dict(rows=[
+        ("banded_score_cands_w21", "banded_score_cands.cu", 963, k1,
+         K1_OPS_PER_CELL_PACKED * cells * C, k1_bytes,
+         f"B={nr} C={C} L={L} W={W2} (max_dist {MAX_DIST_2})",
+         f"banded_score_cands_kernel<{W2},1,0>"),
+        ("banded_traceback_w21", "banded_traceback.cu", 568, k2,
+         K2_OPS_PER_CELL * cells + K2_OPS_PER_STEP * k2_steps, k2_bytes,
+         f"B={nr} L={L} W={W2} (max_dist {MAX_DIST_2}) group=1",
+         f"banded_traceback_kernel<{W2},1,0>")], extra=[
+        ("banded_score", k3, (K3_OPS_PER_CELL * cells, k3_bytes),
+         f"B={nr} M={L} W={W2} (contract form; {src}/banded_score.cu)",
+         f"banded_score_kernel<{W2},0>"),
+        ("banded_score_windows", k3w, (K3_OPS_PER_CELL * cells, k3w_bytes),
+         f"B={nr} M={L} W={W2} (packed windows)",
+         f"banded_score_windows_kernel<{W2},0>"),
+        ("regtile_score_blocked", k5,
+         (K1_OPS_PER_CELL * n5 * L * W2, n5 * (3 * L + W2 - 1) * 4
+          + 4 * n5 * 4),
+         f"G={G_K5_2} L={L} W={W2} seq_f full_text uniform_plen",
+         f"regtile_score_blocked_kernel<{W2},1,1,1>")])
 
 
 def local_stage(K, args, want, extract_window):
@@ -700,7 +910,8 @@ def k5_bench_flags(scoring, wk: int) -> dict:
 def check_kernel(name, kernel, plain, args, plain_reps=5, kernel_kw=None,
                  **kw):
     """One kernel against its plain version on the same inputs (every
-    output bit for bit), then both timed; fails the run on a difference.
+    output bit for bit), then both timed (the plain version not at all
+    with ``plain_reps=0``: plain_ms None); fails the run on a difference.
     ``kernel_kw`` goes to the kernel's wrapper only."""
     kkw = {**kw, **(kernel_kw or {})}
     got = kernel(*args, **kkw)
@@ -712,9 +923,10 @@ def check_kernel(name, kernel, plain, args, plain_reps=5, kernel_kw=None,
     del want
     ms = cuda_ms(lambda: kernel(*args, **kkw))
     ms_queued = cuda_ms_queued(lambda: kernel(*args, **kkw))
-    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
+    plain_ms = (cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
+                if plain_reps else None)
     print(f"[kernels] {name}: equal={equal} max_abs_err={err} ms={ms:.3f} "
-          f"queued {ms_queued:.3f} plain_ms={plain_ms:.3f}", flush=True)
+          f"queued {ms_queued:.3f} plain_ms={plain_ms}", flush=True)
     require(equal, f"{name} differs from its plain version")
     return dict(equal=equal, max_abs_err=err, ms=ms, ms_queued=ms_queued,
                 plain_ms=plain_ms, out=got)
@@ -734,14 +946,19 @@ def read_batch(genome, seed):
     return batch, starts, is_rc
 
 
-def phase_main_path(genome, ref, index, params, card):
+def phase_main_path(genome, ref, index, params, card, label="main",
+                    n_batches=N_BATCHES, seed=SEED + 100):
+    """``n_batches`` batches of B single-end reads through dispatch +
+    format_batch: launch counts (K1 x2 with the reseed pass, K2 x1 a
+    batch) and sensitivity."""
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 
     t0 = time.time()
     mapper = ReadMapper.build(ref, params, index=index, device="cuda")
     torch.cuda.synchronize()
-    print(f"[main] mapper on cuda in {time.time() - t0:.2f} s", flush=True)
-    batches = [read_batch(genome, SEED + 100 + i) for i in range(N_BATCHES)]
+    print(f"[{label}] mapper on cuda in {time.time() - t0:.2f} s "
+          f"(max_dist {params.max_dist}, band {params.band})", flush=True)
+    batches = [read_batch(genome, seed + i) for i in range(n_batches)]
 
     out, t_dev, t_fmt, wall, launches = run_batches(
         mapper.dispatch, mapper.format_batch, [(b,) for b, _, _ in batches])
@@ -759,44 +976,41 @@ def phase_main_path(genome, ref, index, params, card):
     k1_launches = launches["banded_score_cands"]
     k2_launches = launches["banded_traceback"]
     sens = n_ok / n_reads
-    print(f"[main] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
+    print(f"[{label}] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
           f"reads/s; per batch dispatch+sync s: "
           f"{', '.join(f'{x:.3f}' for x in t_dev)}; format_batch s: "
           f"{', '.join(f'{x:.3f}' for x in t_fmt)}; mapped "
           f"{n_mapped / n_reads:.5f}; sensitivity {sens:.5f}; launches "
           f"banded_score_cands={k1_launches} banded_traceback={k2_launches}"
           f"; card {card}", flush=True)
-    require_launches("single-end", launches, {"banded_score_cands": 2,
-                                              "banded_traceback": 1,
-                                              "banded_score": 0,
-                                              "myers_semiglobal": 0},
-                     N_BATCHES)
-    require(sens >= 0.95, f"sensitivity {sens:.4f} < 0.95")
+    require_launches(label, launches, {"banded_score_cands": 2,
+                                       "banded_traceback": 1}, n_batches)
+    require(sens >= 0.95, f"{label} sensitivity {sens:.4f} < 0.95")
     stats = dict(reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
                  mapped=n_mapped / n_reads, sensitivity=sens,
                  dispatch_s=sum(t_dev), format_s=sum(t_fmt))
     return mapper, batches[0][0], launches, stats
 
 
-def pair_batches(genome, seed):
-    """B FR pairs of L bp (fragments 200-500, 1% substitutions); in 5% of
-    them mate 2 also carries a substitution at 9, 24, ..., 99: one in the
+def pair_batches(genome, seed, rl=L):
+    """B FR pairs of rl bp (fragments 200-500, 1% substitutions); in 5% of
+    them mate 2 also carries a substitution at 9, 24, 39, ...: one in the
     12-base q-gram key of every 22-mer seed on either strand, so only mate
     rescue can place it. Returns the two batches, each mate's truth starts
     and strands, and the seedless mask."""
     from nvbio_tpu_torch.io.fastq import ReadBatch
     from nvbio_tpu_torch.utils.simgenome import sample_pairs
 
-    r1, r2, s1, s2, rc1, rc2 = sample_pairs(genome, B, L, 200, MAXINS,
+    r1, r2, s1, s2, rc1, rc2 = sample_pairs(genome, B, rl, 200, MAXINS,
                                             seed=seed, subst_rate=0.01)
     rng = np.random.default_rng(seed + 1)
     seedless = rng.random(B) < 0.05
-    cut = np.ix_(seedless, np.arange(9, L, 15))
+    cut = np.ix_(seedless, np.arange(9, rl, 15))
     r2[cut] = (r2[cut] + 1) % 4
     names = [f"p{seed}_{i}" for i in range(B)]
     batches = [ReadBatch(names, r.astype(np.uint8),
-                         rng.integers(20, 41, size=(B, L)).astype(np.uint8),
-                         np.full(B, L, np.int32)) for r in (r1, r2)]
+                         rng.integers(20, 41, size=(B, rl)).astype(np.uint8),
+                         np.full(B, rl, np.int32)) for r in (r1, r2)]
     return batches, (s1, s2), (rc1, rc2), seedless
 
 
@@ -825,7 +1039,8 @@ def wrappers():
 
     return (K.banded_score_cands, K.banded_traceback, K.banded_score,
             K.myers_semiglobal, K.banded_traceback_wide,
-            K.regtile_score_blocked)
+            K.regtile_score_blocked, K.banded_score_windows,
+            K.myers_semiglobal_windows)
 
 
 def reset_launches():
@@ -871,15 +1086,24 @@ def placed(rec, start, rc, max_dist) -> bool:
             and abs(rec.pos - 1 - int(start)) <= 2 * max_dist)
 
 
-def phase_paired(genome, mapper, card):
+# a paired-end batch's kernels: K1 per mate, the rescue (K4 and K3 through
+# their packed-window entries, one per mate each), K2 per mate
+PE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 2,
+               "banded_score_windows": 2, "myers_semiglobal_windows": 2}
+
+
+def phase_paired(genome, mapper, card, label="paired",
+                 n_batches=N_BATCHES_PE, rl=L, seed=SEED + 200):
+    """``n_batches`` batches of B FR pairs of rl bp (5% seedless mates 2)
+    through dispatch_pair_batch + format_pair_batch: launch counts,
+    per-mate sensitivity, proper share, seedless mates placed."""
     from nvbio_tpu_torch.bowtie.paired import (
         dispatch_pair_batch,
         format_pair_batch,
     )
 
     md = mapper.params.max_dist
-    batches = [pair_batches(genome, SEED + 200 + i)
-               for i in range(N_BATCHES_PE)]
+    batches = [pair_batches(genome, seed + i, rl) for i in range(n_batches)]
     outs, t_dev, t_fmt, wall, launches = run_batches(
         lambda b1, b2: dispatch_pair_batch(mapper, b1, b2),
         lambda b1, b2, res: format_pair_batch(mapper, b1, b2, res),
@@ -895,26 +1119,23 @@ def phase_paired(genome, mapper, card):
             if seedless[i]:
                 n_seedless += 1
                 n_seedless_ok += ok[1]
-    n_pairs = N_BATCHES_PE * B
+    n_pairs = n_batches * B
     sens = n_ok / (2 * n_pairs)
     proper = n_proper / n_pairs
     rescued = n_seedless_ok / max(n_seedless, 1)
-    print(f"[paired] {n_pairs} pairs in {wall:.3f} s = {n_pairs / wall:.1f} "
-          f"pairs/s; per batch dispatch+sync s: "
+    print(f"[{label}] {rl} bp mates, {n_pairs} pairs in {wall:.3f} s = "
+          f"{n_pairs / wall:.1f} pairs/s; per batch dispatch+sync s: "
           f"{', '.join(f'{x:.3f}' for x in t_dev)} "
           f"({n_pairs / sum(t_dev):.1f} pairs/s on the device path); "
           f"format s: {', '.join(f'{x:.3f}' for x in t_fmt)}; per-mate "
           f"sensitivity {sens:.5f}; proper {proper:.5f}; seedless mates "
           f"placed {n_seedless_ok}/{n_seedless} = {rescued:.5f}; launches "
           f"{launches}; card {card}", flush=True)
-    require_launches("paired", launches, {"banded_score_cands": 2,
-                                          "banded_traceback": 2,
-                                          "banded_score": 2,
-                                          "myers_semiglobal": 2},
-                     N_BATCHES_PE)
-    require(sens >= 0.95, f"paired per-mate sensitivity {sens:.4f} < 0.95")
-    require(proper >= 0.90, f"proper-pair share {proper:.4f} < 0.90")
-    require(rescued >= 0.90, f"seedless mates placed {rescued:.4f} < 0.90")
+    require_launches(label, launches, PE_LAUNCHES, n_batches)
+    require(sens >= 0.95, f"{label} per-mate sensitivity {sens:.4f} < 0.95")
+    require(proper >= 0.90, f"{label} proper-pair share {proper:.4f} < 0.90")
+    require(rescued >= 0.90,
+            f"{label} seedless mates placed {rescued:.4f} < 0.90")
     stats = dict(pairs=n_pairs, seconds=wall, pairs_per_s=n_pairs / wall,
                  dispatch_s=sum(t_dev), format_s=sum(t_fmt),
                  sensitivity=sens, proper=proper, seedless=n_seedless,
@@ -947,9 +1168,7 @@ def phase_local(genome, mapper, card):
           f"{sens:.5f}; tailed reads soft-clipped {clipped:.5f}; launches "
           f"{launches}; card {card}", flush=True)
     require_launches("local", launches, {"banded_score_cands": 2,
-                                         "banded_traceback": 1,
-                                         "banded_score": 0,
-                                         "myers_semiglobal": 0},
+                                         "banded_traceback": 1},
                      N_BATCHES_LOCAL)
     require(sens >= 0.95, f"local sensitivity {sens:.4f} < 0.95")
     require(clipped >= 0.8, f"tailed reads soft-clipped {clipped:.4f} < 0.8")
@@ -1250,12 +1469,15 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"[card] {card}", flush=True)
 
+    # the precompiled libraries and those of band W2, one nvcc each, all
+    # in parallel
     t0 = time.time()
-    info = K.build()
+    info = K.build(bands=(W2,))
     for name, d in info.items():
         print(f"[build] {name}: {d['seconds']:.1f} s; "
               f"{' | '.join(ptxas_summary(d['ptxas']))}", flush=True)
-    print(f"[build] all kernels in {time.time() - t0:.1f} s", flush=True)
+    print(f"[build] all kernels and the band-{W2} libraries in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -1292,18 +1514,29 @@ def main() -> int:
     def gpu(prm):
         return ReadMapper.build(ref, prm, index=gpu_index, device="cuda")
 
+    # any band: max_dist 10 (band 21, no precompiled library); rescue of
+    # 150-base mates (K4 over 5 words)
+    params21 = dataclasses.replace(params, max_dist=MAX_DIST_2)
+    gpu21, batch21, se21_launches, se21_stats = phase_main_path(
+        genome, ref, gpu_index, params21, card, label="single-end-w21",
+        n_batches=1, seed=SEED + 800)
+    params150 = dataclasses.replace(params, max_read_len=L_PE2)
+    gpu150 = gpu(params150)
+    pair150, pe150_launches, pe150_stats = phase_paired(
+        genome, gpu150, card, label="paired-150", n_batches=1, rl=L_PE2,
+        seed=SEED + 900)
+
     gpu_local = gpu(local_params)
     local0, local_launches, local_stats = phase_local(genome, gpu_local,
                                                       card)
     gpu_full, gpu_full_local = gpu(full_params), gpu(full_local)
+    full_launches = {**PE_LAUNCHES, "banded_traceback": 0,
+                     "banded_traceback_wide": 2}
     pf0, pf_launches, pf_stats = phase_paired_full(
-        genome, gpu_full, "paired-full", SEED + 600,
-        {"banded_score_cands": 2, "banded_score": 2, "myers_semiglobal": 2,
-         "banded_traceback_wide": 2}, card)
+        genome, gpu_full, "paired-full", SEED + 600, full_launches, card)
     pfl0, pfl_launches, pfl_stats = phase_paired_full(
         genome, gpu_full_local, "paired-full-local", SEED + 700,
-        {"banded_score_cands": 2, "banded_score": 2, "myers_semiglobal": 2,
-         "banded_traceback_wide": 2}, card)
+        full_launches, card)
     # the --all paths map against the genome with exact repeats planted
     t0 = time.time()
     rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
@@ -1322,24 +1555,29 @@ def main() -> int:
     runs = {"single_end": se_launches, "paired_end": pe_launches,
             "local": local_launches, "paired_full": pf_launches,
             "paired_full_local": pfl_launches, "all": all_launches,
-            "paired_all": pa_launches, "gcups": gcups_launches}
+            "paired_all": pa_launches, "gcups": gcups_launches,
+            "single_end_w21": se21_launches, "paired_150": pe150_launches}
+    # each entry's path, its batches there and its wrapper
     own = {"banded_score_cands": ("single_end", N_BATCHES),
            "banded_score_cands_local": ("local", N_BATCHES_LOCAL),
            "banded_traceback": ("single_end", N_BATCHES),
            "banded_traceback_local": ("local", N_BATCHES_LOCAL),
-           "banded_score": ("paired_end", N_BATCHES_PE),
-           "myers_semiglobal": ("paired_end", N_BATCHES_PE),
+           "banded_score_windows": ("paired_end", N_BATCHES_PE),
+           "myers_semiglobal_windows": ("paired_end", N_BATCHES_PE),
            "banded_traceback_wide": ("paired_full", 1),
            "banded_traceback_wide_local": ("paired_full_local", 1),
-           "regtile_score_blocked": ("gcups", 2)}
+           "regtile_score_blocked": ("gcups", 2),
+           "banded_score_cands_w21": ("single_end_w21", 1),
+           "banded_traceback_w21": ("single_end_w21", 1)}
     for k in kernels:
         path, n_batches = own[k["name"]]
-        wrapper = k["name"].replace("_local", "")
+        wrapper = re.sub(r"_local$|_w\d+$", "", k["name"])
         k["launches"] = runs[path][wrapper]
         k["launches_per_batch"] = runs[path][wrapper] / n_batches
         k["launches_by_path"] = {p: c[wrapper] for p, c in runs.items()}
         require(k["launches"] > 0, f"{k['name']} never launched on its path")
-    require(len(kernels) == 9, f"{len(kernels)} kernel entries, not 9")
+    require(len(kernels) == len(own),
+            f"{len(kernels)} kernel entries, not {len(own)}")
 
     stats["profile"] = phase_profile(
         "single-end", lambda: gpu_mapper.dispatch(batch0))
@@ -1391,9 +1629,20 @@ def main() -> int:
                          lambda: map_pair_batch_all(gpu_rep, a1, a2),
                          lambda: map_pair_batch_all(cpu_rep, a1, a2),
                          secondaries=True)
+    cpu21 = cpu(params21)
+    small21 = head(batch21)
+    phase_gpu_equals_cpu("single-end-w21", lambda: gpu21.map_batch(small21),
+                         lambda: cpu21.map_batch(small21), N_CMP)
+    cpu150 = cpu(params150)
+    q1, q2 = head(pair150[0]), head(pair150[1])
+    phase_gpu_equals_cpu("paired-150",
+                         lambda: map_pair_batch(gpu150, q1, q2),
+                         lambda: map_pair_batch(cpu150, q1, q2), 2 * N_CMP)
 
     print(json.dumps({"kernels": kernels, "kernel_extra": extra,
                       "main_path": stats, "paired_end": pe_stats,
+                      "single_end_w21": se21_stats,
+                      "paired_150": pe150_stats,
                       "local": local_stats, "paired_full": pf_stats,
                       "paired_full_local": pfl_stats, "all": all_stats,
                       "paired_all": pa_stats, "gcups": gcups,

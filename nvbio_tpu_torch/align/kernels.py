@@ -15,6 +15,10 @@ TPU function of that name (:839). Sources: ``nvbio_tpu_torch/csrc/*.cu``, built
 with nvcc for ``sm_90a`` at first use into ``csrc/build/`` (gitignored) —
 one shared library per source, all compiled in parallel — and bound with
 ctypes (a plain C interface; no PyTorch headers, so a build takes seconds).
+The banded kernels hold the bands of ``SUPPORTED_BANDS``; any other band
+builds a library of its own at its first use (``lib<name>_w<W>.so``).
+K4 and K3 each have a second entry that reads its texts straight from the
+packed genome (``myers_semiglobal_windows``, ``banded_score_windows``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current stream, raises if
@@ -43,8 +47,11 @@ from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import extract_window
 
-# band widths with a compiled instantiation: 31 is the default max_dist=15,
-# 17 is --mode ed (max_dist 8); the small ones serve the tests and checks
+# band widths built ahead of time, in the libraries of the sources: 31 is
+# the default max_dist=15, 17 is --mode ed (max_dist 8); the small ones serve
+# the tests and checks. Any other band W of K1, K2, K3 and K5 compiles
+# lib<name>_w<W>.so (the source with -DNVBT_EXTRA_BAND=W, that band alone)
+# at its first use, or ahead of it with ``build(bands=...)``.
 SUPPORTED_BANDS = (7, 9, 11, 17, 31)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -58,6 +65,9 @@ _SOURCES = {
     "banded_traceback_wide": "banded_traceback_wide.cu",
     "regtile_score_blocked": "regtile_score_blocked.cu",
 }
+# the sources compiled once for each band
+_BANDED = ("banded_score_cands", "banded_traceback", "banded_score",
+           "regtile_score_blocked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,48 +85,74 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def build() -> dict:
-    """Compile every kernel source (in parallel, one nvcc each) if its
-    content changed, and load them. Returns {name: {"seconds", "cached",
-    "ptxas"}}: ptxas's -v report (registers, spills), kept beside the
-    library so a cached build still gives it."""
+def _target(name: str, band: int | None) -> tuple[str, tuple[str, ...]]:
+    """The library key of source ``name`` built for ``band`` (None: the
+    library of its precompiled instantiations) and its extra nvcc flags."""
+    if band is None:
+        return name, ()
+    flags = (f"-DNVBT_EXTRA_BAND={band}",)
+    if name == "banded_traceback_wide":
+        flags += (f"-DNVBT_EXTRA_NC={wide_cells(band)}",)
+    return f"{name}_w{band}", flags
+
+
+def build(bands=()) -> dict:
+    """Compile every kernel source, and K1, K2, K3 and K5 once more for
+    each band of ``bands`` outside ``SUPPORTED_BANDS``, where the source
+    (or a header) or the flags changed — all in parallel, one nvcc each —
+    and load them. Returns {library key: {"seconds", "cached", "ptxas"}}
+    (key: the source's name, ``<name>_w<W>`` for a band's own library):
+    ptxas's -v report (registers, spills), kept beside the library so a
+    cached build still gives it."""
+    return _build([(n, None) for n in _SOURCES]
+                  + [(n, W) for W in bands if W not in SUPPORTED_BANDS
+                     for n in _BANDED])
+
+
+def _build(targets) -> dict:
     with _LOCK:
         os.makedirs(_BUILD, exist_ok=True)
+        headers = b"".join(
+            open(os.path.join(_CSRC, h), "rb").read()
+            for h in sorted(os.listdir(_CSRC)) if h.endswith(".cuh"))
         pending, info = {}, {}
-        for name, src in _SOURCES.items():
-            path = os.path.join(_CSRC, src)
+        for name, band in targets:
+            key, extra = _target(name, band)
+            flags = (*NVCC_FLAGS, *extra)
+            path = os.path.join(_CSRC, _SOURCES[name])
             with open(path, "rb") as f:
                 digest = hashlib.sha256(
-                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-            out = os.path.join(_BUILD, f"lib{name}.so")
+                    f.read() + headers + " ".join(flags).encode()).hexdigest()
+            out = os.path.join(_BUILD, f"lib{key}.so")
             stamp = out + ".sha"
             if all(os.path.exists(x) for x in (out, stamp, out + ".ptxas")):
                 with open(stamp) as f:
                     if f.read().strip() == digest:
                         with open(out + ".ptxas") as f:
-                            info[name] = {"seconds": 0.0, "cached": True,
-                                          "ptxas": f.read()}
+                            info[key] = {"seconds": 0.0, "cached": True,
+                                         "ptxas": f.read()}
                         continue
             tmp = f"{out}.{os.getpid()}.tmp"
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, path],
+                [_nvcc(), *flags, "-o", tmp, path],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            pending[name] = (proc, tmp, out, stamp, digest, time.time())
-        for name, (proc, tmp, out, stamp, digest, t0) in pending.items():
+            pending[key] = (proc, tmp, out, stamp, digest, time.time())
+        for key, (proc, tmp, out, stamp, digest, t0) in pending.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+                raise RuntimeError(f"nvcc failed for {key}:\n{log}")
             os.replace(tmp, out)
             with open(out + ".ptxas", "w") as f:
                 f.write(log)
             with open(stamp, "w") as f:
                 f.write(digest)
-            info[name] = {"seconds": time.time() - t0, "cached": False,
-                          "ptxas": log}
-        for name in _SOURCES:
-            if name not in _LIBS:
-                _LIBS[name] = _bind(name, ctypes.CDLL(
-                    os.path.join(_BUILD, f"lib{name}.so")))
+            info[key] = {"seconds": time.time() - t0, "cached": False,
+                         "ptxas": log}
+        for name, band in targets:
+            key, _ = _target(name, band)
+            if key not in _LIBS:
+                _LIBS[key] = _bind(name, ctypes.CDLL(
+                    os.path.join(_BUILD, f"lib{key}.so")))
         return info
 
 
@@ -130,7 +166,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P] * 5 + [I] * 12 + [P, P, P]
     elif name == "banded_score":
         fn = lib.nvbt_banded_score
-        fn.argtypes = [P] * 5 + [I] * 10 + [P, P, P]
+        fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
+        fn.restype = ctypes.c_int
+        fn = lib.nvbt_banded_score_windows
+        fn.argtypes = [P] * 3 + [L] + [P] * 3 + [I] * 10 + [P, P, P]
     elif name == "banded_traceback_wide":
         fn = lib.nvbt_banded_traceback_wide
         fn.argtypes = [P] * 5 + [I] * 13 + [P, P, P]
@@ -139,15 +178,28 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
     else:
         fn = lib.nvbt_myers_semiglobal
-        fn.argtypes = [P] * 4 + [I] * 3 + [P, P, P]
+        fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4
+        fn.restype = ctypes.c_int
+        fn = lib.nvbt_myers_semiglobal_windows
+        fn.argtypes = [P] * 3 + [L] + [P] * 2 + [I] * 3 + [P] * 4
     fn.restype = ctypes.c_int
     return lib
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        build()
-    return _LIBS[name]
+def _lib(name: str, band: int | None = None) -> ctypes.CDLL:
+    """The library of source ``name`` that holds ``band`` (None: a source
+    without bands), built at first use."""
+    if name == "banded_traceback_wide":
+        band = None if band is None or band <= WIDE_MAX_BAND else band
+    elif band in SUPPORTED_BANDS:
+        band = None
+    key, _ = _target(name, band)
+    if key not in _LIBS:
+        if band is None:
+            build()
+        else:
+            _build([(name, band)])
+    return _LIBS[key]
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device):
@@ -274,13 +326,11 @@ def banded_score_cands(reads, rc, lens, w0, wlens, genome_words,
     if genome_words.dim() != 1:
         raise ValueError("genome_words must be 1-D")
     _check(genome_words, "genome_words", torch.int32, genome_words.shape, dev)
-    if band not in SUPPORTED_BANDS:
-        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
     if not 0 <= nch <= C:
         raise ValueError(f"nch {nch} outside [0, {C}]")
     score = torch.empty((B, C), dtype=torch.int32, device=dev)
     kbest = torch.empty((B, C), dtype=torch.int32, device=dev)
-    rc_code = _lib("banded_score_cands").nvbt_banded_score_cands(
+    rc_code = _lib("banded_score_cands", band).nvbt_banded_score_cands(
         reads.data_ptr(), rc.data_ptr(), mm.data_ptr(), mm_rc.data_ptr(),
         lens.data_ptr(), w0.data_ptr(), wlens.data_ptr(),
         genome_words.data_ptr(), genome_words.shape[0], B, C, nch, L, band,
@@ -416,15 +466,28 @@ def _text_tw(texts: torch.Tensor, TW: int) -> torch.Tensor:
 # the card under K2_MIN_WARPS_PER_SM warps per SM, else one lane: on an
 # H100, 4 lanes are the faster at small batches and one lane at B = 32768
 # and at the --all shape (tools/k2_time.py --sweep times both at batches
-# around the switch, chip_smoke.py at B = 4096 and 32768; PERF.md).
+# around the switch, chip_smoke.py at B = 4096 and 32768; PERF.md). A lane
+# of a group holds at least two band cells, so bands under
+# K2_MIN_GROUP_BAND take one lane.
 K2_GROUPS = (1, 4)
 K2_MIN_WARPS_PER_SM = 4
+K2_MIN_GROUP_BAND = 5
 
 
-def k2_group(B: int, sms: int) -> int:
+def k2_group(B: int, sms: int, band: int = 31) -> int:
     """K2's lanes per read for a batch of B reads on a card of ``sms`` SMs
-    (every supported band has at least two cells per lane at 4)."""
+    at ``band``."""
+    if band < K2_MIN_GROUP_BAND:
+        return 1
     return 1 if B >= K2_MIN_WARPS_PER_SM * 32 * sms else 4
+
+
+def k2_row_words(band: int, group: int) -> int:
+    """32-bit words of K2's direction row of one read and pattern row:
+    ``group`` lanes of ceil(ceil(band/group)/8) words, in whole 16-byte
+    vectors (4 at every band up to 32)."""
+    nwl = -(-(-(-band // group)) // 8)
+    return 4 * -(-(group * nwl) // 4)
 
 
 def banded_traceback(patterns, pattern_lens, texts, text_lens,
@@ -456,8 +519,6 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     TW = M + W - 1
     MAXS = _round8(M + W)
     dev = patterns.device
-    if band not in SUPPORTED_BANDS:
-        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
     if mismatch_scores is None:
         mismatch_scores = torch.full((B, M), scoring.mismatch,
                                      dtype=torch.int32, device=dev)
@@ -468,11 +529,14 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     _check_texts(texts, B, dev)
     texts = _text_tw(texts, TW)
     if group is None:
-        group = k2_group(B, _sm_count(dev))
-    if group not in K2_GROUPS:
-        raise ValueError(f"group {group} not supported: {K2_GROUPS}")
-    # 4-bit directions, one 16-byte row per read and pattern row
-    dirs = torch.empty((M, B, 4), dtype=torch.int32, device=dev)
+        group = k2_group(B, _sm_count(dev), W)
+    if group not in K2_GROUPS or (group > 1 and W < K2_MIN_GROUP_BAND):
+        raise ValueError(f"group {group} not supported at band {W}: "
+                         f"{K2_GROUPS}, 1 under band {K2_MIN_GROUP_BAND}")
+    # 4-bit directions, a row of whole 16-byte vectors per read and pattern
+    # row
+    dirs = torch.empty((M, B, k2_row_words(W, group)), dtype=torch.int32,
+                       device=dev)
     # the seven (B,) outputs are rows of one allocation, split after the
     # launch so the host's work overlaps the kernel
     flat = torch.empty((7, B), dtype=torch.int32, device=dev)
@@ -480,7 +544,7 @@ def banded_traceback(patterns, pattern_lens, texts, text_lens,
     row = flat.data_ptr()
     ptrs = (ctypes.c_void_p * 8)(row, row + 4 * B, ops.data_ptr(),
                                  *[row + 4 * B * i for i in range(2, 7)])
-    rc_code = _lib("banded_traceback").nvbt_banded_traceback(
+    rc_code = _lib("banded_traceback", W).nvbt_banded_traceback(
         patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
         text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, MAXS, W,
         group, int(local), *_gaps(scoring), dirs.data_ptr(),
@@ -627,7 +691,10 @@ def banded_traceback_plain(patterns, pattern_lens, texts, text_lens,
 # band cells per lane with a compiled instantiation (one warp of 32 lanes per
 # read), one for each band T+M of a documented read length: 230 at L = 100
 # (8), 286 at 128 (12), 1054 at 512 (36, the widest); a band W takes the
-# fewest that hold it
+# fewest that hold it. A band past WIDE_MAX_BAND (the full-matrix traceback
+# of a 512-base read at max_dist > 64) builds a library of its own at first
+# use: ceil(W/32) cells a lane rounded up to a multiple of 4 (whole
+# half-words of direction nibbles), the band compiled in.
 WIDE_CELLS_PER_LANE = (8, 12, 36)
 WIDE_MAX_BAND = 32 * WIDE_CELLS_PER_LANE[-1]
 # a read's rows of 4-bit directions stay in shared memory up to this size
@@ -641,10 +708,12 @@ banded_traceback_wide_plain = banded_traceback_plain
 
 def wide_cells(band: int) -> int:
     """K2-WIDE's band cells per lane for a band: the fewest compiled ones
-    that hold it. ValueError beyond ``WIDE_MAX_BAND``."""
-    if not 1 <= band <= WIDE_MAX_BAND:
-        raise ValueError(f"banded_traceback_wide: band {band} outside "
-                         f"[1, {WIDE_MAX_BAND}]")
+    that hold it, past ``WIDE_MAX_BAND`` ceil(band/32) rounded up to a
+    multiple of 4. ValueError for a band under 1."""
+    if band < 1:
+        raise ValueError(f"banded_traceback_wide: band {band} < 1")
+    if band > WIDE_MAX_BAND:
+        return -(-(-(-band // 32)) // 4) * 4
     return next(nc for nc in WIDE_CELLS_PER_LANE if 32 * nc >= band)
 
 
@@ -667,10 +736,10 @@ def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
                           scoring: GotohScoring, band: int,
                           mismatch_scores=None, local: bool = False):
     """``banded_traceback``'s contract (the same eight outputs, SEMI_GLOBAL
-    or LOCAL) for any band 1 <= W <= ``WIDE_MAX_BAND`` (1152): the kernel
-    of the full-matrix traceback, whose band T+M is 230 at the operating
-    point and 1054 at a 512-base read. Raises ValueError beyond it (on any
-    device); ``wide_route`` picks where the directions live. For CPU
+    or LOCAL) for any band W >= 1: the kernel of the full-matrix traceback,
+    whose band T+M is 230 at the operating point and 1054 at a 512-base
+    read (a band past ``WIDE_MAX_BAND``, 1152, builds its own library at
+    first use). ``wide_route`` picks where the directions live. For CPU
     tensors: ``banded_traceback_wide_plain``."""
     nc = wide_cells(band)
     if patterns.device.type == "cpu":
@@ -704,7 +773,7 @@ def banded_traceback_wide(patterns, pattern_lens, texts, text_lens,
     row = flat.data_ptr()
     ptrs = (ctypes.c_void_p * 8)(row, row + 4 * B, ops.data_ptr(),
                                  *[row + 4 * B * i for i in range(2, 7)])
-    rc_code = _lib("banded_traceback_wide").nvbt_banded_traceback_wide(
+    rc_code = _lib("banded_traceback_wide", W).nvbt_banded_traceback_wide(
         patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
         text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, MAXS, W,
         nc, int(shared), int(local), *_gaps(scoring),
@@ -750,24 +819,16 @@ def banded_score(patterns, pattern_lens, texts, text_lens,
     W = band
     TW = M + W - 1
     dev = patterns.device
-    if band not in SUPPORTED_BANDS:
-        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
-    if mismatch_scores is None:
-        mismatch_scores = torch.full((B, M), scoring.mismatch,
-                                     dtype=torch.int32, device=dev)
-    _check(patterns, "patterns", torch.int32, (B, M), dev)
-    _check(mismatch_scores, "mismatch_scores", torch.int32, (B, M), dev)
-    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
-    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+    _check_k3(patterns, pattern_lens, text_lens, mismatch_scores, B, M, dev)
     _check_texts(texts, B, dev)
     texts = _text_tw(texts, TW)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
     kbest = torch.empty((B,), dtype=torch.int32, device=dev)
-    rc_code = _lib("banded_score").nvbt_banded_score(
+    rc_code = _lib("banded_score", W).nvbt_banded_score(
         patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
-        text_lens.data_ptr(), mismatch_scores.data_ptr(), B, M, TW, W,
-        int(local), *_gaps(scoring), score.data_ptr(), kbest.data_ptr(),
-        _stream(dev))
+        text_lens.data_ptr(), _ptr(mismatch_scores), B, M, TW, W, int(local),
+        scoring.match, scoring.mismatch, *_gaps(scoring)[1:],
+        score.data_ptr(), kbest.data_ptr(), _stream(dev))
     _raise_if_failed(rc_code, "banded_score", W)
     banded_score.launches += 1
     return score, kbest
@@ -776,13 +837,112 @@ def banded_score(patterns, pattern_lens, texts, text_lens,
 banded_score.launches = 0
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_k3(patterns, pattern_lens, text_lens, mismatch_scores, B, M, dev):
+    _check(patterns, "patterns", torch.int32, (B, M), dev)
+    if mismatch_scores is not None:
+        _check(mismatch_scores, "mismatch_scores", torch.int32, (B, M), dev)
+    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
+    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+
+
+def _check_windows(genome_words, starts, B, dev):
+    if genome_words.dim() != 1:
+        raise ValueError("genome_words must be 1-D")
+    _check(genome_words, "genome_words", torch.int32, genome_words.shape, dev)
+    _check(starts, "starts", torch.int64, (B,), dev)
+
+
+def banded_score_windows(patterns, pattern_lens, genome_words, starts,
+                         text_lens, scoring: GotohScoring, band: int,
+                         mismatch_scores=None, local: bool = False):
+    """``banded_score`` over the windows of the packed genome: the text of
+    pair b is the M+W-1 symbols from ``starts[b]`` that ``extract_window``
+    cuts (0 past the genome's last word), read by the kernel straight from
+    ``genome_words`` (int32 tensor of the packed genome's uint32 bits) with
+    no window built. starts (B,) int64, >= 0; the rest as ``banded_score``
+    (``mismatch_scores=None``: the scalar mismatch, no plane). For CPU
+    tensors: ``banded_score_windows_plain``."""
+    if patterns.device.type == "cpu":
+        return banded_score_windows_plain(patterns, pattern_lens,
+                                          genome_words, starts, text_lens,
+                                          scoring, band, mismatch_scores,
+                                          local)
+    if patterns.device.type != "cuda":
+        raise ValueError(f"unsupported device {patterns.device}")
+    B, M = patterns.shape
+    W = band
+    dev = patterns.device
+    _check_k3(patterns, pattern_lens, text_lens, mismatch_scores, B, M, dev)
+    _check_windows(genome_words, starts, B, dev)
+    score = torch.empty((B,), dtype=torch.int32, device=dev)
+    kbest = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc_code = _lib("banded_score", W).nvbt_banded_score_windows(
+        patterns.data_ptr(), pattern_lens.data_ptr(), genome_words.data_ptr(),
+        genome_words.shape[0], starts.data_ptr(), text_lens.data_ptr(),
+        _ptr(mismatch_scores), B, M, W, int(local), scoring.match,
+        scoring.mismatch, *_gaps(scoring)[1:], score.data_ptr(),
+        kbest.data_ptr(), _stream(dev))
+    _raise_if_failed(rc_code, "banded_score_windows", W)
+    banded_score_windows.launches += 1
+    return score, kbest
+
+
+banded_score_windows.launches = 0
+
+
+def banded_score_windows_plain(patterns, pattern_lens, genome_words, starts,
+                               text_lens, scoring: GotohScoring, band: int,
+                               mismatch_scores=None, local: bool = False):
+    """Plain torch version of ``banded_score_windows``: ``extract_window``
+    then ``banded_score_plain``."""
+    TW = patterns.shape[1] + band - 1
+    return banded_score_plain(patterns, pattern_lens,
+                              extract_window(genome_words, starts, TW),
+                              text_lens, scoring, band, mismatch_scores,
+                              local)
+
+
 # ---------------------------------------------------------------------------
 # K4: Myers bit-parallel semi-global edit distance
 # ---------------------------------------------------------------------------
 
-# patterns of up to 4 words of 32 bits (the JAX --max-read-len default 128)
-MYERS_MAX_LEN = 128
+# patterns of up to MYERS_REG_WORDS words of 32 bits (M <= 512, MapParams'
+# read cap) over DNA keep their state in registers, one read a thread; any
+# other width or alphabet takes the generic instantiation (state in a
+# global scratch)
+MYERS_REG_WORDS = 16
 _M32 = 0xFFFFFFFF
+
+
+def myers_words(M: int) -> int:
+    """32-bit words of a pattern of M columns (at least 1)."""
+    return max(-(-M // 32), 1)
+
+
+def myers_route(M: int, n_symbols: int = 4) -> str:
+    """Where K4 keeps a read's Peq, PV and MV: "registers" for DNA patterns
+    of up to ``MYERS_REG_WORDS`` words, else "generic"."""
+    return ("registers" if n_symbols == 4 and myers_words(M) <= MYERS_REG_WORDS
+            else "generic")
+
+
+def _myers_launch(fn, args, B, M, n_symbols, dev):
+    """The generic route's scratch and the launch of one K4 entry
+    (``args``: its arguments before the scratch)."""
+    nw = myers_words(M)
+    scratch = (None if myers_route(M, n_symbols) == "registers" else
+               torch.empty(((n_symbols + 2) * nw, B), dtype=torch.int32,
+                           device=dev))
+    dist = torch.empty((B,), dtype=torch.int32, device=dev)
+    tend = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc_code = fn(*args, _ptr(scratch), dist.data_ptr(), tend.data_ptr(),
+                 _stream(dev))
+    _raise_if_failed(rc_code, "myers_semiglobal", M)
+    return dist, tend
 
 
 def myers_semiglobal(patterns, pattern_lens, texts, text_lens,
@@ -790,45 +950,75 @@ def myers_semiglobal(patterns, pattern_lens, texts, text_lens,
     """Semi-global edit distance (pattern global, text local) and the
     first 1-based text end at which it is reached.
 
-    patterns (B, M) int32 with M <= 128 (codes 0..3; others match
-    nothing), texts (B, T) int32 (a code outside 1..3 reads as 0), lens
-    (B,) int32. Returns (distance, text_end), (B,) int32 — the contract of
-    ``myers_semiglobal_pallas``, including its floor arithmetic at
-    ``plen = 0`` (distance 0, text_end 0)."""
-    B, M = patterns.shape
-    if n_symbols != 4:
-        raise ValueError(f"myers_semiglobal: n_symbols={n_symbols}; the "
-                         "kernel is built for DNA (4)")
-    if M > MYERS_MAX_LEN:
-        raise ValueError(f"myers_semiglobal: patterns of {M} columns; the "
-                         f"kernel takes at most {MYERS_MAX_LEN}")
+    patterns (B, M) int32, any M (codes 0..n_symbols-1; others match
+    nothing), texts (B, T) int32 read in place (a code outside
+    1..n_symbols-1 reads as 0), lens (B,) int32. Returns (distance,
+    text_end), (B,) int32 — the contract of ``myers_semiglobal_pallas``,
+    including its floor arithmetic at ``plen = 0``."""
     if patterns.device.type == "cpu":
         return myers_semiglobal_plain(patterns, pattern_lens, texts,
                                       text_lens, n_symbols)
     if patterns.device.type != "cuda":
         raise ValueError(f"unsupported device {patterns.device}")
+    B, M = patterns.shape
     dev = patterns.device
     _check(patterns, "patterns", torch.int32, (B, M), dev)
     _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
     _check(text_lens, "text_lens", torch.int32, (B,), dev)
     _check_texts(texts, B, dev)
+    if not texts.is_contiguous():
+        raise ValueError("texts is not contiguous")
     T = texts.shape[1]
-    # (M, B) and (T, B) layouts: a warp's 32 neighbouring rows load one
-    # coalesced row per pattern column and per text step
-    pat_t = patterns.t().contiguous()
-    txt_t = texts.t().contiguous()
-    dist = torch.empty((B,), dtype=torch.int32, device=dev)
-    tend = torch.empty((B,), dtype=torch.int32, device=dev)
-    rc_code = _lib("myers_semiglobal").nvbt_myers_semiglobal(
-        pat_t.data_ptr(), pattern_lens.data_ptr(), txt_t.data_ptr(),
-        text_lens.data_ptr(), B, M, T, dist.data_ptr(), tend.data_ptr(),
-        _stream(dev))
-    _raise_if_failed(rc_code, "myers_semiglobal", (M + 31) // 32)
+    out = _myers_launch(
+        _lib("myers_semiglobal").nvbt_myers_semiglobal,
+        (patterns.data_ptr(), pattern_lens.data_ptr(), texts.data_ptr(),
+         text_lens.data_ptr(), B, M, T, n_symbols), B, M, n_symbols, dev)
     myers_semiglobal.launches += 1
-    return dist, tend
+    return out
 
 
 myers_semiglobal.launches = 0
+
+
+def myers_semiglobal_windows(patterns, pattern_lens, genome_words, starts,
+                             text_lens, T: int):
+    """``myers_semiglobal`` (DNA) over the windows of the packed genome:
+    the text of read b is the T symbols from ``starts[b]`` that
+    ``extract_window`` cuts (0 past the genome's last word), read by the
+    kernel straight from ``genome_words`` (int32 tensor of the packed
+    genome's uint32 bits) with no window built. starts (B,) int64, >= 0.
+    For CPU tensors: ``myers_semiglobal_windows_plain``."""
+    if patterns.device.type == "cpu":
+        return myers_semiglobal_windows_plain(patterns, pattern_lens,
+                                              genome_words, starts,
+                                              text_lens, T)
+    if patterns.device.type != "cuda":
+        raise ValueError(f"unsupported device {patterns.device}")
+    B, M = patterns.shape
+    dev = patterns.device
+    _check(patterns, "patterns", torch.int32, (B, M), dev)
+    _check(pattern_lens, "pattern_lens", torch.int32, (B,), dev)
+    _check(text_lens, "text_lens", torch.int32, (B,), dev)
+    _check_windows(genome_words, starts, B, dev)
+    out = _myers_launch(
+        _lib("myers_semiglobal").nvbt_myers_semiglobal_windows,
+        (patterns.data_ptr(), pattern_lens.data_ptr(),
+         genome_words.data_ptr(), genome_words.shape[0], starts.data_ptr(),
+         text_lens.data_ptr(), B, M, T), B, M, 4, dev)
+    myers_semiglobal_windows.launches += 1
+    return out
+
+
+myers_semiglobal_windows.launches = 0
+
+
+def myers_semiglobal_windows_plain(patterns, pattern_lens, genome_words,
+                                   starts, text_lens, T: int):
+    """Plain torch version of ``myers_semiglobal_windows``:
+    ``extract_window`` then ``myers_semiglobal_plain``."""
+    return myers_semiglobal_plain(patterns, pattern_lens,
+                                  extract_window(genome_words, starts, T),
+                                  text_lens)
 
 
 def myers_semiglobal_plain(patterns, pattern_lens, texts, text_lens,
@@ -958,8 +1148,6 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
             uniform_plen=uniform_plen)
     if patsb.device.type != "cuda":
         raise ValueError(f"unsupported device {patsb.device}")
-    if band not in SUPPORTED_BANDS:
-        raise ValueError(f"band {band} not supported: {SUPPORTED_BANDS}")
     dev = patsb.device
     Lp, TWp = patsb.shape[1], txtsb.shape[1]
     _check(patsb, "patsb", torch.int32, (G, Lp, 8, 128), dev)
@@ -970,7 +1158,7 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
     score = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
     kbest = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
     flags = int(seq_f) | (int(full_text) << 1) | (int(uniform_plen) << 2)
-    rc_code = _lib("regtile_score_blocked").nvbt_regtile_score_blocked(
+    rc_code = _lib("regtile_score_blocked", W).nvbt_regtile_score_blocked(
         patsb.data_ptr(), plb.data_ptr(), txtsb.data_ptr(), tlb.data_ptr(),
         mmb.data_ptr(), G, Lp, TWp, length, W, flags, *_gaps(scoring),
         score.data_ptr(), kbest.data_ptr(), _stream(dev))

@@ -8,9 +8,10 @@ single-end candidate stage (K1; in local mode the flat LOCAL scorer K3),
 an all-pairs (C x C) concordance matrix per read pair picks the best
 concordant pair, and a mate with no concordant partner is rescued in the
 fragment window of its mate's best locus — the Myers kernel
-(``align.kernels.myers_semiglobal``, K4) locates the best end in the
-window, then the flat banded scorer (``align.kernels.banded_score``, K3,
-SEMI_GLOBAL) rescores the mate at that locus. Each mate's final alignment
+(``align.kernels.myers_semiglobal_windows``, K4) locates the best end in
+the window, then the flat banded scorer (``align.kernels.
+banded_score_windows``, K3, SEMI_GLOBAL) rescores the mate at that locus;
+both read their windows straight from the packed genome. Each mate's final alignment
 goes through the fused traceback (K2), or with ``pe_full_traceback`` the
 full-matrix traceback (K2-WIDE, band T+M). Per batch: K1 (or K3-LOCAL) x2,
 K4 x2, K3 x2, K2 (or K2-WIDE) x2. All-mapping keeps the top K = 4 distinct
@@ -33,11 +34,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nvbio_tpu_torch import packed
 from nvbio_tpu_torch.align.kernels import (
-    MYERS_MAX_LEN,
-    banded_score,
-    myers_semiglobal,
+    banded_score_windows,
+    myers_semiglobal_windows,
 )
 from nvbio_tpu_torch.align.types import NEG_INF
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end
@@ -72,15 +71,11 @@ def _take(x, idx):
 
 
 def check_paired_supported(params: MapParams, read_width: int) -> None:
-    """Raise for paired-end settings not ported yet: mate rescue's Myers
-    kernel holds patterns of at most ``MYERS_MAX_LEN`` bases."""
+    """Raise for paired-end settings that select no path: an unknown
+    orientation policy. Mate rescue takes reads of any width
+    (``read_width``)."""
     if params.pe_policy not in ("fr", "rf", "ff"):
         raise ValueError(f"unknown pe_policy {params.pe_policy!r}")
-    if params.mate_rescue and read_width > MYERS_MAX_LEN:
-        raise NotImplementedError(
-            f"mate rescue of reads wider than {MYERS_MAX_LEN} bases (here "
-            f"{read_width}) is not ported yet; use --max-read-len <= "
-            f"{MYERS_MAX_LEN} or --no-rescue")
 
 
 def _mate_scores(c, reads, P: MapParams):
@@ -178,17 +173,18 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
             rev_end = anchor_w0 + (anchor_len.to(torch.int64) + P.band)
             wstart = torch.where(upstream, (rev_end - RW).clamp(min=0),
                                  anchor_w0).clamp(max=n_last)
-            win = packed.extract_window(genome_words, wstart, RW)
             wlen = (n_genome - wstart).clamp(min=0, max=RW).to(torch.int32)
-            _dist, tend = myers_semiglobal(other, other_len, win, wlen)
+            _dist, tend = myers_semiglobal_windows(other, other_len,
+                                                   genome_words, wstart,
+                                                   wlen, RW)
             rw0 = (wstart + tend.to(torch.int64)
                    - (other_len.to(torch.int64) + P.max_dist)).clamp(min=0)
             rw0 = rw0.clamp(max=n_last)
             TWr = other.shape[1] + P.band - 1
-            rwin = packed.extract_window(genome_words, rw0, TWr)
             rwlen = (n_genome - rw0).clamp(min=0, max=TWr).to(torch.int32)
-            score, _k = banded_score(other, other_len, rwin, rwlen,
-                                     P.scoring, P.band, other_mm)
+            score, _k = banded_score_windows(other, other_len, genome_words,
+                                             rw0, rwlen, P.scoring, P.band,
+                                             other_mm)
             return score, rw0
 
         # the rescued mate's strand: opposite to the anchor's for fr/rf,

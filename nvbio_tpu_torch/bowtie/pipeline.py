@@ -32,10 +32,7 @@ import numpy as np
 import torch
 
 from nvbio_tpu_torch import packed
-from nvbio_tpu_torch.align.kernels import (
-    SUPPORTED_BANDS,
-    banded_score_cands,
-)
+from nvbio_tpu_torch.align.kernels import banded_score_cands
 from nvbio_tpu_torch.align.traceback import (
     batch_traceback_banded_fast,
     batch_traceback_full,
@@ -77,10 +74,6 @@ def check_supported(params: MapParams) -> None:
             f"select_mode={params.select_mode!r} is not ported yet")
     if params.mode not in ("end-to-end", "local"):
         raise ValueError(f"unknown mode {params.mode!r}")
-    if params.band not in SUPPORTED_BANDS:
-        raise ValueError(f"max_dist={params.max_dist} gives band "
-                         f"{params.band}; the kernels are built for bands "
-                         f"{SUPPORTED_BANDS}")
 
 
 def host_rc_ascii(codes_np: np.ndarray) -> np.ndarray:

@@ -73,6 +73,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "genome_stream.cuh"
+
 namespace {
 
 constexpr int kNegInf = -(1 << 24);
@@ -83,50 +85,6 @@ constexpr uint32_t kNeg2 = 0x40004000u;    // NEG16 = -2^14 in both halves
 struct Scoring {
   int match, po, pe, to, te;
 };
-
-__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ words,
-                                              int64_t n_words, int64_t wi) {
-  // clamped: a window near the genome's end reads past it
-  return __ldg(words + (wi < n_words ? wi : n_words - 1));
-}
-
-__device__ __forceinline__ int genome_sym(const uint32_t* __restrict__ words,
-                                          int64_t n_words, int64_t j) {
-  return int((load_word(words, n_words, j >> 4) >> ((j & 15) * 2)) & 3u);
-}
-
-// The symbols q, q+1, ... of one window: two words in registers, one load
-// per 16 symbols taken.
-struct SymStream {
-  uint32_t lo, hi;
-  int64_t wi;  // index of lo
-  int s;       // position of the next symbol in lo
-};
-
-__device__ __forceinline__ SymStream stream_at(const uint32_t* __restrict__ words,
-                                               int64_t n_words, int64_t q) {
-  SymStream st;
-  st.wi = q >> 4;
-  st.s = int(q & 15);
-  st.lo = load_word(words, n_words, st.wi);
-  st.hi = load_word(words, n_words, st.wi + 1);
-  return st;
-}
-
-// the next kU symbols, 2 bits each, the first in the low bits
-__device__ __forceinline__ uint32_t stream_take(SymStream& st,
-                                                const uint32_t* __restrict__ words,
-                                                int64_t n_words) {
-  const uint32_t bits = __funnelshift_r(st.lo, st.hi, 2 * st.s);
-  st.s += kU;
-  if (st.s >= 16) {
-    st.s -= 16;
-    st.lo = st.hi;
-    st.wi += 1;
-    st.hi = load_word(words, n_words, st.wi + 1);
-  }
-  return bits;
-}
 
 // ---------------------------------------------------------------------------
 // int32: any candidate, the length mask, one row a trip
@@ -316,8 +274,8 @@ __device__ __forceinline__ bool score_pair16(
         row16<W, SEQ_F, LOCAL>(H, E, FIN, T, u, tab, s);
       }
     }
-    const uint32_t bits0 = stream_take(st0, words, n_words);
-    const uint32_t bits1 = stream_take(st1, words, n_words);
+    const uint32_t bits0 = stream_take<kU>(st0, words, n_words);
+    const uint32_t bits1 = stream_take<kU>(st1, words, n_words);
 #pragma unroll
     for (int j = 0; j + 1 < W; ++j) T[j] = T[j + kU];
 #pragma unroll
@@ -453,7 +411,9 @@ extern "C" {
 // lim: the packed path's guard (`k1_packed_limit`), -1 to score every
 // candidate in int32; local selects the LOCAL variant. Returns 0 on
 // success, a cudaError_t code after a failed launch, or -1 for a band width
-// without an instantiation.
+// without an instantiation. The library holds the bands 7, 9, 11, 17 and
+// 31, or with -DNVBT_EXTRA_BAND=W that band alone (align/kernels.py builds
+// one at the first use of a band outside the five).
 int nvbt_banded_score_cands(const void* reads, const void* rc,
                             const void* mm, const void* mmrc,
                             const void* lens, const void* w0,
@@ -474,11 +434,15 @@ int nvbt_banded_score_cands(const void* reads, const void* rc,
                                          wlens, words, n_words, B, C, nch, \
                                          L, s, lim, score, kbest, st));
   switch (W) {
+#ifdef NVBT_EXTRA_BAND
+    NVBT_CALL(NVBT_EXTRA_BAND)
+#else
     NVBT_CALL(7)
     NVBT_CALL(9)
     NVBT_CALL(11)
     NVBT_CALL(17)
     NVBT_CALL(31)
+#endif
     default:
       return -1;
   }

@@ -36,8 +36,9 @@
 //     window that spans every row's band (tlen >= plen + W - 1, almost every
 //     read) takes a row loop without the length mask.
 //   * Four direction bits per cell (hdir 2, e_ext, f_ext), eight cells to a
-//     32-bit word and a read's row to one 16-byte vector, scratch laid out
-//     [row][read] so a warp's row stores coalesce (one store a row, not W).
+//     32-bit word and a read's row to one 16-byte vector (DV of them past
+//     band 32), scratch laid out [row][read] so a warp's row stores
+//     coalesce (one store a row, not W).
 //     The walk recomputes the mismatch bit from the pattern row and the text
 //     symbol. Patterns and penalties are read in their (B, M) layout: no
 //     transposing copies.
@@ -54,6 +55,9 @@
 //     the first k; lane 0 walks. Every per-cell constant of k = kl + c is
 //     hoisted out of the row loop, and the band edge (cell W-1) is one
 //     compile-time cell of one lane, so no cell tests k at run time.
+// Any band compiles: the band arrays grow with W and spill past the 128
+// registers of the launch bounds (PERF.md lists registers and spills by
+// band); 4 lanes a read need W >= 5.
 
 #include <climits>
 #include <cstdint>
@@ -83,18 +87,31 @@ __device__ __forceinline__ void group_argmax(unsigned mask, int& v, int& k) {
   k = kk;
 }
 
+// a lane's N direction words at p (16-byte aligned where N % 4 == 0, 8-byte
+// where N % 2 == 0)
 template <int N>
 __device__ __forceinline__ void store_words(uint32_t* __restrict__ p,
-                                            const uint32_t (&w)[4]) {
-  if (N == 4) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if (N == 2) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+                                            const uint32_t (&w)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<uint4*>(p + i) =
+          make_uint4(w[i], w[i + 1], w[i + 2], w[i + 3]);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2)
+      *reinterpret_cast<uint2*>(p + i) = make_uint2(w[i], w[i + 1]);
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) p[i] = w[i];
   }
 }
+
+// a read's row of directions: R * NWL words in DV 16-byte vectors
+template <int DV>
+struct DirRow {
+  uint4 v[DV];
+};
 
 // at most 128 registers a thread: four blocks (16 warps) per SM
 template <int W, int R, bool LOCAL>
@@ -114,7 +131,7 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
                         int32_t* __restrict__ i_start) {
   constexpr int NC = (W + R - 1) / R;  // band cells per lane
   constexpr int NWL = (NC + 7) / 8;    // direction words per lane and row
-  static_assert(R * NWL <= 4, "a read's row of directions is one uint4");
+  constexpr int DV = (R * NWL + 3) / 4;  // 16-byte vectors per read and row
   static_assert(R == 1 || NC >= 2, "f_ext at a lane's first cell");
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   const int b = int(t / R);
@@ -128,9 +145,10 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
   const int32_t* __restrict__ txt = texts + int64_t(b) * TW;
   const int32_t* __restrict__ prow = pats + int64_t(b) * M;
   const int32_t* __restrict__ mrow = mms + int64_t(b) * M;
-  // this read's 16-byte direction row of pattern row r: dread + r * rstride
-  const int64_t rstride = int64_t(B) * 4;
-  uint32_t* __restrict__ dread = dirs + int64_t(b) * 4;
+  // this read's direction row of pattern row r (DV 16-byte vectors):
+  // dread + r * rstride
+  const int64_t rstride = int64_t(B) * 4 * DV;
+  uint32_t* __restrict__ dread = dirs + int64_t(b) * 4 * DV;
   const int rows = plen < M ? plen : M;
   const int kl = lane * NC;  // this lane's first band cell
 
@@ -172,7 +190,9 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
     // two before (gp); for R > 1 the first loop gathers the lane's own
     int g = kNegInf, gp = kNegInf, gl2 = kNegInf;
     int rb = kNegInf, rk = 0;  // LOCAL: this row's best in-range cell
-    uint32_t wv[4] = {0u, 0u, 0u, 0u};
+    uint32_t wv[NWL];
+#pragma unroll
+    for (int i = 0; i < NWL; ++i) wv[i] = 0u;
 
     // one cell's F, H, direction and sink from its diag, E and e_ext
     auto finish = [&](int c, int diag, int er, uint32_t eb) {
@@ -308,12 +328,16 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
   // text symbols the next steps need are loaded three ahead, and no step
   // waits on a load.
   auto drow = [&](int r) {
-    return *reinterpret_cast<const uint4*>(dread + max(r, 0) * rstride);
+    const uint4* p = reinterpret_cast<const uint4*>(dread + max(r, 0) * rstride);
+    DirRow<DV> x;
+#pragma unroll
+    for (int d = 0; d < DV; ++d) x.v[d] = p[d];
+    return x;
   };
   auto pat_at = [&](int r) { return prow[max(r, 0)]; };
   auto txt_at = [&](int x) { return txt[max(x, 0)]; };
   int i = i0, k = k0, st = 0, cursor = 0, nm = 0;
-  uint4 cur = drow(i - 1), n1 = drow(i - 2), n2 = drow(i - 3);
+  DirRow<DV> cur = drow(i - 1), n1 = drow(i - 2), n2 = drow(i - 3);
   int pc = pat_at(i - 1), p1 = pat_at(i - 2), p2 = pat_at(i - 3);
   int x = i - 1 + k;
   int tc = txt_at(x), t1 = txt_at(x - 1), t2 = txt_at(x - 2);
@@ -325,8 +349,11 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
       // cell k is cell c of lane j: word j*NWL + c/8, nibble c%8
       const int j = R == 1 ? 0 : k / NC, c = k - j * NC;
       const int wi = j * NWL + (c >> 3);
-      const uint32_t w = (wi & 2) ? ((wi & 1) ? cur.w : cur.z)
-                                  : ((wi & 1) ? cur.y : cur.x);
+      uint4 q = cur.v[0];
+#pragma unroll
+      for (int d = 1; d < DV; ++d) q = ((wi >> 2) == d) ? cur.v[d] : q;
+      const uint32_t w = (wi & 2) ? ((wi & 1) ? q.w : q.z)
+                                  : ((wi & 1) ? q.y : q.x);
       const int cell = int(w >> (4 * (c & 7))) & 15;
       const int hdir = cell & 3;
       if (LOCAL && st == 0 && hdir == 3) break;  // zero-stop: (i, k) stay
@@ -386,30 +413,34 @@ banded_traceback_kernel(const int32_t* __restrict__ pats,    // (B, M)
 }
 
 template <int W, int R, bool LOCAL>
-cudaError_t launch(const void* pats, const void* lens, const void* texts,
-                   const void* tlens, const void* mms, int B, int M, int TW,
-                   int MAXS, int match, int po, int pe, int to, int te,
-                   void* dirs, void* const* outs, cudaStream_t stream) {
-  const int threads = 128;
-  const unsigned blocks = unsigned((int64_t(B) * R + threads - 1) / threads);
-  banded_traceback_kernel<W, R, LOCAL><<<blocks, threads, 0, stream>>>(
-      static_cast<const int32_t*>(pats), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(texts), static_cast<const int32_t*>(tlens),
-      static_cast<const int32_t*>(mms), B, M, TW, MAXS, match, po, pe, to,
-      te, static_cast<uint32_t*>(dirs), static_cast<int32_t*>(outs[0]),
-      static_cast<int32_t*>(outs[1]), static_cast<int32_t*>(outs[2]),
-      static_cast<int32_t*>(outs[3]), static_cast<int32_t*>(outs[4]),
-      static_cast<int32_t*>(outs[5]), static_cast<int32_t*>(outs[6]),
-      static_cast<int32_t*>(outs[7]));
-  return cudaGetLastError();
+int launch(const void* pats, const void* lens, const void* texts,
+           const void* tlens, const void* mms, int B, int M, int TW,
+           int MAXS, int match, int po, int pe, int to, int te,
+           void* dirs, void* const* outs, cudaStream_t stream) {
+  // a lane group needs two band cells a lane (W >= 5 at 4 lanes)
+  if constexpr (R > 1 && (W + R - 1) / R < 2) {
+    return -1;
+  } else {
+    const int threads = 128;
+    const unsigned blocks = unsigned((int64_t(B) * R + threads - 1) / threads);
+    banded_traceback_kernel<W, R, LOCAL><<<blocks, threads, 0, stream>>>(
+        static_cast<const int32_t*>(pats), static_cast<const int32_t*>(lens),
+        static_cast<const int32_t*>(texts), static_cast<const int32_t*>(tlens),
+        static_cast<const int32_t*>(mms), B, M, TW, MAXS, match, po, pe, to,
+        te, static_cast<uint32_t*>(dirs), static_cast<int32_t*>(outs[0]),
+        static_cast<int32_t*>(outs[1]), static_cast<int32_t*>(outs[2]),
+        static_cast<int32_t*>(outs[3]), static_cast<int32_t*>(outs[4]),
+        static_cast<int32_t*>(outs[5]), static_cast<int32_t*>(outs[6]),
+        static_cast<int32_t*>(outs[7]));
+    return int(cudaGetLastError());
+  }
 }
 
 template <int W, int R>
-cudaError_t launch_r(int local, const void* pats, const void* lens,
-                     const void* texts, const void* tlens, const void* mms,
-                     int B, int M, int TW, int MAXS, int match, int po,
-                     int pe, int to, int te, void* dirs, void* const* outs,
-                     cudaStream_t st) {
+int launch_r(int local, const void* pats, const void* lens, const void* texts,
+             const void* tlens, const void* mms, int B, int M, int TW,
+             int MAXS, int match, int po, int pe, int to, int te, void* dirs,
+             void* const* outs, cudaStream_t st) {
   return local ? launch<W, R, true>(pats, lens, texts, tlens, mms, B, M, TW,
                                     MAXS, match, po, pe, to, te, dirs, outs,
                                     st)
@@ -422,11 +453,14 @@ cudaError_t launch_r(int local, const void* pats, const void* lens,
 
 extern "C" {
 
-// pats, mms: (B, M); group: lanes per read (1 or 4); dirs: M * B * 4
-// words of scratch; outs: score, k_best, ops, n_ops, k_final, nm, i_end,
-// i_start (device pointers); local selects the LOCAL variant. Returns 0 on
-// success, a cudaError_t code after a failed launch, or -1 for a band width
-// or group without an instantiation.
+// pats, mms: (B, M); group: lanes per read (1 or 4; 4 needs W >= 5); dirs:
+// M * B * 4 * DV words of scratch, DV = ceil(group * ceil(ceil(W/group)/8)
+// / 4) (`kernels.k2_row_words`); outs: score, k_best, ops, n_ops, k_final,
+// nm, i_end, i_start (device pointers); local selects the LOCAL variant.
+// Returns 0 on success, a cudaError_t code after a failed launch, or -1 for
+// a band width or group without an instantiation. The library holds the
+// bands 7, 9, 11, 17 and 31, or with -DNVBT_EXTRA_BAND=W that band alone
+// (align/kernels.py builds one at the first use of a band outside the five).
 int nvbt_banded_traceback(const void* pats, const void* lens,
                           const void* texts, const void* tlens,
                           const void* mms, int B, int M, int TW, int MAXS,
@@ -449,11 +483,15 @@ int nvbt_banded_traceback(const void* pats, const void* lens,
         return -1;      \
     }
   switch (W) {
+#ifdef NVBT_EXTRA_BAND
+    NVBT_CALL(NVBT_EXTRA_BAND)
+#else
     NVBT_CALL(7)
     NVBT_CALL(9)
     NVBT_CALL(11)
     NVBT_CALL(17)
     NVBT_CALL(31)
+#endif
     default:
       return -1;
   }

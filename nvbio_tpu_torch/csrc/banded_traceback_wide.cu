@@ -1,6 +1,9 @@
 // Wide banded traceback kernel (K2-WIDE): K2's fused banded Gotoh forward
 // pass + traceback walk, SEMI_GLOBAL or LOCAL, for bands too wide for one
-// thread's registers (W up to 32 * 36 = 1152).
+// thread's registers: any W, the widths up to 32 * 36 = 1152 from three
+// compiled cells-per-lane counts, a wider band from a library of its own
+// that align/kernels.py builds at its first use (-DNVBT_EXTRA_BAND=W
+// -DNVBT_EXTRA_NC=nc).
 //
 // Replaces the TPU kernel `banded_traceback_semiglobal_pallas` /
 // `_banded_tb_kernel` (nvbio_tpu/align/pallas_kernels.py:568 / :245) where
@@ -144,7 +147,7 @@ banded_traceback_wide_kernel(const int32_t* __restrict__ pats,    // (B, M)
                              int32_t* __restrict__ nm_out,
                              int32_t* __restrict__ i_end,
                              int32_t* __restrict__ i_start) {
-  static_assert(NC % 4 == 0 && NC <= 64, "NC: whole half-words of nibbles");
+  static_assert(NC % 4 == 0, "NC: whole half-words of nibbles");
   static_assert(WT <= kLanes * NC, "a compiled band fits its lanes");
   constexpr int RPB = kThreads / kLanes;  // reads per block
   constexpr int NW = (NC + 7) / 8;        // direction words per lane, row
@@ -463,9 +466,15 @@ int nvbt_banded_traceback_wide(const void* pats, const void* lens,
   // compiled in: 230 (L = 100) -> 8 cells a lane, 286 (the CLI's 128) ->
   // 12, 1054 (MapParams' cap of 512) -> 36, the cap
   switch (nc) {
+#ifdef NVBT_EXTRA_BAND
+    // a band past 32 * 36: its own cells per lane (ceil(W/32) rounded up to
+    // whole half-words of nibbles), the band compiled in
+    NVBT_CALL(NVBT_EXTRA_NC, NVBT_EXTRA_BAND)
+#else
     NVBT_CALL(8, 230)
     NVBT_CALL(12, 286)
     NVBT_CALL(36, 1054)
+#endif
     default:
       return -1;
   }

@@ -166,7 +166,9 @@ extern "C" {
 
 // flags: bit 0 seq_f, bit 1 full_text, bit 2 uniform_plen. Returns 0 on
 // success, a cudaError_t code after a failed launch, or -1 for a band width
-// without an instantiation.
+// without an instantiation. The library holds the bands 7, 9, 11, 17 and
+// 31, or with -DNVBT_EXTRA_BAND=W that band alone (align/kernels.py builds
+// one at the first use of a band outside the five).
 int nvbt_regtile_score_blocked(const void* pats, const void* plens,
                                const void* txts, const void* tlens,
                                const void* mms, int G, int Lp, int TWp, int L,
@@ -180,11 +182,15 @@ int nvbt_regtile_score_blocked(const void* pats, const void* plens,
     return int(launch<WW>(flags, pats, plens, txts, tlens, mms, G, Lp, TWp, \
                           L, match, po, pe, to, te, score, kbest, st));
   switch (W) {
+#ifdef NVBT_EXTRA_BAND
+    NVBT_CALL(NVBT_EXTRA_BAND)
+#else
     NVBT_CALL(7)
     NVBT_CALL(9)
     NVBT_CALL(11)
     NVBT_CALL(17)
     NVBT_CALL(31)
+#endif
     default:
       return -1;
   }

@@ -25,7 +25,13 @@ Needs a CUDA card and the CUDA toolkit (nvcc, cuobjdump). It
      W = 230 (``banded_traceback_wide_kernel<8, 230, LOCAL, true>``: 8
      cells a lane, the band compiled in, both variants, the shared-memory
      route): its forward row loop per lane-cell and per band cell, and its
-     walk loop.
+     walk loop;
+  6. reads the SASS of the Myers kernel (K4) at the mate-locate shapes:
+     the packed-window instantiations at 4 and 5 words
+     (``myers_regs_windows_kernel<NW>``, M = 100 and 150): its 16-step
+     loop per word-step;
+  7. reads the SASS of K3's row loop at W = 31 (``banded_score_kernel`` and
+     ``banded_score_windows_kernel``, SEMI_GLOBAL): per band cell.
 Prints one JSON object as its last line (and writes it to ``--out``).
 """
 
@@ -281,6 +287,43 @@ def wide_loops(W: int = 230) -> dict:
     return out
 
 
+def k4_loops() -> dict:
+    """SASS of K4's main loop (16 text steps a trip, one stream word load):
+    the largest loop of each instantiation, per word-step (16 x NW a
+    trip)."""
+    lib = os.path.join(K._BUILD, "libmyers_semiglobal.so")
+    out = {}
+    for key, part, per_trip in (
+            ("regs_nw4", "myers_regs_windows_kernelILi4E", 16 * 4),
+            ("regs_nw5", "myers_regs_windows_kernelILi5E", 16 * 5)):
+        lp = sass_loops(lib, part)[0]
+        out[key] = dict(loop_instructions=len(lp), units_per_trip=per_trip,
+                        instructions_per_unit=len(lp) / per_trip,
+                        loads=sum(op.startswith("LDG") for op in lp),
+                        opcodes=_hist(lp, 12))
+        print(f"[k4] {key}: {len(lp)} SASS for {per_trip} word-steps = "
+              f"{len(lp) / per_trip:.2f}; {out[key]['opcodes']}", flush=True)
+    return out
+
+
+def k3_loops(W: int = 31) -> dict:
+    """SASS per band cell of K3's row loop (the largest loop: one pattern
+    row over the W cells of the band), SEMI_GLOBAL, in the contract form
+    and the packed-window form."""
+    lib = os.path.join(K._BUILD, "libbanded_score.so")
+    out = {}
+    for key, part in (("rows", f"banded_score_kernelILi{W}ELb0E"),
+                      ("windows", f"banded_score_windows_kernelILi{W}ELb0E")):
+        lp = sass_loops(lib, part)[0]
+        out[key] = dict(loop_instructions=len(lp), cells_per_trip=W,
+                        instructions_per_cell=len(lp) / W,
+                        opcodes=_hist(lp, 12))
+        print(f"[k3] {key}: {len(lp)} SASS for {W} cells = "
+              f"{len(lp) / W:.2f} per cell; {out[key]['opcodes']}",
+              flush=True)
+    return out
+
+
 def k1_rate(sms: int, hz: float, per_cell: float) -> dict:
     """K1 timed at the main path's shapes (B=32768, C=24, L=100, W=31) on
     random windows, all of which take the packed path, and the
@@ -329,10 +372,12 @@ def main() -> int:
     k1["rate"] = k1_rate(sms, hz, k1["packed"]["instructions_per_cell"])
     k2 = k2_loops()
     wide = wide_loops()
+    k4 = k4_loops()
+    k3 = k3_loops()
     res = dict(card=card, sms=sms, max_sm_mhz=mhz,
                sm_mhz_after=smi("clocks.sm"),
                issue_ceiling_per_sm_clock=ISSUE_LANES_PER_SM_CLOCK,
-               probe=rates, k1=k1, k2=k2, wide=wide,
+               probe=rates, k1=k1, k2=k2, wide=wide, k4=k4, k3=k3,
                seconds=time.time() - t0)
     line = json.dumps(res)
     if a.out:

@@ -1,9 +1,10 @@
-"""K2 (``kernels.banded_traceback``), K2-WIDE (``banded_traceback_wide``) and
-the local candidate stage timed on the card, for comparing two checkouts
-and for choosing K2's lanes per read.
+"""K2 (``kernels.banded_traceback``), K2-WIDE (``banded_traceback_wide``),
+the local candidate stage and the mate-rescue stage (K4 and K3) timed on
+the card, for comparing two checkouts and for choosing K2's and K4's lanes
+per read.
 
-    python nvbio_tpu_torch/tools/k2_time.py [--root DIR] [--what k2,wide,local]
-                                            [--sweep] [--out FILE]
+    python nvbio_tpu_torch/tools/k2_time.py [--root DIR]
+        [--what k2,wide,local,rescue] [--sweep] [--out FILE]
 
 Times the wrappers of the checkout at ``--root`` (default: the one holding
 this file) on seeded inputs: the median of 7 single calls (CUDA events
@@ -28,6 +29,14 @@ alternation. ``--what`` (default ``k2``) picks, comma-separated:
   windows by extract_window, K3-LOCAL) and, where the checkout's
   ``banded_score_cands`` takes ``local=``, the candidate kernel's LOCAL
   route; each with its peak device memory above what was allocated before.
+- ``rescue``: the mate-rescue stage of ``bowtie/paired.py`` for both mates
+  of B=32768 pairs (M=100, the mate in a window of maxins + W = 531
+  bases; K4 locates it, K3 rescores it at W=31 over M+W-1 = 130 bases),
+  with its peak device memory: the window route (``extract_window``, then
+  the contract-form ``myers_semiglobal`` and ``banded_score``) and, where
+  the checkout has them, the packed entries (``myers_semiglobal_windows``,
+  ``banded_score_windows``, the route of the mapping path); then each
+  kernel alone, and K4's packed entry at M=100 and 150.
 
 ``--sweep`` also times, queued, every batch size of ``SWEEP_B`` under each
 group size of ``kernels.K2_GROUPS`` (the checkout's wrapper must take
@@ -120,7 +129,8 @@ def inputs(dev):
     w0[np.arange(B), half] = starts - MAX_DIST
     w0[np.arange(B), half + 1] = np.clip(
         starts - MAX_DIST + rng.integers(-9, 10, B), 0, GENOME_LEN - TW)
-    return dict(pats=t(pats), tailed=t(tailed), lens=t(np.full(B, M)),
+    return dict(starts=starts, pats=t(pats), tailed=t(tailed),
+                lens=t(np.full(B, M)),
                 texts=t(texts), tlens=t(np.full(B, TW)), mm=t(mm),
                 genome=genome, reads=t(reads), rc=t((3 - reads)[:, ::-1]),
                 mm_rc=t(mm[:, ::-1]),
@@ -209,13 +219,117 @@ def time_local_stage(K, MapParams, x, res):
         print(f"[local] {name}: {res[name]}", flush=True)
 
 
+MAXINS = 500
+RW = MAXINS + W                  # K4's window: maxins + band
+
+
+def time_rescue(K, MapParams, x, res):
+    """The rescue stage (both mates) by the window route and by the packed
+    entries, each kernel alone, and K4's lane groups."""
+    from nvbio_tpu_torch.packed import extract_window, pack, words_to_tensor
+
+    dev = x["pats"].device
+    sc = MapParams().scoring
+    n = GENOME_LEN
+    words = words_to_tensor(pack(x["genome"], 2), dev)
+    rng = np.random.default_rng(SEED + 1)
+    starts = x["starts"]
+    TWr = M + W - 1
+    mates = []
+    for _ in range(2):   # each mate's window holds it
+        ws = np.clip(starts - rng.integers(0, RW - M, size=B), 0, n - 1)
+        mates.append((x["pats"], x["lens"], x["mm"],
+                      torch.from_numpy(ws).to(dev)))
+
+    def stage(packed):
+        out = []
+        for other, olen, omm, wstart in mates:
+            wlen = (n - wstart).clamp(min=0, max=RW).to(torch.int32)
+            if packed:
+                _, tend = K.myers_semiglobal_windows(other, olen, words,
+                                                     wstart, wlen, RW)
+            else:
+                _, tend = K.myers_semiglobal(
+                    other, olen, extract_window(words, wstart, RW), wlen)
+            rw0 = (wstart + tend.to(torch.int64)
+                   - (olen.to(torch.int64) + MAX_DIST)).clamp(min=0)
+            rw0 = rw0.clamp(max=n - 1)
+            rwlen = (n - rw0).clamp(min=0, max=TWr).to(torch.int32)
+            if packed:
+                s, _ = K.banded_score_windows(other, olen, words, rw0, rwlen,
+                                              sc, W, omm)
+            else:
+                s, _ = K.banded_score(other, olen,
+                                      extract_window(words, rw0, TWr), rwlen,
+                                      sc, W, omm)
+            out.append(s)
+        return torch.stack(out)
+
+    routes = [("rescue_windows", False)]
+    if hasattr(K, "myers_semiglobal_windows"):
+        routes.append(("rescue_packed", True))
+    want = None
+    for name, packed in routes:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = stage(packed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if want is None:
+            want = got
+        elif not torch.equal(got, want):
+            raise SystemExit(f"k2_time: {name} differs from the window route")
+        fn = lambda: stage(packed)  # noqa: E731,B023
+        res[name] = dict(B=B, M=M, T=RW, ms=cuda_ms(fn),
+                         ms_queued=cuda_ms_queued(fn), peak_bytes=peak,
+                         found=float((got > -60).float().mean()))
+        print(f"[rescue] {name}: {res[name]}", flush=True)
+
+    # each kernel alone, at the first mate's windows
+    other, olen, omm, wstart = mates[0]
+    wlen = (n - wstart).clamp(min=0, max=RW).to(torch.int32)
+    win = extract_window(words, wstart, RW)
+    rw0 = (wstart + 37).clamp(max=n - 1)
+    rwlen = (n - rw0).clamp(min=0, max=TWr).to(torch.int32)
+    rwin = extract_window(words, rw0, TWr)
+    alone = [("k4", lambda: K.myers_semiglobal(other, olen, win, wlen)),
+             ("k3", lambda: K.banded_score(other, olen, rwin, rwlen, sc, W,
+                                           omm)),
+             ("k3_no_plane", lambda: K.banded_score(other, olen, rwin, rwlen,
+                                                    sc, W))]
+    if hasattr(K, "myers_semiglobal_windows"):
+        alone += [
+            ("k4_packed", lambda: K.myers_semiglobal_windows(
+                other, olen, words, wstart, wlen, RW)),
+            ("k3_packed", lambda: K.banded_score_windows(
+                other, olen, words, rw0, rwlen, sc, W, omm)),
+            ("k3_packed_no_plane", lambda: K.banded_score_windows(
+                other, olen, words, rw0, rwlen, sc, W))]
+    for name, fn in alone:
+        res[name] = dict(ms=cuda_ms(fn), ms_queued=cuda_ms_queued(fn))
+        print(f"[rescue] {name}: {res[name]}", flush=True)
+    if not hasattr(K, "myers_semiglobal_windows"):
+        return
+    # K4's packed entry at M = 100 (4 words) and 150 (5 words)
+    for mw in (100, 150):
+        pats = torch.from_numpy(x["genome"][
+            starts[:, None] + np.arange(mw)].astype(np.int32)).to(dev)
+        plen = torch.full((B,), mw, dtype=torch.int32, device=dev)
+        fn = lambda: K.myers_semiglobal_windows(  # noqa: E731
+            pats, plen, words, wstart, wlen, RW)  # noqa: B023
+        key = f"k4_packed_M{mw}"
+        res[key] = dict(ms=cuda_ms(fn), ms_queued=cuda_ms_queued(fn))
+        print(f"[rescue] {key}: {res[key]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
                     help="checkout whose nvbio_tpu_torch is timed")
     ap.add_argument("--what", default="k2",
-                    help="comma-separated: k2, wide, local")
+                    help="comma-separated: k2, wide, local, rescue")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every SWEEP_B under each group size")
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -236,7 +350,7 @@ def main() -> int:
                card=card, shape=f"B={B} M={M} W={W}")
     what = a.what.split(",")
     for part, fn in (("k2", time_k2), ("wide", time_wide),
-                     ("local", time_local_stage)):
+                     ("local", time_local_stage), ("rescue", time_rescue)):
         if part in what:
             fn(K, MapParams, x, res)
     if a.sweep:

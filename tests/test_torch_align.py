@@ -242,11 +242,26 @@ def test_cigar_and_md_helpers_match(rng):
                 jtb.md_from_entries(ent, n, reverse=rev)
 
 
-def test_kernel_wrappers_reject_what_they_do_not_take():
+def test_kernel_wrappers_reject_what_they_do_not_take(rng):
+    """A device other than cpu or cuda is refused; Myers over 16 symbols,
+    once refused, is taken and equals the Pallas kernel."""
+    from nvbio_tpu.align.pallas_kernels import myers_semiglobal_pallas
+
     sc = GotohScoring(*SCORINGS["sw"])
-    z = torch.zeros((4, 10), dtype=torch.int32)
-    with pytest.raises(ValueError):       # Myers takes DNA only
-        K.myers_semiglobal(z, z[:, 0], z, z[:, 0], n_symbols=16)
+    pats = rng.integers(0, 17, size=(4, 10)).astype(np.int32)
+    txts = rng.integers(0, 18, size=(4, 30)).astype(np.int32)
+    pats[0] = np.arange(3, 13)          # codes of the alphabet, planted
+    txts[0, 5:15] = pats[0]
+    lens = np.array([10, 7, 0, 10], np.int32)
+    tl = np.array([30, 30, 30, 9], np.int32)
+    want = myers_semiglobal_pallas(*(jnp.asarray(x) for x in
+                                     (pats, lens, txts, tl)),
+                                   n_symbols=16, interpret=True)
+    got = K.myers_semiglobal(*(torch.from_numpy(x) for x in
+                               (pats, lens, txts, tl)), n_symbols=16)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[0][0]) == 0
     meta = torch.zeros((4, 10), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         K.banded_traceback(meta, meta[:, 0], meta, meta[:, 0], sc, 7)

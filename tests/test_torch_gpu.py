@@ -5,7 +5,9 @@ runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
-Without a card every test skips (the kernels have no CPU mode)."""
+Without a card every test skips (the kernels have no CPU mode). Bands
+outside ``K.SUPPORTED_BANDS`` build their own libraries, once for the
+module (``K.build(bands=EXTRA_BANDS)``, in parallel)."""
 
 import numpy as np
 import pytest
@@ -21,6 +23,16 @@ LAZY = GotohScoring(1, -2, -5, -1, -2, -4)   # te < to: K1's lazy-F branch
 LOCAL = GotohScoring(2, -6, -8, -3, -8, -3)  # bowtie2 --local
 TB_NAMES = ("score", "k_best", "ops", "n_ops", "k_final", "nm", "i_end",
             "i_start")
+# bands built at first use: max_dist 1, 6, 10 and 20
+EXTRA_BANDS = (3, 13, 21, 41)
+BANDS = K.SUPPORTED_BANDS + EXTRA_BANDS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _extra_band_builds():
+    """The extra bands' libraries, built together before the first test."""
+    if torch.cuda.is_available():
+        K.build(bands=EXTRA_BANDS)
 
 
 def _card():
@@ -57,7 +69,7 @@ def _inputs(rng, B, C, L, W, dev, n=200_000):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", K.SUPPORTED_BANDS)
+@pytest.mark.parametrize("W", BANDS)
 @pytest.mark.parametrize("scoring", [SW, ED, LAZY])
 def test_cuda_kernels_bit_equal_to_plain(W, scoring):
     dev = _card()
@@ -149,12 +161,13 @@ def test_local_cands_kernel_bit_equal_to_plain(W, C, nch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", K.SUPPORTED_BANDS)
+@pytest.mark.parametrize("W", BANDS)
 @pytest.mark.parametrize("group", K.K2_GROUPS)
 @pytest.mark.parametrize("local", [False, True])
 def test_k2_at_each_group_size(W, group, local):
     """K2 and K2-LOCAL with one and with four lanes per read, at a batch
-    that is a multiple of neither the group nor the block."""
+    that is a multiple of neither the group nor the block (a band under 5
+    refuses 4 lanes: a lane holds two cells)."""
     dev = _card()
     rng = np.random.default_rng(W + 1000 * group + local)
     B = 1001
@@ -169,6 +182,11 @@ def test_k2_at_each_group_size(W, group, local):
     tl[5:9] = torch.tensor([0, 3, W, L], dtype=torch.int32, device=dev)
     sc = LOCAL if local else SW
     targs = (reads, d["lens"], texts, tl, sc, W, d["mm"])
+    if group > 1 and W < K.K2_MIN_GROUP_BAND:
+        with pytest.raises(ValueError):
+            K.banded_traceback(*targs, local=local, group=group)
+        assert K.k2_group(B, 1, W) == 1
+        return
     before = K.banded_traceback.launches
     got = K.banded_traceback(*targs, local=local, group=group)
     assert K.banded_traceback.launches == before + 1
@@ -179,11 +197,11 @@ def test_k2_at_each_group_size(W, group, local):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [20, 40, 70, 100, 128])
+@pytest.mark.parametrize("M", [20, 40, 70, 100, 128, 150, 256, 512])
 def test_myers_kernel_bit_equal_to_plain(M):
     dev = _card()
     rng = np.random.default_rng(M)
-    B, T = 3000, 300
+    B, T = 3000, max(300, M + 50)
     pats = rng.integers(0, 4, size=(B, M))
     txts = rng.integers(0, 4, size=(B, T))
     for b in range(0, B, 2):
@@ -203,7 +221,84 @@ def test_myers_kernel_bit_equal_to_plain(M):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", K.SUPPORTED_BANDS)
+@pytest.mark.parametrize("M,n_symbols", [(100, 5), (150, 21), (600, 4)])
+def test_myers_generic_kernel_bit_equal_to_plain(M, n_symbols):
+    """Alphabets other than DNA and patterns over 512 take the generic
+    instantiation (its state in a global scratch)."""
+    dev = _card()
+    rng = np.random.default_rng(M + n_symbols)
+    B, T = 700, M + 60
+    assert K.myers_route(M, n_symbols) == "generic"
+    pats = rng.integers(0, n_symbols + 1, size=(B, M))
+    txts = rng.integers(0, n_symbols + 2, size=(B, T))
+    for b in range(0, B, 2):
+        s = int(rng.integers(0, T - M))
+        txts[b, s:s + M] = pats[b]
+    plens = rng.integers(0, M + 1, size=B)
+    tlens = rng.integers(0, T + 1, size=B)
+    args = (_t(pats, dev), _t(plens, dev), _t(txts, dev), _t(tlens, dev),
+            n_symbols)
+    for g, w in zip(K.myers_semiglobal(*args),
+                    K.myers_semiglobal_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def _window_inputs(rng, B, M, T, dev, n=300_000):
+    """Rescue-shaped operands: a packed genome, mates planted in windows
+    that hold them, windows that run past the genome's end."""
+    genome = rng.integers(0, 4, size=n, dtype=np.uint8)
+    starts = rng.integers(0, n - T, size=B)
+    starts[:32] = n - rng.integers(1, T + 40, size=32)
+    starts = np.clip(starts, 0, n - 1)
+    pats = rng.integers(0, 4, size=(B, M))
+    for b in range(32, B, 2):
+        s = int(starts[b] + rng.integers(0, T - M))
+        pats[b] = genome[s:s + M]
+    pats = np.where(rng.random((B, M)) < 0.02, (pats + 1) % 4, pats)
+    plens = rng.integers(M // 2, M + 1, size=B)
+    plens[32:36] = [0, 1, M, M]
+    tlens = np.minimum(n - starts, T)
+    tlens[36:40] = [0, 3, T, T + 7]
+    return (words_to_tensor(pack(genome, 2), dev), _t(pats, dev),
+            _t(plens, dev), torch.from_numpy(starts).to(dev), _t(tlens, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [100, 150, 512])
+def test_myers_windows_kernel_bit_equal_to_plain(M):
+    dev = _card()
+    rng = np.random.default_rng(M + 7)
+    T = 400 + M
+    words, pats, plens, starts, tlens = _window_inputs(rng, 2000, M, T, dev)
+    args = (pats, plens, words, starts, tlens, T)
+    before = K.myers_semiglobal_windows.launches
+    got = K.myers_semiglobal_windows(*args)
+    assert K.myers_semiglobal_windows.launches == before + 1
+    for g, w in zip(got, K.myers_semiglobal_windows_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [7, 21, 31])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("with_mm", [False, True])
+def test_banded_score_windows_kernel_bit_equal_to_plain(W, local, with_mm):
+    dev = _card()
+    rng = np.random.default_rng(W + 10 * local + 100 * with_mm)
+    M = 100
+    TW = M + W - 1
+    words, pats, plens, starts, tlens = _window_inputs(rng, 2000, M, TW, dev)
+    mm = _t(-rng.integers(1, 7, size=(2000, M)), dev) if with_mm else None
+    args = (pats, plens, words, starts, tlens, LOCAL if local else SW, W, mm)
+    before = K.banded_score_windows.launches
+    got = K.banded_score_windows(*args, local=local)
+    assert K.banded_score_windows.launches == before + 1
+    for g, w in zip(got, K.banded_score_windows_plain(*args, local=local)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", BANDS)
 @pytest.mark.parametrize("local", [False, True])
 @pytest.mark.parametrize("scoring", [SW, LOCAL, LAZY])
 def test_banded_score_kernel_bit_equal_to_plain(W, local, scoring):
@@ -253,8 +348,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     d = _inputs(rng, 64, 4, 20, 7, dev)
     args = [d["reads"], d["rc"], d["lens"], d["w0"], d["wlens"], d["words"],
             SW, 7, 2, d["mm"], d["mm_rc"]]
-    with pytest.raises(ValueError):
-        K.banded_score_cands(*args[:7], 13, *args[8:])   # no W=13 build
+    for got, want in zip(K.banded_score_cands(*args[:7], 13, *args[8:]),
+                         K.banded_score_cands_plain(*args[:7], 13,
+                                                    *args[8:])):
+        assert torch.equal(got, want)                  # W=13: its own build
     with pytest.raises(TypeError):
         K.banded_score_cands(d["reads"], d["rc"], d["lens"],
                              d["w0"].to(torch.int32), *args[4:])
@@ -263,12 +360,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     z = torch.zeros((64, 130), dtype=torch.int32, device=dev)
     n = z[:, 0].contiguous()
     p40 = z[:, :40].contiguous()
-    with pytest.raises(ValueError):                     # more than 4 words
-        K.myers_semiglobal(z, n, z, n)
+    for got, want in zip(K.myers_semiglobal(z, n, z, n),   # 5 words
+                         K.myers_semiglobal_plain(z, n, z, n)):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError):
         K.myers_semiglobal(p40, n, z.to(torch.int64), n)
-    with pytest.raises(ValueError):
-        K.banded_score(p40, n, z, n, SW, 13)             # no W=13 build
+    for got, want in zip(K.banded_score(p40, n, z, n, SW, 13),
+                         K.banded_score_plain(p40, n, z, n, SW, 13)):
+        assert torch.equal(got, want)                  # W=13: its own build
     with pytest.raises(TypeError):
         K.banded_score(p40, n.to(torch.int64), z, n, SW, 7, local=True)
     with pytest.raises(ValueError):
@@ -428,7 +527,7 @@ def test_wide_traceback_at_bands_not_compiled_in(W, M):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [7, 17, 31])
+@pytest.mark.parametrize("W", [7, 17, 31, *EXTRA_BANDS])
 @pytest.mark.parametrize("flags", range(8))
 def test_regtile_kernel_bit_equal_to_plain(W, flags):
     dev = _card()
@@ -459,14 +558,31 @@ def test_regtile_kernel_bit_equal_to_plain(W, flags):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W,M", [(1153, 12), (1224, 512)])
+def test_wide_traceback_past_the_compiled_cells(W, M):
+    """Bands past 32 x 36 build their own cells per lane at first use:
+    1224 is pe_full_traceback at M = 512 with max_dist = 100."""
+    dev = _card()
+    rng = np.random.default_rng(W)
+    B = 128 if M > 100 else 500
+    pats, plens, texts, tlens, mm = _full_matrix_inputs(rng, B, W, M, dev)
+    for local, sc in ((False, SW), (True, LOCAL)):
+        targs = (pats, plens, texts, tlens, sc, W, mm)
+        for name, g, w in zip(TB_NAMES,
+                              K.banded_traceback_wide(*targs, local=local),
+                              K.banded_traceback_wide_plain(*targs,
+                                                            local=local)):
+            assert torch.equal(g, w), f"{name} local={local}"
+
+
+@pytest.mark.gpu
 def test_new_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _card()
     rng = np.random.default_rng(2)
     pats, plens, texts, tlens, mm = _full_matrix_inputs(rng, 64, 230, 100,
                                                         dev)
-    with pytest.raises(ValueError):                   # beyond the widest
-        K.banded_traceback_wide(pats, plens, texts, tlens, SW,
-                                K.WIDE_MAX_BAND + 1)
+    with pytest.raises(ValueError):                   # no band
+        K.banded_traceback_wide(pats, plens, texts, tlens, SW, 0)
     with pytest.raises(TypeError):
         K.banded_traceback_wide(pats, plens.to(torch.int64), texts, tlens,
                                 SW, 230)
@@ -478,8 +594,12 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take():
     n = torch.zeros((2, 1, 8, 128), dtype=torch.int32, device=dev)
     t = torch.zeros((2, 104 + 31, 8, 128), dtype=torch.int32, device=dev)
     kw = dict(scoring=SW, length=100)
-    with pytest.raises(ValueError):                   # no W=13 build
-        K.regtile_score_blocked(z, n, t, n, z, band=13, **kw)
+    for got, want in zip(                             # W=13: its own build
+            K.regtile_score_blocked(z, n, t[:, :112].contiguous(), n, z,
+                                    band=13, **kw),
+            K.regtile_score_blocked_plain(z, n, t[:, :112], n, z, band=13,
+                                          **kw)):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError):                   # 3 does not divide 100
         K.regtile_score_blocked(z, n, t, n, z, band=31, unroll=3, **kw)
     with pytest.raises(TypeError):
@@ -518,3 +638,49 @@ def test_full_traceback_and_all_mappers_on_cuda_equal_cpu():
         for run in runs:
             assert [r.line() for r in run(gpu)] == \
                 [r.line() for r in run(cpu)]
+
+
+@pytest.mark.gpu
+def test_any_band_and_wide_rescue_mappers_on_cuda_equal_cpu():
+    """Single-end at max_dist 10 (band 21, built at first use) and
+    paired-end with rescue at 150-base reads (K4 over 5 words)."""
+    _card()
+    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import (
+        repeat_rich_genome,
+        sample_pairs,
+        sample_reads,
+    )
+
+    genome = repeat_rich_genome(1_500_000, seed=3)
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    rng = np.random.default_rng(9)
+
+    def batch(codes, tag):
+        n, L = codes.shape
+        return ReadBatch([f"{tag}{i}" for i in range(n)],
+                         codes.astype(np.uint8),
+                         rng.integers(5, 41, size=codes.shape).astype(
+                             np.uint8), np.full(n, L, np.int32))
+
+    reads, _, _ = sample_reads(genome, 1024, 100, seed=10, subst_rate=0.03)
+    se = MapParams(max_read_len=100, hits_per_seed=6, max_dist=10)
+    gpu = ReadMapper.build(ref, se, device="cuda")
+    cpu = ReadMapper.build(ref, se, device="cpu", index=gpu.index.to("cpu"))
+    b = batch(reads, "s")
+    assert [r.line() for r in gpu.map_batch(b)] == \
+        [r.line() for r in cpu.map_batch(b)]
+    r1, r2, _, _, _, _ = sample_pairs(genome, 512, 150, 250, 500, seed=11,
+                                      subst_rate=0.02)
+    r2[::10, 9::15] = (r2[::10, 9::15] + 1) % 4      # seedless mates
+    pe = MapParams(max_read_len=150, hits_per_seed=6)
+    gpu = ReadMapper.build(ref, pe, device="cuda")
+    cpu = ReadMapper.build(ref, pe, device="cpu", index=gpu.index.to("cpu"))
+    b1, b2 = batch(r1, "p"), batch(r2, "p")
+    assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
+        [r.line() for r in map_pair_batch(cpu, b1, b2)]

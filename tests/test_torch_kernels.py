@@ -89,12 +89,22 @@ def test_myers_plain_matches_scan_and_golden(rng):
             pats[b, :plens[b]], txts[b, :tlens[b]]), b
 
 
-def test_myers_wrapper_refuses_what_the_kernel_does_not_take():
-    z = torch.zeros((4, 129), dtype=torch.int32)
+def test_myers_wrapper_refuses_what_the_kernel_does_not_take(rng):
+    """Patterns over 128 columns and alphabets other than DNA, once
+    refused, are taken and equal the Pallas kernel; a device other than
+    cpu or cuda is refused."""
+    for M, n_symbols in ((129, 4), (50, 5)):
+        pats, plens, txts, tlens = _myers_inputs(rng, 20, M, M + 60)
+        want = myers_semiglobal_pallas(
+            jnp.asarray(pats), jnp.asarray(plens), jnp.asarray(txts),
+            jnp.asarray(tlens), n_symbols=n_symbols, interpret=True)
+        got = K.myers_semiglobal(_t(pats), _t(plens), _t(txts), _t(tlens),
+                                 n_symbols=n_symbols)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    meta = torch.zeros((4, 129), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        K.myers_semiglobal(z, z[:, 0], z, z[:, 0])           # M > 128
-    with pytest.raises(ValueError):
-        K.myers_semiglobal(z[:, :50], z[:, 0], z, z[:, 0], n_symbols=5)
+        K.myers_semiglobal(meta, meta[:, 0], meta, meta[:, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -232,3 +242,26 @@ def test_k2_group_by_batch(B, want):
     shape. Every band keeps two cells per lane at four."""
     assert K.k2_group(B, 132) == want
     assert all(-(-W // 4) >= 2 for W in K.SUPPORTED_BANDS)
+
+
+@pytest.mark.parametrize("band", [3, 4, 5, 13, 21, 31, 33, 41, 101])
+def test_k2_rows_groups_and_libraries_at_any_band(band):
+    """Any band: bands under 5 take one lane a read (a lane of four holds
+    two cells); a read's direction row is whole 16-byte vectors of each
+    lane's ceil(NC/8) words; a band outside the precompiled five builds
+    its own library of each banded source."""
+    assert K.k2_group(1001, 132, band) == (4 if band >= 5 else 1)
+    for group in K.K2_GROUPS:
+        nc = -(-band // group)
+        words = K.k2_row_words(band, group)
+        assert words % 4 == 0 and words >= group * -(-nc // 8)
+        assert words - group * -(-nc // 8) < 4
+    assert K.k2_row_words(band, 1) == (4 if band <= 32 else words)
+    for name in ("banded_score_cands", "banded_traceback", "banded_score",
+                 "regtile_score_blocked"):
+        key, flags = K._target(name, band)
+        if band in K.SUPPORTED_BANDS:
+            continue
+        assert key == f"{name}_w{band}"
+        assert flags == (f"-DNVBT_EXTRA_BAND={band}",)
+    assert K._target("myers_semiglobal", None) == ("myers_semiglobal", ())

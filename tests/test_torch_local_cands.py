@@ -244,9 +244,18 @@ def test_wide_route_by_pattern_rows_and_band(M, band, route):
 
 
 def test_wide_cells_refuse_what_no_instantiation_holds():
+    """A band under 1 is refused; a band past the widest precompiled cells
+    per lane (once refused) gets ceil(band/32) cells rounded up to whole
+    half-words of nibbles, in its own library: 1224 is the full-matrix
+    traceback of a 512-base read at max_dist 100."""
     with pytest.raises(ValueError):
         K.wide_cells(0)
-    with pytest.raises(ValueError):
-        K.wide_cells(K.WIDE_MAX_BAND + 1)
     assert K.wide_cells(K.WIDE_MAX_BAND) == 36
+    assert K.wide_cells(K.WIDE_MAX_BAND + 1) == 40
+    assert K.wide_cells(1224) == 40 and K.wide_cells(2049) == 68
+    assert K.wide_row_bytes(1224) == 620
+    assert K.wide_route(512, 1224) == "global"
+    assert K._target("banded_traceback_wide", 1224) == (
+        "banded_traceback_wide_w1224",
+        ("-DNVBT_EXTRA_BAND=1224", "-DNVBT_EXTRA_NC=40"))
     assert K.wide_cells(230) == 8 and K.wide_row_bytes(230) == 116

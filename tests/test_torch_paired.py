@@ -220,19 +220,35 @@ def test_pe_cli_matches_jax_cli(tmp_path, dataset):
 
 
 def test_paired_rescue_refuses_reads_over_128(tmp_path):
-    """Mate rescue's Myers kernel holds at most 128 pattern bases: wider
-    reads are refused before any reference is read or index built."""
+    """Mate rescue of reads over 128 bases, once refused, runs: the -1/-2
+    command line at --max-read-len 150 with rescue on writes the records
+    that map_pair_batch gives at that width (test_torch_rescue.py holds
+    those against the JAX kernel path); only an unknown orientation policy
+    is refused."""
     from nvbio_tpu_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="--no-rescue"):
-        main(["map", str(tmp_path / "missing.fa"), "-1", "a.fq", "-2",
-              "b.fq", "--max-read-len", "150", "--device", "cpu"])
-    tpaired.check_paired_supported(TMapParams(max_read_len=150,
-                                              mate_rescue=False), 150)
-    tpaired.check_paired_supported(TMapParams(), 128)
+    tpaired.check_paired_supported(TMapParams(max_read_len=150), 150)
+    with pytest.raises(ValueError, match="pe_policy"):
+        tpaired.check_paired_supported(TMapParams(pe_policy="xx"), 150)
     recs, reads1, reads2 = pair_dataset(n_pairs=8)
+    (tmp_path / "ref.fa").write_text(
+        "".join(f">{n}\n{s}\n" for n, s in recs))
+    for name, reads in (("r1.fq", reads1), ("r2.fq", reads2)):
+        (tmp_path / name).write_text(
+            "".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in reads))
+    main(["map", str(tmp_path / "ref.fa"), "-1", str(tmp_path / "r1.fq"),
+          "-2", str(tmp_path / "r2.fq"), "--max-read-len", "150",
+          "--seed-len", "16", "--seed-stride", "10", "--batch", "8",
+          "--max-dist", "5", "-X", "400", "-o", str(tmp_path / "out.sam"),
+          "--device", "cpu"])
+    got = [ln for ln in (tmp_path / "out.sam").read_text().splitlines()
+           if not ln.startswith("@")]
     tm = TReadMapper.build(TReference.from_records(recs),
-                           TMapParams(**PARAMS), device="cpu")
+                           TMapParams(**{**PARAMS, "max_read_len": 150}),
+                           device="cpu")
     b1, b2 = (t_batch(r, 150, Alphabet.DNA_N) for r in (reads1, reads2))
-    with pytest.raises(NotImplementedError, match="wider than 128"):
-        tpaired.dispatch_pair_batch(tm, b1, b2)
+    want = [r.line() for r in tpaired.map_pair_batch(tm, b1, b2)]
+    assert got == want and len(got) == 16
+    # the rescue-only pairs (index 2 and 7 of 8) are rescued
+    flags = [int(ln.split("\t")[1]) for ln in got]
+    assert flags[2 * 2 + 1] & 0x2 and flags[2 * 7 + 1] & 0x2
