@@ -70,11 +70,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      placed >= 0.95, secondary records > 0;
  10. gcups: K5 at W=31 and 17 as bench.py's GCUPS leg runs it (G=4096,
      three passes of 10 launches, median), its GCUPS and launch count;
- 11. profile: one batch's dispatch of each mapping path under
+ 11. cli: the app (``map``) in this process, on cuda, against the genome
+     written as g.pac/.ann/.amb (the app builds its q-gram index): 2
+     batches of 32768 single-end reads with -o se.bam --report
+     --debug-output --mapq-filter 10 (K1 +2, K2 +1 a batch, plus the batch
+     gauge's probe, one single-end dispatch), then 1 batch of 32768 FR
+     pairs (5% seedless mates 2) with -o pe.bam --report (K1, K2, K3 and
+     K4 +2, plus the probe); the BAMs decoded: one primary a read,
+     sensitivity >= 0.95 from the truth in the read names, no mapped
+     primary below MAPQ 10, the reports' counts equal the BAMs', 65536
+     debug records; the BAM written again from its records (equal bytes,
+     timed); 1024 reads and 1024 pairs of the genome's first 8 Mbp (its
+     own .pac) through the app on cuda (with --profile: a trace written)
+     and on cpu, identical BAM records, debug bytes and report counts; the
+     app's overlapped single-end loop against a map_batch loop over the
+     same 2 batches, A B B A twice, equal records;
+ 12. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
      batch;
- 12. GPU = CPU: 1024 reads or pairs of each of the eight mapping paths
+ 13. GPU = CPU: 1024 reads or pairs of each of the eight mapping paths
      mapped on cuda and on cpu must give identical SAM records (those of
      the two --all paths including secondaries).
 Prints one JSON line of kernels before the card's line and the last line,
@@ -705,6 +720,15 @@ def phase_kernels(genome, words, dev, rng, regs):
           f"{out[0]['bound_int32_ms']:.3f} ms int32; K1-LOCAL "
           f"{out[1]['bound_ms']:.3f} ms packed, "
           f"{out[1]['bound_int32_ms']:.3f} ms int32", flush=True)
+    # K5 runs K1's DP: held also to K1's packed count (16-bit DPX pairs)
+    k5 = next(e for e in out if e["name"] == "regtile_score_blocked")
+    k5_packed = (K1_OPS_PER_CELL_PACKED * n5 * L * W / rate * 1e3,
+                 K1_OPS_PER_CELL_PACKED * n5 * L * 17 / rate * 1e3)
+    print(f"[kernels] K5 bound {k5_packed[0]:.3f} ms packed "
+          f"({100 * k5_packed[0] / k5['ms']:.1f}% of its {k5['ms']:.3f} "
+          f"ms, {100 * k5_packed[0] / k5['ms_queued']:.1f}% queued), "
+          f"{k5['bound_ms']:.3f} ms int32; W=17 {k5_packed[1]:.3f} ms "
+          f"packed", flush=True)
     return out, extra
 
 
@@ -1370,6 +1394,320 @@ def phase_gcups(card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# [cli]: the app itself (python -m nvbio_tpu_torch map), in-process so the
+# launch counters can be read, on a .pac reference, with BAM output, a
+# report, debug records, the MAPQ filter and a profile
+# ---------------------------------------------------------------------------
+
+N_CLI_SE_BATCHES = 2
+CLI_MAPQ_FILTER = 10
+# GPU = CPU through the app maps 1024 reads and pairs on the genome's first
+# 8 Mbp (its own .pac prefix): the app builds its q-gram index on the fly,
+# and over 100 Mbp that takes ~10 s a run on the host
+CLI_CMP_GENOME = 8_000_000
+N_AB = 4             # runs of each loop in the overlap A/B, A B B A twice
+CLI_FLAGS = ("--batch", str(B), "--max-read-len", str(L), "--hits-per-seed",
+             "6", "--max-dist", str(MAX_DIST))
+# the device of the app's runs on the card: its default (cuda)
+CLI_GPU_ARGS: tuple = ()
+# the gauge probe (one single-end dispatch of zero-length reads) before each
+# run's batches
+PROBE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
+
+
+def run_cli(argv) -> tuple[float, str]:
+    """``python -m nvbio_tpu_torch map *argv`` in this process: (seconds,
+    the app's log, which is also echoed). Fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from nvbio_tpu_torch.__main__ import main
+
+    log = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stderr(log):
+            rc = main(["map", *argv])
+    finally:
+        for line in log.getvalue().splitlines():
+            print(f"[cli]   {line}", flush=True)
+    require(rc == 0, f"map {' '.join(argv)} exited {rc}")
+    return time.time() - t0, log.getvalue()
+
+
+_ROW = re.compile(r"<tr><td>([a-zA-Z ]+?) ?(\d*)</td><td>([\d,]+)</td>")
+
+
+def report_counts(path) -> dict:
+    """{(metric, bin): count} of an HTML report's mapping table and its
+    MAPQ ("mapq", q) and NM histogram rows."""
+    with open(path) as f:
+        return {(k, b): int(n.replace(",", ""))
+                for k, b, n in _ROW.findall(f.read())}
+
+
+def stage_seconds(log: str) -> dict:
+    """The app's per-stage host seconds and calls (its StageStats lines)."""
+    return {m[0]: dict(seconds=float(m[1]), calls=int(m[2])) for m in
+            re.findall(r"\] (\S+)\s+([\d.]+)s\s+(\d+) calls", log)}
+
+
+def cli_launches(path, got, per_batch, n_batches):
+    """A run's launches: the gauge probe's plus ``per_batch`` a batch."""
+    want = {k: PROBE_LAUNCHES.get(k, 0) + per_batch.get(k, 0) * n_batches
+            for k in got}
+    require(got == want, f"{path}: launches {got}, expected {want}")
+
+
+def by_name(recs) -> dict:
+    return {r[0]: r for r in recs if not int(r[1]) & 0x100}
+
+
+def phase_cli(genome, mapper, card):
+    """The app through its command line on the card. Writes the genome as
+    g.pac/.ann/.amb (the q-gram index is built by the app), FASTQs with
+    the truth in each name, and runs: single-end (2 batches, BAM, report,
+    debug records, --mapq-filter 10), paired-end (1 batch, 5% seedless
+    mates 2, BAM, report), 1024 reads and 1024 pairs of the first 8 Mbp
+    (h.pac) on cuda (with a profile) and on cpu; then the app's overlapped
+    single-end loop against a plain map_batch loop over the same 2 batches
+    (A B B A twice)."""
+    import io
+    import os
+    import tempfile
+
+    from nvbio_tpu_torch.apps.map_app import map_single_end
+    from nvbio_tpu_torch.io.bam import BamReader, BamWriter, read_bam
+    from nvbio_tpu_torch.io.bgzf import BgzfWriter
+    from nvbio_tpu_torch.io.debug import read_debug
+    from nvbio_tpu_torch.io.fastq import fastq_batches
+    from nvbio_tpu_torch.io.pac import save_reference_pac
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    out = {}
+
+    def p(name):
+        return f"{d}/{name}"
+
+    t0 = time.time()
+    save_reference_pac(Reference(["sim100M"], np.array([0, len(genome)],
+                                                       np.int64), genome),
+                       p("g"))
+    se = [read_batch(genome, SEED + 1000 + i)
+          for i in range(N_CLI_SE_BATCHES)]
+    codes, quals, starts, is_rc = (np.concatenate([x[0].codes for x in se]),
+                                   np.concatenate([x[0].quals for x in se]),
+                                   np.concatenate([x[1] for x in se]),
+                                   np.concatenate([x[2] for x in se]))
+    names = [f"s{j}_{s}_{int(rc)}" for j, (s, rc) in
+             enumerate(zip(starts.tolist(), is_rc.tolist()))]
+    se_truth = dict(zip(names, zip(starts.tolist(), is_rc.tolist())))
+    write_fastq(p("se.fq"), names, codes, quals)
+    (b1, b2), (s1, s2), (rc1, rc2), seedless = pair_batches(genome,
+                                                             SEED + 1100)
+    names = [f"p{j}_{a}_{int(ra)}_{c}_{int(rb)}" for j, (a, ra, c, rb) in
+             enumerate(zip(s1.tolist(), rc1.tolist(), s2.tolist(),
+                           rc2.tolist()))]
+    for mate, bm in (("1", b1), ("2", b2)):
+        write_fastq(p(f"r{mate}.fq"), names, bm.codes, bm.quals)
+    small = genome[:CLI_CMP_GENOME]
+    save_reference_pac(Reference(["sim8M"], np.array([0, len(small)],
+                                                     np.int64), small),
+                       p("h"))
+    sb = head(read_batch(small, SEED + 1200)[0])
+    write_fastq(p("ses.fq"), sb.names, sb.codes, sb.quals)
+    for mate, bm in zip("12", pair_batches(small, SEED + 1300)[0]):
+        bm = head(bm)
+        write_fastq(p(f"r{mate}s.fq"), bm.names, bm.codes, bm.quals)
+    out["inputs_s"] = time.time() - t0
+    print(f"[cli] inputs: {len(genome)} bp as g.pac/.ann/.amb, "
+          f"{len(se_truth)} SE reads, {B} pairs in {out['inputs_s']:.2f} s; "
+          f"BAM compressor: {BgzfWriter(io.BytesIO()).compressor}", flush=True)
+
+    # --- single-end: 2 batches, BAM + report + debug + MAPQ filter -------
+    reset_launches()
+    se_s, se_log = run_cli([p("g"), p("se.fq"), "-o", p("se.bam"),
+                            "--report", p("se.html"), "--debug-output",
+                            p("se.dbg"), "--mapq-filter",
+                            str(CLI_MAPQ_FILTER), *CLI_FLAGS, *CLI_GPU_ARGS])
+    se_launches = read_launches()
+    cli_launches("cli single-end", se_launches,
+                 {"banded_score_cands": 2, "banded_traceback": 1},
+                 N_CLI_SE_BATCHES)
+    t0 = time.time()
+    _, recs = read_bam(p("se.bam"))
+    t_decode = time.time() - t0
+    prim = by_name(recs)
+    n = len(se_truth)
+    require(len(recs) == len(prim) == n and set(prim) == set(se_truth),
+            f"se.bam: {len(recs)} records, {len(prim)} primaries for {n} "
+            f"reads")
+    mapped = [r for r in prim.values() if not int(r[1]) & 4]
+    n_ok = sum(bool(int(r[1]) & 0x10) == bool(se_truth[r[0]][1])
+               and abs(int(r[3]) - 1 - se_truth[r[0]][0]) <= 2 * MAX_DIST
+               for r in mapped)
+    sens = n_ok / n
+    low = sum(int(r[4]) < CLI_MAPQ_FILTER for r in mapped)
+    rep = report_counts(p("se.html"))
+    rep_kept = sum(v for (k, q), v in rep.items()
+                   if k == "mapq" and int(q) >= CLI_MAPQ_FILTER)
+    n_dbg = len(read_debug(p("se.dbg")))
+    stages = stage_seconds(se_log)
+    per_batch = ", ".join(f"{k} {v['seconds'] / v['calls']:.3f}"
+                          for k, v in stages.items())
+    print(f"[cli] single-end: {n} reads in {se_s:.3f} s end to end "
+          f"({n / se_s:.1f} reads/s, reference load + index + gauge "
+          f"included); host s a batch: {per_batch}; sensitivity from the BAM "
+          f"{sens:.5f}; mapped {len(mapped)}, report mapped "
+          f"{rep[('mapped', '')]} of which MAPQ >= {CLI_MAPQ_FILTER}: "
+          f"{rep_kept}; mapped below the filter {low}; debug records "
+          f"{n_dbg}; BAM decode {t_decode:.2f} s; launches {se_launches}; "
+          f"card {card}", flush=True)
+    require(sens >= 0.95, f"cli single-end sensitivity {sens:.4f} < 0.95")
+    require(low == 0, f"{low} mapped primaries below MAPQ {CLI_MAPQ_FILTER}")
+    require(rep[("reads", "")] == n and rep_kept == len(mapped)
+            and sum(v for (k, _), v in rep.items() if k == "mapq")
+            == rep[("mapped", "")],
+            "se report counts differ from the BAM's")
+    require(n_dbg == n, f"{n_dbg} debug records for {n} reads")
+    out["single_end"] = dict(reads=n, seconds=se_s, stages=stages,
+                             sensitivity=sens, mapped=len(mapped),
+                             report_mapped=rep[("mapped", "")],
+                             launches=se_launches)
+
+    # the BAM write alone: the same records through BamWriter again (equal
+    # bytes: the blocks are cut at the same stream offsets)
+    with BamReader(p("se.bam")) as r:
+        sam_recs = list(r)
+        ref_names, ref_lengths = r.ref_names, r.ref_lengths
+    t0 = time.time()
+    with BamWriter(p("again.bam"), ref_names, ref_lengths) as w:
+        for rec in sam_recs:
+            w.write(rec)
+    t_bam = time.time() - t0
+    with open(p("se.bam"), "rb") as f, open(p("again.bam"), "rb") as g:
+        require(f.read() == g.read(), "se.bam differs from its records "
+                                      "written again")
+    print(f"[cli] BAM write of {len(sam_recs)} records: {t_bam:.3f} s "
+          f"({len(sam_recs) / t_bam:.0f} records/s); card {card}",
+          flush=True)
+    out["bam_write_s"] = t_bam
+
+    # --- paired-end: 1 batch, BAM + report --------------------------------
+    reset_launches()
+    pe_s, pe_log = run_cli([p("g"), "-1", p("r1.fq"), "-2", p("r2.fq"),
+                            "-o", p("pe.bam"), "--report", p("pe.html"),
+                            *CLI_FLAGS, *CLI_GPU_ARGS])
+    pe_launches = read_launches()
+    cli_launches("cli paired-end", pe_launches, PE_LAUNCHES, 1)
+    _, recs = read_bam(p("pe.bam"))
+    require(len(recs) == 2 * B, f"pe.bam: {len(recs)} records for {B} "
+                                f"pairs")
+    n_ok = n_proper = 0
+    for i in range(B):
+        for m in (0, 1):
+            r = recs[2 * i + m]
+            f = int(r[1])
+            _, a, ra, c, rb = r[0].split("_")
+            s, rc = (int(a), ra == "1") if m == 0 else (int(c), rb == "1")
+            n_ok += (not f & 4 and bool(f & 0x10) == rc
+                     and abs(int(r[3]) - 1 - s) <= 2 * MAX_DIST)
+        n_proper += bool(int(recs[2 * i][1]) & 0x2)
+    sens = n_ok / (2 * B)
+    rep = report_counts(p("pe.html"))
+    print(f"[cli] paired-end: {B} pairs in {pe_s:.3f} s end to end "
+          f"({B / pe_s:.1f} pairs/s, reference load + index + gauge "
+          f"included); per-mate sensitivity from the BAM {sens:.5f}; proper "
+          f"pairs {n_proper}, report {rep[('proper pairs', '')]}; launches "
+          f"{pe_launches}; card {card}", flush=True)
+    require(sens >= 0.95, f"cli paired-end sensitivity {sens:.4f} < 0.95")
+    require(rep[("proper pairs", "")] == n_proper
+            and rep[("reads", "")] == 2 * B,
+            "pe report counts differ from the BAM's")
+    out["paired_end"] = dict(pairs=B, seconds=pe_s, sensitivity=sens,
+                             proper=n_proper, launches=pe_launches)
+
+    # --- GPU = CPU through the app (on the genome's first 8 Mbp); the cuda
+    # runs write a profile each ---
+    for label, reads, flags in (
+            ("single-end", [p("ses.fq")],
+             ["--debug-output", "{}.dbg", "--mapq-filter",
+              str(CLI_MAPQ_FILTER)]),
+            ("paired-end", ["-1", p("r1s.fq"), "-2", p("r2s.fq")], [])):
+        got = {}
+        for dev, dev_args in (("cuda", [*CLI_GPU_ARGS, "--profile",
+                                        p("prof")]),
+                              ("cpu", ["--device", "cpu"])):
+            tag = p(f"{label}_{dev}")
+            secs, _ = run_cli([p("h"), *reads, "-o", f"{tag}.bam",
+                               "--report", f"{tag}.html",
+                               *(a.format(tag) for a in flags), *CLI_FLAGS,
+                               "--batch", str(N_CMP), *dev_args])
+            got[dev] = (read_bam(f"{tag}.bam")[1], report_counts(
+                f"{tag}.html"), (open(f"{tag}.dbg", "rb").read()
+                                 if flags else b""), secs)
+        g, c = got["cuda"], got["cpu"]
+        diff = sum(a != b for a, b in zip(g[0], c[0]))
+        print(f"[gpu=cpu] cli {label}: {len(g[0])} BAM records, {diff} "
+              f"differ; report counts equal {g[1] == c[1]}; debug bytes "
+              f"equal {g[2] == c[2]} ({len(g[2])} B); cuda {g[3]:.2f} s, "
+              f"cpu {c[3]:.2f} s", flush=True)
+        require(len(g[0]) == len(c[0]) > 0 and diff == 0,
+                f"cli {label}: BAM records differ between cuda and cpu")
+        require(g[1] == c[1], f"cli {label}: report counts differ")
+        require(g[2] == c[2], f"cli {label}: debug records differ")
+    traces = sorted(os.listdir(p("prof")))
+    require(len(traces) == 2, f"profile: {traces}")
+    with open(p(f"prof/{traces[0]}")) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernels = sum(ev.get("cat") == "kernel" for ev in events)
+    print(f"[cli] --profile: {traces}, {len(events)} trace events, "
+          f"{n_kernels} device kernels", flush=True)
+    out["profile_kernel_events"] = n_kernels
+
+    # --- the overlapped single-end loop against a map_batch loop ----------
+    batches = list(fastq_batches(p("se.fq"), B, L))
+
+    def overlapped():
+        recs = []
+        map_single_end(mapper, batches, recs.append)
+        return recs
+
+    def plain():
+        return [r for b in batches for r in mapper.map_batch(b)]
+
+    times = {"overlapped": [], "map_batch": []}
+    lines = {}
+    for name, fn in [("overlapped", overlapped), ("map_batch", plain),
+                     ("map_batch", plain), ("overlapped", overlapped)] * (
+                         N_AB // 2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        recs = fn()
+        times[name].append(time.time() - t0)
+        lines[name] = [r.line() for r in recs]
+    n = sum(len(b.names) for b in batches)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[cli] overlap, {len(batches)} batches of {B} (A B B A x "
+          f"{N_AB // 2}): overlapped loop "
+          f"{', '.join(f'{t:.3f}' for t in times['overlapped'])} s, "
+          f"map_batch loop {', '.join(f'{t:.3f}' for t in times['map_batch'])}"
+          f" s; medians {med['overlapped']:.3f} against "
+          f"{med['map_batch']:.3f} s ({n / med['overlapped']:.1f} against "
+          f"{n / med['map_batch']:.1f} reads/s); records equal "
+          f"{lines['overlapped'] == lines['map_batch']}; card {card}",
+          flush=True)
+    require(lines["overlapped"] == lines["map_batch"],
+            "the overlapped loop's records differ from map_batch's")
+    out["overlap_s"] = times
+    tmp.cleanup()
+    return out
+
+
 def phase_profile(label, dispatch):
     """Device time of one batch's ``dispatch()`` by kernel (torch.profiler):
     busy share of the wall time and the largest device-time consumers."""
@@ -1550,6 +1888,7 @@ def main() -> int:
     all0, all_launches, all_stats = phase_all(rep_genome, gpu_rep, card)
     pa0, pa_launches, pa_stats = phase_paired_all(rep_genome, gpu_rep, card)
     gcups_launches, gcups = phase_gcups(card)
+    cli_stats = phase_cli(genome, gpu_mapper, card)
 
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
@@ -1646,7 +1985,7 @@ def main() -> int:
                       "local": local_stats, "paired_full": pf_stats,
                       "paired_full_local": pfl_stats, "all": all_stats,
                       "paired_all": pa_stats, "gcups": gcups,
-                      "card": card}))
+                      "cli": cli_stats, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

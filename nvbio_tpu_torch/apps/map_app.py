@@ -1,46 +1,54 @@
-"""`nvbio_tpu_torch map` — Bowtie2-style read mapping to SAM.
+"""`nvbio_tpu_torch map` — Bowtie2-style read mapping to SAM or BAM.
 
-    python -m nvbio_tpu_torch map <ref.fa | index-prefix> reads.fq -o out.sam
-    python -m nvbio_tpu_torch map <ref.fa | index-prefix> -1 r1.fq -2 r2.fq
+    python -m nvbio_tpu_torch map <ref.fa | prefix> reads.fq -o out.sam|bam
+    python -m nvbio_tpu_torch map <ref.fa | prefix> -1 r1.fq -2 r2.fq
         [-I MIN] [-X MAX] [--no-rescue] [--pe-policy fr|rf|ff]
-        [--no-discordant] [--local] [--all] [--config FILE] [--device cpu]
+        [--no-discordant] [--local] [--all] [--config FILE]
+        [--mapq-filter Q] [--report FILE] [--debug-output FILE]
+        [--profile DIR] [--device cpu]
 
-Port of the single-end and paired-end paths of ``nvbio_tpu/apps/
-map_app.py``, end-to-end or local (``--local``), best-alignment or
-all-mapping (``--all``: every locus above threshold, SE and PE, the
-others as secondary records). ``--config FILE`` overlays ``key=value``
-lines onto the ``MapParams`` fields after the presets (for example
-``pe_full_traceback=1``, the full-matrix mate traceback); a value that
-selects a path not ported yet stops before any work. The reference is a
-FASTA (q-gram index built on the fly) or the prefix of artifacts the JAX
-package's ``index`` app wrote (``<prefix>.ref.npz``, and
-``<prefix>.qgram.npz`` when present). Runs on the CUDA card unless
-``--device cpu`` is given. Flags of ``nvbio_tpu map`` that select paths not
-ported yet (FM seeding, BAM, reports, multi-host, ...) are rejected with a
-"not yet ported" error.
+Port of ``nvbio_tpu/apps/map_app.py``: single-end and paired-end,
+end-to-end or local (``--local``), best-alignment or all-mapping
+(``--all``: every locus above threshold, SE and PE, the others as secondary
+records). ``--config FILE`` overlays ``key=value`` lines onto the
+``MapParams`` fields after the presets. The reference is a FASTA (q-gram
+index built on the fly), the prefix of the JAX package's ``index``
+artifacts (``<prefix>.ref.npz``, and ``<prefix>.qgram.npz`` when present),
+or a BWA-style ``<prefix>.pac/.ann/.amb`` set (q-gram index built on the
+fly). The output is SAM, or BAM by the ``.bam`` extension. ``--mapq-filter
+Q`` writes mapped primaries below Q as unmapped and drops filtered
+secondaries; ``--report`` writes an HTML stats report (SE and PE, not
+``--all``); ``--debug-output`` writes binary per-read diagnostics (SE, not
+``--all``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into
+DIR. The single-end loop dispatches batch i+1, with its copies to the host
+enqueued behind it, before it formats batch i. Runs on the CUDA card unless
+``--device cpu`` is given. FM-index seeding (``--seeding fmi``) and the
+multi-host flags are rejected with a "not yet ported" error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import sys
 import time
 
-# flags of `nvbio_tpu map` whose paths are not ported yet
-NOT_PORTED = (
-    "--seeding", "--report", "--profile", "--mapq-filter", "--debug-output",
-    "--dist", "--coordinator", "--num-processes", "--process-id",
-)
+import numpy as np
+import torch
+
+# flags of `nvbio_tpu map` whose paths are not ported yet (and the `fmi`
+# value of --seeding, checked in `run`)
+NOT_PORTED = ("--dist", "--coordinator", "--num-processes", "--process-id")
 
 
 def add_parser(sub):
-    p = sub.add_parser("map", help="map reads (SE or PE) -> SAM")
-    p.add_argument("reference", help="index prefix (from `index`) or FASTA")
+    p = sub.add_parser("map", help="map reads (SE or PE) -> SAM/BAM")
+    p.add_argument("reference", help="index prefix (from `index`), .pac "
+                                     "prefix or FASTA")
     p.add_argument("reads", nargs="?", help="single-end FASTQ(.gz)")
     p.add_argument("-1", dest="mate1", help="mate-1 FASTQ (paired-end)")
     p.add_argument("-2", dest="mate2", help="mate-2 FASTQ (paired-end)")
     p.add_argument("-o", "--output", default="-",
-                   help="output SAM (default stdout)")
+                   help="output SAM/BAM by extension (default stdout SAM)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--batch", type=int, default=4096)
@@ -49,12 +57,23 @@ def add_parser(sub):
     p.add_argument("--seed-stride", type=int, default=15)
     p.add_argument("--hits-per-seed", type=int, default=4)
     p.add_argument("--max-dist", type=int, default=15)
+    p.add_argument("--seeding", choices=["qgram", "fmi"], default="qgram")
     p.add_argument("--mode", choices=["sw", "ed"], default="sw",
                    help="sw: quality-aware Gotoh (bowtie2-like, default); "
                         "ed: unit-cost edit distance (nvBowtie --ed)")
     p.add_argument("--local", action="store_true",
                    help="local alignment (soft-clipped ends, bowtie2 "
                         "--local scoring + local MAPQ)")
+    p.add_argument("--report", help="write an HTML stats report")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace (Chrome trace JSON) "
+                        "into DIR")
+    p.add_argument("--mapq-filter", type=int, default=0, metavar="Q",
+                   help="suppress alignments with MAPQ < Q (emitted as "
+                        "unmapped; reference output mapq filter)")
+    p.add_argument("--debug-output", metavar="FILE",
+                   help="also dump binary per-read diagnostics "
+                        "(DebugOutput, output_debug.h) — SE only")
     p.add_argument("--config", help="option file: one key=value per line "
                                     "(overrides CLI parameter defaults)")
     p.add_argument("-I", "--minins", type=int, default=0)
@@ -85,7 +104,7 @@ def reject_not_ported(argv: list[str]) -> None:
         flag = tok.split("=", 1)[0]
         if flag in NOT_PORTED:
             raise SystemExit(f"nvbio_tpu_torch map: {flag} is not yet ported "
-                             f"(q-gram mapping to SAM only)")
+                             f"(multi-host mapping)")
 
 
 def _load_reference(path: str):
@@ -94,14 +113,112 @@ def _load_reference(path: str):
 
     if path.endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
         return Reference.from_fasta(path), None
+    if os.path.exists(path + ".pac") and not os.path.exists(path + ".ref.npz"):
+        from nvbio_tpu_torch.io.pac import load_reference_pac
+
+        return load_reference_pac(path), None
     if not os.path.exists(path + ".ref.npz"):
-        raise SystemExit(f"nvbio_tpu_torch map: {path}.ref.npz not found "
-                         f"(.pac references are not yet ported)")
+        raise SystemExit(f"nvbio_tpu_torch map: neither {path}.ref.npz nor "
+                         f"{path}.pac found")
     ref = Reference.load(path + ".ref.npz")
     index = None
     if os.path.exists(path + ".qgram.npz"):
         index = QGramIndex.load(path + ".qgram.npz")
     return ref, index
+
+
+def gauge_batch_size(mapper, batch_size: int, max_len: int,
+                     floor: int = 64) -> int:
+    """Halve the batch size until one probe step fits device memory.
+
+    The analogue of the reference's ComputeThread batch-size gauging
+    (``nvBowtie/nvBowtie.cpp`` / ``compute_thread.cu:121-143``): rather than
+    dying out of memory mid-run, probe once up front (a batch of
+    zero-length reads) and back off, down to ``floor``. Any other error is
+    raised.
+    """
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.utils.console import log_info
+
+    while True:
+        probe = ReadBatch(
+            names=[""] * batch_size,
+            codes=np.zeros((batch_size, max_len), np.uint8),
+            quals=np.zeros((batch_size, max_len), np.uint8),
+            lengths=np.zeros(batch_size, np.int32),
+        )
+        try:
+            mapper.dispatch(probe)["mapped"][:1].cpu()
+            return batch_size
+        except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+            oom = (isinstance(e, torch.cuda.OutOfMemoryError)
+                   or "out of memory" in str(e).lower())
+            if not oom or batch_size <= floor:
+                raise
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        batch_size //= 2
+        log_info(f"device out of memory at batch {batch_size * 2}; "
+                 f"halving to {batch_size}")
+
+
+def dump_debug(dbg, mapper, res: dict) -> None:
+    """One batch's host result arrays into ``DebugOutput``: each read's
+    contig and 1-based position from its window and text start."""
+    gpos = res["window_start"].astype(np.int64) + res["text_start"]
+    cis = np.searchsorted(mapper.ref_offsets, gpos, side="right") - 1
+    cis = np.clip(cis, 0, len(mapper.ref_names) - 1)
+    local = gpos - mapper.ref_offsets[cis] + 1
+    dbg.process_batch(res, cis, local)
+
+
+def map_single_end(mapper, batches, emit, stats=None, dbg=None):
+    """The single-end loop: batch i+1 is parsed and dispatched, and its
+    copies to the host enqueued, before batch i is formatted, so the card
+    works on i+1 while the host formats i. ``emit`` takes each record;
+    ``stats`` and ``dbg`` take each batch's results. Returns the parse,
+    dispatch and fetch+format ``StageStats`` (host seconds)."""
+    from nvbio_tpu_torch.utils.timers import StageStats, Timer
+
+    st_parse = StageStats("parse")
+    st_dispatch = StageStats("dispatch")
+    st_fmt = StageStats("fetch+format")
+    it = iter(batches)
+    pending = None
+    while True:
+        with Timer() as tp:
+            batch = next(it, None)
+        nxt = None
+        if batch is not None:
+            st_parse.add(tp.seconds, len(batch.names))
+            with Timer() as td:
+                nxt = (batch, mapper.fetch(mapper.dispatch(batch)))
+            st_dispatch.add(td.seconds, len(batch.names))
+        if pending is not None:
+            pb, fetched = pending
+            tf = Timer().start()
+            host = fetched.wait()
+            if stats is not None:
+                stats.update_from_result(host, pb.lengths)
+            if dbg is not None:
+                dump_debug(dbg, mapper, host)
+            for rec in mapper.format_fetched(pb, host):
+                emit(rec)
+            st_fmt.add(tf.stop(), len(pb.names))
+        if nxt is None:
+            return [st_parse, st_dispatch, st_fmt]
+        pending = nxt
+
+
+def _profiler(path: str | None, device: torch.device):
+    if path is None:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
 
 
 def run(args):
@@ -114,21 +231,26 @@ def run(args):
     from nvbio_tpu_torch.bowtie.params import MapParams
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper, check_supported
     from nvbio_tpu_torch.io.fastq import fastq_batches
-    from nvbio_tpu_torch.io.sam import SamWriter
+    from nvbio_tpu_torch.io.output import open_alignment_output
+    from nvbio_tpu_torch.io.sam import SamRecord
+    from nvbio_tpu_torch.utils.console import log_info, log_stats
+    from nvbio_tpu_torch.utils.stats import AlignmentStats, html_report
 
+    if args.seeding == "fmi":
+        raise SystemExit("nvbio_tpu_torch map: --seeding fmi is not yet "
+                         "ported (q-gram seeding only)")
     paired = args.mate1 is not None
     if paired and not args.mate2:
         raise SystemExit("paired-end needs both -1 and -2")
     if not paired and not args.reads:
         raise SystemExit("provide a reads file (or -1/-2 for paired-end)")
-    if str(args.output).endswith(".bam"):
-        raise SystemExit("nvbio_tpu_torch map: BAM output is not yet ported")
     common = dict(
         max_read_len=args.max_read_len,
         seed_len=args.seed_len,
         seed_stride=args.seed_stride,
         hits_per_seed=args.hits_per_seed,
         max_dist=args.max_dist,
+        seeding=args.seeding,
         max_reseed=args.max_reseed,
         reseed_frac=args.reseed_frac,
         seeding_1mm=not args.no_1mm_seeding,
@@ -154,35 +276,78 @@ def run(args):
     t0 = time.time()
     ref, index = _load_reference(args.reference)
     mapper = ReadMapper.build(ref, params, index=index, device=args.device)
-    print(f"[info] reference + index ready in {time.time() - t0:.1f}s "
-          f"({ref.total_length:,} bp) on {mapper.device}", file=sys.stderr)
+    log_info(f"reference + index ready in {time.time() - t0:.1f}s "
+             f"({ref.total_length:,} bp, seeding={params.seeding}) on "
+             f"{mapper.device}")
+    args.batch = gauge_batch_size(mapper, args.batch, args.max_read_len)
 
     lengths = (ref.offsets[1:] - ref.offsets[:-1]).tolist()
     n_reads = n_mapped = 0
+    stats = AlignmentStats()
+    stage_stats = []
     t0 = time.time()
-    out = sys.stdout if args.output == "-" else args.output
+
+    def emit(rec):
+        nonlocal n_reads, n_mapped
+        if args.mapq_filter and not rec.flag & 0x4:
+            if rec.flag & 0x100:
+                return  # filtered secondaries are dropped outright
+            if rec.mapq < args.mapq_filter:
+                # below-threshold alignments are reported unmapped
+                # (the reference's output mapq filter)
+                rec = SamRecord(
+                    qname=rec.qname, flag=(rec.flag | 0x4) & ~0x912,
+                    rname="*", pos=0, mapq=0, cigar="*",
+                    seq=rec.seq, qual=rec.qual)
+        w.write(rec)
+        if not rec.flag & 0x100:  # secondaries are not reads
+            n_reads += 1
+            n_mapped += 0 if rec.flag & 0x4 else 1
 
     def batches(path):
         return fastq_batches(path, args.batch, args.max_read_len,
                              alphabet=Alphabet.DNA_N)
 
-    if paired:
-        map_pairs = map_pair_batch_all if args.all_mode else map_pair_batch
-        record_lists = (map_pairs(mapper, b1, b2) for b1, b2 in
-                        zip(batches(args.mate1), batches(args.mate2)))
-    elif args.all_mode:
-        record_lists = (mapper.map_batch_all(b) for b in batches(args.reads))
-    else:
-        record_lists = (mapper.map_batch(b) for b in batches(args.reads))
-    with SamWriter(out, ref.names, lengths) as w:
-        for recs in record_lists:
-            for rec in recs:
-                w.write(rec)
-                if not rec.flag & 0x100:  # secondaries are not reads
-                    n_reads += 1
-                    n_mapped += 0 if rec.flag & 0x4 else 1
+    dbg = None
+    if args.debug_output and not paired and not args.all_mode:
+        from nvbio_tpu_torch.io.debug import DebugOutput
+
+        dbg = DebugOutput(args.debug_output)
+    prof = _profiler(args.profile, mapper.device)
+    with prof, open_alignment_output(args.output, ref.names, lengths) as w:
+        if paired:
+            for b1, b2 in zip(batches(args.mate1), batches(args.mate2)):
+                if args.all_mode:  # PE all-mapping: every concordant locus
+                    recs = map_pair_batch_all(mapper, b1, b2)
+                else:
+                    recs = map_pair_batch(mapper, b1, b2, stats=stats)
+                for rec in recs:
+                    emit(rec)
+        elif args.all_mode:
+            for batch in batches(args.reads):
+                for rec in mapper.map_batch_all(batch):
+                    emit(rec)
+        else:
+            stage_stats = map_single_end(mapper, batches(args.reads), emit,
+                                         stats, dbg)
+    if dbg is not None:
+        dbg.close()
+        log_info(f"debug records written to {args.debug_output}")
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, f"nvbio_tpu_torch.{os.getpid()}."
+                                           f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(trace)
+        log_info(f"profiler trace written to {trace}")
     dt = time.time() - t0
-    print(f"[stats] {n_reads:,} reads in {dt:.1f}s "
-          f"({n_reads / max(dt, 1e-9):,.0f} reads/s); {n_mapped:,} mapped "
-          f"({100.0 * n_mapped / max(n_reads, 1):.2f}%)", file=sys.stderr)
+    log_stats(f"{n_reads:,} reads in {dt:.1f}s "
+              f"({n_reads / max(dt, 1e-9):,.0f} reads/s); {n_mapped:,} mapped "
+              f"({100.0 * n_mapped / max(n_reads, 1):.2f}%)")
+    if args.report:
+        stats.wall_s = dt
+        for st in stage_stats:
+            log_stats(st.summary())
+        with open(args.report, "w") as f:
+            f.write(html_report(stats, stage_stats=stage_stats))
+        log_info(f"HTML report written to {args.report}")
     return 0

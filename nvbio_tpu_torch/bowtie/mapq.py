@@ -3,7 +3,9 @@
 Port of ``nvbio_tpu.bowtie.mapq.mapq_v2_end_to_end`` (BowtieMapq2's
 monotone branch, ``nvBowtie/bowtie2/cuda/mapq.h:146-263``) and
 ``mapq_v2_local`` (its local branch, ``mapq.h:267-326``): piecewise tables
-over (best_over, best_diff) normalized by the score range. The arithmetic
+over (best_over, best_diff) normalized by the score range; and of
+``mapq_v3`` (BowtieMapq3, ``mapq.h:43-145``), binned lookup tables, which
+no mapping path calls (as in the JAX package). The arithmetic
 is float32, as in the JAX package: in float64 the threshold products
 (diff * 0.8, ...) round differently and MAPQs flip at the edges.
 """
@@ -99,3 +101,51 @@ def mapq_v2_local(best, second, has_second, min_score, max_score):
                                         sel(bd > 0, sel(hi, 11, 2),
                                             sel(hi, 1, 0)))))))))))
     return torch.where(has_second, two, one).to(torch.int32)
+
+
+# BowtieMapq3 lookup tables (``nvBowtie/bowtie2/cuda/mapq.h:43-145``)
+_M3_ONE = torch.tensor([43, 42, 41, 36, 32, 27, 20, 11, 4, 1, 0],
+                       dtype=torch.int32)
+_M3_TWO_PERFECT = torch.tensor([2, 16, 23, 30, 31, 32, 34, 36, 38, 40, 42],
+                               dtype=torch.int32)
+_M3_TWO = torch.tensor([
+    [2, 2, 2, 1, 1, 0, 0, 0, 0, 0, 0],
+    [20, 14, 7, 3, 2, 1, 0, 0, 0, 0, 0],
+    [20, 16, 10, 6, 3, 1, 0, 0, 0, 0, 0],
+    [20, 17, 13, 9, 3, 1, 1, 0, 0, 0, 0],
+    [21, 19, 15, 9, 5, 2, 2, 0, 0, 0, 0],
+    [22, 21, 16, 11, 10, 5, 0, 0, 0, 0, 0],
+    [23, 22, 19, 16, 11, 0, 0, 0, 0, 0, 0],
+    [24, 25, 21, 30, 0, 0, 0, 0, 0, 0, 0],
+    [30, 26, 29, 0, 0, 0, 0, 0, 0, 0, 0],
+    [30, 27, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    [30, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+], dtype=torch.int32)
+
+
+def mapq_v3(best, second, has_second, min_score, max_score, is_paired=None):
+    """BowtieMapq3, the bowtie1-style binned quality: (B,) int32 best and
+    second scores, has_second, min and max (perfect) scores; optional
+    ``is_paired`` hits short-circuit to 44. int32 out."""
+    f32 = torch.float32
+    dev = best.device
+    bestf = best.to(f32)
+    maxf = max_score.to(f32)
+    minf = min_score.to(f32)
+    norm = 10.0 / torch.clamp(maxf - minf, min=1.0)
+
+    neg_best = torch.clamp(maxf - bestf, min=0.0)      # negated best score
+    best_bin = (neg_best * norm + 0.5).to(torch.int32).clamp(0, 10).long()
+    at_max = neg_best == 0
+
+    diff = (best - second).to(f32)
+    diff_bin = (diff * norm + 0.5).to(torch.int32).clamp(0, 10).long()
+
+    one = torch.where(at_max, 44, _M3_ONE.to(dev)[best_bin])
+    two = torch.where(at_max, _M3_TWO_PERFECT.to(dev)[best_bin],
+                      _M3_TWO.to(dev)[diff_bin, best_bin])
+    q = torch.where(has_second, two, one)
+    q = torch.where(bestf < minf, 0, q)
+    if is_paired is not None:
+        q = torch.where(is_paired, 44, q)
+    return q.to(torch.int32)

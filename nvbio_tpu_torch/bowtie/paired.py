@@ -301,17 +301,28 @@ def dispatch_pair_batch(mapper, batch1, batch2):
                              *mapper.batch_tensors(batch2), mapper.params)
 
 
-def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
+def format_pair_batch(mapper, batch1, batch2, res,
+                      stats=None) -> list[SamRecord]:
     """Interleaved SAM records (mate 1, mate 2 per pair) of a dispatched
     pair batch, with the pair flags, RNEXT/PNEXT/TLEN and bowtie2's YT
     tag; the host formatting of ``nvbio_tpu.bowtie.paired.
-    map_pair_batch``, plus the soft clips of local-mode CIGARs."""
+    map_pair_batch``, plus the soft clips of local-mode CIGARs. ``stats``
+    (an optional ``utils.stats.AlignmentStats``) accumulates each mate's
+    mapping stats and the proper and discordant pairs, over real reads
+    (length > 0) only."""
     res1, res2, pinfo = res
     ops_dev = (res1["ops"], res2["ops"])
     res1 = {k: v.cpu().numpy() for k, v in res1.items() if k != "ops"}
     res2 = {k: v.cpu().numpy() for k, v in res2.items() if k != "ops"}
-    proper = pinfo["proper"].cpu().numpy().tolist()
-    discordant = pinfo["discordant"].cpu().numpy().tolist()
+    proper = pinfo["proper"].cpu().numpy()
+    discordant = pinfo["discordant"].cpu().numpy()
+    if stats is not None:
+        stats.update_from_result(res1, batch1.lengths)
+        stats.update_from_result(res2, batch2.lengths)
+        real = np.asarray(batch1.lengths) > 0
+        stats.n_proper_pairs += int((proper & real).sum())
+        stats.n_discordant += int((discordant & real).sum())
+    proper, discordant = proper.tolist(), discordant.tolist()
 
     mates = []
     for batch, res, dev_ops in ((batch1, res1, ops_dev[0]),
@@ -381,11 +392,12 @@ def format_pair_batch(mapper, batch1, batch2, res) -> list[SamRecord]:
     return out
 
 
-def map_pair_batch(mapper, batch1, batch2) -> list[SamRecord]:
+def map_pair_batch(mapper, batch1, batch2, stats=None) -> list[SamRecord]:
     """Map paired ``ReadBatch``es -> interleaved SAM records. ``mapper`` is
-    a ``bowtie.pipeline.ReadMapper``."""
+    a ``bowtie.pipeline.ReadMapper``; ``stats`` as ``format_pair_batch``."""
     return format_pair_batch(mapper, batch1, batch2,
-                             dispatch_pair_batch(mapper, batch1, batch2))
+                             dispatch_pair_batch(mapper, batch1, batch2),
+                             stats)
 
 
 # pair loci kept per read pair by all-mapping (the JAX package's default

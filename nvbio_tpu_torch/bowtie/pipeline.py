@@ -127,19 +127,41 @@ def alignment_fields(ops_row, n_ops: int, nm: int, simple: bool, ps: int,
     return soft_clipped(core, ps, pe, L), dict(MD=md, XM=xm, XO=xo, XG=xg)
 
 
-def lazy_ops_rows(need: np.ndarray, ops_dev: torch.Tensor) -> dict:
-    """The op rows of ``ops_dev`` where the host mask ``need`` holds (its
-    leading dims), fetched in one gather: {b: row} for a 1-D mask, {(b, c):
-    row} for a 2-D one. Most mapped reads are all-M with NM = 0 and need
+def lazy_ops_rows(need: np.ndarray, ops) -> dict:
+    """The op rows of ``ops`` where the host mask ``need`` holds (its
+    leading dims): {b: row} for a 1-D mask, {(b, c): row} for a 2-D one.
+    ``ops`` is a device tensor (its rows fetched in one gather) or a host
+    array already fetched. Most mapped reads are all-M with NM = 0 and need
     none."""
     idx = np.nonzero(need)
     if not len(idx[0]):
         return {}
-    rows = ops_dev[tuple(torch.from_numpy(i).to(ops_dev.device)
+    if isinstance(ops, np.ndarray):
+        rows = ops[idx]
+    else:
+        rows = ops[tuple(torch.from_numpy(i).to(ops.device)
                          for i in idx)].cpu().numpy()
     keys = (idx[0].tolist() if need.ndim == 1
             else list(zip(*(i.tolist() for i in idx))))
     return dict(zip(keys, rows))
+
+
+@dataclasses.dataclass
+class HostResult:
+    """A dispatched batch's result tensors on their way to the host: copies
+    into pinned host memory enqueued right behind the batch's kernels, and
+    the CUDA event recorded after them (``None`` on the CPU, where the
+    tensors are already the host's)."""
+
+    tensors: dict
+    event: torch.cuda.Event | None = None
+
+    def wait(self) -> dict:
+        """The results as numpy arrays, once this batch's copies are done;
+        work enqueued after them (the next batch) is not waited for."""
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: v.numpy() for k, v in self.tensors.items()}
 
 
 def _mm_penalties(reads, quals, params: MapParams):
@@ -627,10 +649,39 @@ class ReadMapper:
                     tags={"AS": scores[b][c], "NM": nms[b][c], **md_tags}))
         return out
 
+    def fetch(self, res: dict) -> HostResult:
+        """Enqueue the device->host copy of every result tensor of a
+        dispatched batch (what formatting, the stats and the debug records
+        read, the whole op plane included); ``format_fetched`` reads them.
+
+        On one CUDA stream a copy issued after the next batch's dispatch
+        would wait for that batch's kernels too, so the copies go in now,
+        each into a fresh pinned buffer (the caching host allocator reuses
+        a block only once its copy has completed and nothing holds it),
+        followed by one event. On the CPU nothing is copied."""
+        if self.device.type == "cpu":
+            return HostResult(dict(res))
+        host = {}
+        for k, v in res.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return HostResult(host, event)
+
     def format_batch(self, batch, res) -> list[SamRecord]:
         ops_dev = res["ops"]  # fetched below only for rows that need it
         res = {k: v.cpu().numpy() for k, v in res.items() if k != "ops"}
+        return self._records(batch, res, ops_dev)
 
+    def format_fetched(self, batch, host: dict) -> list[SamRecord]:
+        """``format_batch``'s records from ``fetch(res).wait()``: the same
+        records, read from the host arrays alone."""
+        return self._records(batch, host, host["ops"])
+
+    def _records(self, batch, res: dict, ops) -> list[SamRecord]:
+        """SAM records of a batch from its host result arrays ``res``;
+        ``ops`` (device tensor or host array) holds the op rows."""
         reads = HostReads(batch)
         mapped = res["mapped"].tolist()
         strands = res["strand"].tolist()
@@ -645,7 +696,7 @@ class ReadMapper:
         pat_starts = res["pattern_start"].tolist()
         pat_ends = res["pattern_end"].tolist()
         ops_of = lazy_ops_rows(
-            res["mapped"] & ((res["nm"] > 0) | ~res["simple"]), ops_dev)
+            res["mapped"] & ((res["nm"] > 0) | ~res["simple"]), ops)
         simple = res["simple"].tolist()
 
         out = []

@@ -3,8 +3,9 @@
 Counterpart of the reference's OutputFile/SamOutput
 (``io/output/output_sam.h:43-125``): header with @SQ per contig, standard
 11-column records with AS/XS/NM/MD/XM/XO/XG/YT tags and typed aux values.
-Copy of ``nvbio_tpu.io.sam``; the port writes SAM only (BAM is not
-ported yet). Per-writer IOStats mirror ``output_stats.h``.
+Copy of ``nvbio_tpu.io.sam``; the binary sibling (BAM over the BGZF codec)
+lives in io/bam.py / io/bgzf.py. Per-writer IOStats mirror
+``output_stats.h``.
 """
 
 from __future__ import annotations

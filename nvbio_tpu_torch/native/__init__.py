@@ -1,7 +1,8 @@
 """Native (C++) host helpers, built on demand with g++ and loaded by ctypes.
 
-A copy of the q-gram half of ``nvbio_tpu.native``: ``qgram.cpp`` is the
-same counting-sort builder, compiled at first use into
+A copy of the q-gram and BGZF halves of ``nvbio_tpu.native``: ``qgram.cpp``
+is the same counting-sort builder and ``bgzf.cpp`` the same multithreaded
+BGZF block compressor (linked with zlib), each compiled at first use into
 ``nvbio_tpu_torch/native/build/`` (gitignored, content-hash staleness).
 """
 
@@ -22,7 +23,7 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _compile(name: str, sources: list[str]) -> str:
+def _compile(name: str, sources: list[str], extra_flags=()) -> str:
     os.makedirs(_BUILD, exist_ok=True)
     out = os.path.join(_BUILD, f"lib{name}.so")
     srcs = [os.path.join(_DIR, s) for s in sources]
@@ -32,6 +33,7 @@ def _compile(name: str, sources: list[str]) -> str:
     for p in srcs:
         with open(p, "rb") as f:
             h.update(f.read())
+    h.update(" ".join(extra_flags).encode())
     h.update(platform.machine().encode() + platform.node().encode())
     stamp = os.path.join(_BUILD, f"lib{name}.sha")
     digest = h.hexdigest()
@@ -41,7 +43,7 @@ def _compile(name: str, sources: list[str]) -> str:
                 return out
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
-           "-o", tmp, *srcs]
+           "-o", tmp, *srcs, *extra_flags]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, out)
     with open(stamp, "w") as f:
@@ -49,11 +51,11 @@ def _compile(name: str, sources: list[str]) -> str:
     return out
 
 
-def load(name: str, sources: list[str]) -> ctypes.CDLL:
+def load(name: str, sources: list[str], extra_flags=()) -> ctypes.CDLL:
     """Compile (if stale) and dlopen a native library."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(_compile(name, sources))
+            _LIBS[name] = ctypes.CDLL(_compile(name, sources, extra_flags))
         return _LIBS[name]
 
 
@@ -109,3 +111,28 @@ def qgram_midpos(offsets, positions, sentinel: int):
         ctypes.c_uint32(sentinel), mid.ctypes.data,
     )
     return mid
+
+
+def get_bgzf() -> ctypes.CDLL:
+    """Native multithreaded BGZF compressor (links zlib)."""
+    lib = load("nvbio_torch_bgzf", ["bgzf.cpp"], extra_flags=("-lz",
+                                                              "-pthread"))
+    fn = lib.nvbio_tpu_bgzf_compress
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    mx = lib.nvbio_tpu_bgzf_max_output
+    mx.restype = ctypes.c_int64
+    mx.argtypes = [ctypes.c_int64]
+    return lib
+
+
+def bgzf_available() -> bool:
+    """Whether the native BGZF compressor builds and loads here."""
+    try:
+        get_bgzf()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True

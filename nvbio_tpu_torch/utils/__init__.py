@@ -1,1 +1,2 @@
-"""Utilities: synthetic genomes and reads for tests and checks."""
+"""Utilities: synthetic genomes and reads for tests and checks, option
+files, host timers, leveled logging and alignment statistics."""

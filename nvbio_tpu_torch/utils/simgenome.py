@@ -127,3 +127,14 @@ def sample_pairs(
     reads2 = np.where(flip[:, None], left, right)
     return (reads1, reads2, np.where(flip, rstart, fstart),
             np.where(flip, fstart, rstart), flip, ~flip)
+
+
+def write_fastq(path: str, names, reads, quals) -> None:
+    """Write reads as FASTQ: ``reads`` (B, L) symbol codes (0-3 = ACGT, 4 =
+    N), ``quals`` (B, L) Phred scores, one name per row."""
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[np.asarray(reads)]
+    quals = np.asarray(quals, np.uint8) + 33
+    with open(path, "wb") as f:
+        for name, s, q in zip(names, seqs, quals):
+            f.write(b"@%s\n%s\n+\n%s\n" % (name.encode(), s.tobytes(),
+                                          q.tobytes()))

@@ -684,3 +684,106 @@ def test_any_band_and_wide_rescue_mappers_on_cuda_equal_cpu():
     b1, b2 = batch(r1, "p"), batch(r2, "p")
     assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
         [r.line() for r in map_pair_batch(cpu, b1, b2)]
+
+
+def _se_files(d, n=1024):
+    """A 2 Mbp genome written as g.pac/.ann/.amb and n reads of 100 bp
+    (1% substitutions) as se.fq; returns the genome."""
+    from nvbio_tpu_torch.io.pac import save_reference_pac
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import sample_reads, write_fastq
+
+    genome = np.random.default_rng(21).integers(0, 4, size=2_000_000,
+                                                dtype=np.uint8)
+    save_reference_pac(Reference(["g"], np.array([0, len(genome)], np.int64),
+                                 genome), str(d / "g"))
+    reads, _, _ = sample_reads(genome, n, 100, seed=22, subst_rate=0.01)
+    quals = np.random.default_rng(23).integers(5, 41, size=reads.shape)
+    write_fastq(str(d / "se.fq"), [f"r{i}" for i in range(n)], reads, quals)
+    return genome
+
+
+@pytest.mark.gpu
+def test_se_cli_on_cuda_equals_cpu(tmp_path):
+    """``map`` on a .pac prefix with -o x.bam, --debug-output, --report and
+    --mapq-filter: identical BAM records, debug bytes and report on cuda
+    and on cpu."""
+    _card()
+    from nvbio_tpu_torch.__main__ import main
+    from nvbio_tpu_torch.io.bam import read_bam
+
+    _se_files(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = str(tmp_path / dev)
+        assert main(["map", str(tmp_path / "g"), str(tmp_path / "se.fq"),
+                     "--max-read-len", "100", "--hits-per-seed", "6",
+                     "--batch", "512", "--mapq-filter", "10", "-o",
+                     f"{t}.bam", "--debug-output", f"{t}.dbg", "--report",
+                     f"{t}.html", *(["--device", "cpu"] if dev == "cpu"
+                                    else [])]) == 0
+        html = (tmp_path / f"{dev}.html").read_text()
+        out[dev] = (read_bam(f"{t}.bam")[1],
+                    (tmp_path / f"{dev}.dbg").read_bytes(),
+                    html[html.index("<h2>Mapping"):html.index("<h2>Stages")])
+    assert len(out["cuda"][0]) == 1024
+    assert out["cuda"] == out["cpu"]
+
+
+def _mapper_and_batches(n_batches=3, n=512):
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import repeat_rich_genome, \
+        sample_reads
+
+    genome = repeat_rich_genome(1_500_000, seed=4)
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    mapper = ReadMapper.build(ref, MapParams(max_read_len=100,
+                                             hits_per_seed=6), device="cuda")
+    rng = np.random.default_rng(5)
+    batches = []
+    for i in range(n_batches):
+        reads, _, _ = sample_reads(genome, n, 100, seed=30 + i,
+                                   subst_rate=0.03)
+        batches.append(ReadBatch(
+            [f"b{i}_{j}" for j in range(n)], reads.astype(np.uint8),
+            rng.integers(5, 41, size=reads.shape).astype(np.uint8),
+            np.full(n, 100, np.int32)))
+    return mapper, batches
+
+
+@pytest.mark.gpu
+def test_overlapped_loop_equals_map_batch_on_cuda():
+    _card()
+    from nvbio_tpu_torch.apps.map_app import map_single_end
+
+    mapper, batches = _mapper_and_batches()
+    got = []
+    stages = map_single_end(mapper, batches, got.append)
+    want = [r for b in batches for r in mapper.map_batch(b)]
+    assert [r.line() for r in got] == [r.line() for r in want]
+    assert [s.calls for s in stages] == [3, 3, 3]
+
+
+@pytest.mark.gpu
+def test_fetched_host_arrays_outlive_the_next_batch():
+    """A batch's host arrays stay its own while the next batch is
+    dispatched and fetched into fresh pinned buffers: no array of batch 1
+    shares memory with batch 2's or changes, and batch 1 formats to
+    map_batch's records."""
+    _card()
+    mapper, (b1, b2, _) = _mapper_and_batches()
+    h1 = mapper.fetch(mapper.dispatch(b1)).wait()   # only the arrays kept
+    snap = {k: v.copy() for k, v in h1.items()}
+    fetched = mapper.fetch(mapper.dispatch(b2))
+    assert all(t.is_pinned() for t in fetched.tensors.values())
+    h2 = fetched.wait()
+    for k in h1:
+        assert not np.shares_memory(h1[k], h2[k]), k
+        np.testing.assert_array_equal(h1[k], snap[k], err_msg=k)
+    assert not all(np.array_equal(h1[k], h2[k]) for k in h1)
+    assert [r.line() for r in mapper.format_fetched(b1, h1)] == \
+        [r.line() for r in mapper.map_batch(b1)]

@@ -82,3 +82,32 @@ def test_mapq_v2_local_grid(read_len):
             torch.from_numpy(max_score))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert len(np.unique(np.asarray(want))) >= 7
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_mapq_v3_grid(paired):
+    """BowtieMapq3 against the JAX function over a grid of best, second,
+    min and max scores, has_second both ways, is_paired absent or given."""
+    best, second, s_min, s_max = np.meshgrid(
+        np.arange(-90, 12, 3), np.arange(-95, 12, 4),
+        np.array([-80, -40, -12, -1, 0, 5]), np.array([-3, 0, 6, 150]),
+        indexing="ij")
+    best, second, s_min, s_max = (x.ravel().astype(np.int32) for x in
+                                  (best, second, s_min, s_max))
+    second[::13] = -(1 << 24)
+    rng = np.random.default_rng(3)
+    is_paired = rng.random(len(best)) < 0.3 if paired else None
+    for has2 in (np.zeros_like(best, bool), np.ones_like(best, bool),
+                 second >= s_min):
+        want = jmapq.mapq_v3(
+            jnp.asarray(best), jnp.asarray(second), jnp.asarray(has2),
+            jnp.asarray(s_min), jnp.asarray(s_max),
+            None if is_paired is None else jnp.asarray(is_paired))
+        got = tmapq.mapq_v3(
+            torch.from_numpy(best), torch.from_numpy(second),
+            torch.from_numpy(has2), torch.from_numpy(s_min),
+            torch.from_numpy(s_max),
+            None if is_paired is None else torch.from_numpy(is_paired))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(np.unique(np.asarray(want))) > 20

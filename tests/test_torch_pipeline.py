@@ -158,12 +158,15 @@ def test_cli_map_matches_jax_cli(tmp_path):
 def test_cli_rejects_what_is_not_ported(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    for flag in (["--seeding", "fmi"], ["--report", "r.html"],
+    for flag in (["--seeding", "fmi"], ["--num-processes", "2"],
                  ["-1", "a.fq", "-2", "b.fq", "--dist"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(["map", "ref.fa", "reads.fq", *flag])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["map", "ref.fa", "reads.fq", "-o", "x.bam", "--device", "cpu"])
+    # BAM output and .pac prefixes are ported: a prefix with neither
+    # artifact stops by name
+    with pytest.raises(SystemExit, match="nope.pac"):
+        main(["map", str(tmp_path / "nope"), "reads.fq", "-o", "x.bam",
+              "--device", "cpu"])
     # an option file that selects FM seeding stops too
     (tmp_path / "fmi.txt").write_text("seeding=fmi\n")
     with pytest.raises(NotImplementedError, match="seeding='fmi'"):
