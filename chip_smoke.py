@@ -32,7 +32,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      left-padded windows (directions in shared memory), and K2-WIDE at
      W=1054, M=512 on 256 reads (the global-scratch route); K5
      (register-tiled scorer) G=4096 blocks, L=100, W=31 and 17 with
-     bench.py's flags, and G=64 with every flag off and ragged lengths;
+     bench.py's flags (every pair of alignments must take its packed
+     loop), G=64 with every flag off and ragged lengths, and G=64 ragged
+     with pairs its packed guard refuses (penalties past int8 or past the
+     limit, text codes 65536 apart or negative; the share of pairs on the
+     packed loop equal to what kernels.k5_packed_pairs admits);
      K2 at the --all shape B*C=786432, W=31; K2-WIDE at K2's shape (W=31)
      beside K2; K1, K2, K3 (both entries) and K5 at band 21;
   4. main path (single-end): a seeded uniform 100 Mbp genome, its q-gram
@@ -149,7 +153,11 @@ ISSUE_LANES_PER_SM = 128
 #       counts (17 and 14, 22 and 15); its shuffles, the F scan across
 #       lanes and the warp reductions are the warp layout's cost, not the
 #       function's.
-#   K5: K1's recurrence (8), with the sequential F of bench.py's flags.
+#   K5: K1's recurrence (8), with the sequential F of bench.py's flags;
+#       its packed loop scores two alignments a register as K1's does
+#       (the substitution of both halves one PRMT over two per-half byte
+#       tables, as K1's one PRMT over one), so it counts
+#       K1_OPS_PER_CELL_PACKED.
 #   K4: per 32-bit word and text step: the Eq select over 4 symbols (3),
 #       Eq & PV and the add with carry (2), D0 (2 three-input LOPs), Hp
 #       and Hn (2), the two shifts with carry-in (2), PV and MV (2), the
@@ -291,6 +299,7 @@ def phase_kernels(genome, words, dev, rng, regs):
     from nvbio_tpu_torch.align import kernels as K
     from nvbio_tpu_torch.bowtie.params import MapParams
     from nvbio_tpu_torch.packed import extract_window
+    from nvbio_tpu_torch.tools.k5_operands import guard_operands
 
     sc = MapParams().scoring
     n = len(genome)
@@ -482,6 +491,11 @@ def phase_kernels(genome, words, dev, rng, regs):
             f"regtile_score_blocked W={wk}", K.regtile_score_blocked,
             K.regtile_score_blocked_plain, ops5, plain_reps=3,
             **k5_bench_flags(sc, wk))
+        k5[wk]["packed_share"] = k5_packed_share(K, ops5,
+                                                 k5_bench_flags(sc, wk))
+        require(k5[wk]["packed_share"] == 1.0,
+                f"K5 W={wk}: a pair of bench.py's operands left the packed "
+                f"loop")
         del ops5, k5[wk]["out"]
         torch.cuda.empty_cache()
     g64 = 64
@@ -494,6 +508,17 @@ def phase_kernels(genome, words, dev, rng, regs):
     k5r = check_kernel("regtile_score_blocked G=64 ragged",
                        K.regtile_score_blocked, K.regtile_score_blocked_plain,
                        ops64, scoring=sc, band=W, length=L, seq_f=False)
+    k5r["packed_share"] = k5_packed_share(
+        K, ops64, dict(scoring=sc, band=W, length=L, seq_f=False))
+    ops_g = tuple(t(x) for x in guard_operands(rng, g64, L, W))
+    kw_g = dict(scoring=sc, band=W, length=L)
+    k5g = check_kernel("regtile_score_blocked G=64 ragged, guard refusals",
+                       K.regtile_score_blocked, K.regtile_score_blocked_plain,
+                       ops_g, **kw_g)
+    k5g["packed_share"] = k5_packed_share(K, ops_g, kw_g)
+    require(0.0 < k5g["packed_share"] < 1.0,
+            "K5's guard case does not mix packed and int32 pairs")
+    del k5r["out"], k5g["out"], ops64, ops_g
     # K4 at the mate-locate shapes: each mate in a window of maxins + band
     # = 531 bases that holds it; 64 empty patterns, 64 short windows
     wstart = np.clip(starts - rng.integers(0, RW - L, size=B), 0, n - RW)
@@ -566,12 +591,6 @@ def phase_kernels(genome, words, dev, rng, regs):
                          + (ml + wl + 7) // 8 * 8 * 4)
     n5 = G_K5 * 1024
 
-    def k5_cost(wk, n):
-        # the rows the function reads: L of patterns and penalties, L+W-1 of
-        # texts; two length planes in, two outputs out
-        return (K1_OPS_PER_CELL * n * L * wk,
-                n * (2 * L + L + wk - 1) * 4 + 4 * n * 4)
-
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
         return (1e3 * max(t_ops, t_bytes),
@@ -625,8 +644,9 @@ def phase_kernels(genome, words, dev, rng, regs):
          k2wl, k2wl_ops, k2w_bytes, f"B={B} M={L} W={W_FULL} (T+M) local",
          f"banded_traceback_wide_kernel<8,{W_FULL},1,1>"),
         ("regtile_score_blocked", "regtile_score_blocked.cu", 839, k5[W],
-         *k5_cost(W, n5), f"G={G_K5} L={L} W={W} seq_f full_text "
-         f"uniform_plen", f"regtile_score_blocked_kernel<{W},1,1,1>"),
+         *k5_cost(W, n5, **K5_BENCH_PLANES), f"G={G_K5} L={L} W={W} seq_f "
+         f"full_text uniform_plen",
+         f"regtile_score_blocked_kernel<{W},1,1,1>"),
     ]
     rows += band21["rows"]
     out = []
@@ -642,6 +662,10 @@ def phase_kernels(genome, words, dev, rng, regs):
             registers=regs[inst][0]))
     out[0]["bound_int32_ms"] = bound(k1_ops_int32, k1_bytes)[0]
     out[1]["bound_int32_ms"] = bound(k3l_ops, k1_bytes)[0]
+    k5e = next(e for e in out if e["name"] == "regtile_score_blocked")
+    k5e["bound_int32_ms"] = bound(*k5_cost(W, n5, **K5_BENCH_PLANES,
+                                           per_cell=K1_OPS_PER_CELL))[0]
+    k5e["packed_share"] = k5[W]["packed_share"]
     # measured beside the nine entries: K5 at W=17 and on a ragged batch,
     # K2 at the --all shape, K2 at the other group size, K2-WIDE at K2's
     # shape and at W=1054 (global route), the flat K3-LOCAL at its old
@@ -655,12 +679,18 @@ def phase_kernels(genome, words, dev, rng, regs):
             "banded_traceback", k2s[g], (s_ops, k2_bytes * B_SMALL // B),
             f"B={B_SMALL} L={L} W={W} group={g}",
             f"banded_traceback_kernel<{W},{g},0>") for g in k2s] + [
-            ("regtile_score_blocked", k5[17], k5_cost(17, n5),
+            ("regtile_score_blocked", k5[17],
+             k5_cost(17, n5, **K5_BENCH_PLANES),
              f"G={G_K5} L={L} W=17 seq_f full_text uniform_plen",
              "regtile_score_blocked_kernel<17,1,1,1>"),
-            ("regtile_score_blocked", k5r, k5_cost(W, g64 * 1024),
+            ("regtile_score_blocked", k5r,
+             k5_cost(W, g64 * 1024, uniform_plen=False, full_text=False),
              f"G={g64} L={L} W={W} no flags, ragged",
              f"regtile_score_blocked_kernel<{W},0,0,0>"),
+            ("regtile_score_blocked", k5g,
+             k5_cost(W, g64 * 1024, uniform_plen=False, full_text=False),
+             f"G={g64} L={L} W={W} seq_f, ragged, guard refusals",
+             f"regtile_score_blocked_kernel<{W},1,0,0>"),
             ("banded_traceback", k2a, (k2a_ops, k2a_bytes),
              f"B*C={B * C} L={L} W={W} (--all) group={ga}",
              f"banded_traceback_kernel<{W},{ga},0>"),
@@ -703,13 +733,15 @@ def phase_kernels(genome, words, dev, rng, regs):
                           bound_by=by, shape=shape, instantiation=inst,
                           registers=regs[inst][0],
                           **{k: res[k] for k in ("peak_bytes",
-                                                 "cands_peak_bytes")
+                                                 "cands_peak_bytes",
+                                                 "packed_share")
                              if k in res}))
+    k5o, k5b = k5_cost(W, n5, **K5_BENCH_PLANES)
+    k5o17, k5b17 = k5_cost(17, n5, **K5_BENCH_PLANES)
     print(f"[kernels] K2-WIDE {k2w_ops:.4g} ops {k2w_bytes:.4g} B "
           f"(directions in shared memory); K2-WIDE-LOCAL "
-          f"{k2wl_ops:.4g} ops; K5 W={W} {k5_cost(W, n5)[0]:.4g} ops "
-          f"{k5_cost(W, n5)[1]:.4g} B, W=17 {k5_cost(17, n5)[0]:.4g} ops "
-          f"{k5_cost(17, n5)[1]:.4g} B; K2 at --all {k2a_ops:.4g} ops "
+          f"{k2wl_ops:.4g} ops; K5 W={W} {k5o:.4g} ops {k5b:.4g} B, W=17 "
+          f"{k5o17:.4g} ops {k5b17:.4g} B; K2 at --all {k2a_ops:.4g} ops "
           f"{k2a_bytes:.4g} B", flush=True)
     for e in out + extra:
         print(f"[kernels] {e['name']} {e['shape']}: {e['ms']:.3f} ms "
@@ -720,16 +752,38 @@ def phase_kernels(genome, words, dev, rng, regs):
           f"{out[0]['bound_int32_ms']:.3f} ms int32; K1-LOCAL "
           f"{out[1]['bound_ms']:.3f} ms packed, "
           f"{out[1]['bound_int32_ms']:.3f} ms int32", flush=True)
-    # K5 runs K1's DP: held also to K1's packed count (16-bit DPX pairs)
-    k5 = next(e for e in out if e["name"] == "regtile_score_blocked")
-    k5_packed = (K1_OPS_PER_CELL_PACKED * n5 * L * W / rate * 1e3,
-                 K1_OPS_PER_CELL_PACKED * n5 * L * 17 / rate * 1e3)
-    print(f"[kernels] K5 bound {k5_packed[0]:.3f} ms packed "
-          f"({100 * k5_packed[0] / k5['ms']:.1f}% of its {k5['ms']:.3f} "
-          f"ms, {100 * k5_packed[0] / k5['ms_queued']:.1f}% queued), "
-          f"{k5['bound_ms']:.3f} ms int32; W=17 {k5_packed[1]:.3f} ms "
-          f"packed", flush=True)
+    # K5: the larger of its packed instructions and its bytes, and the
+    # share of that bound it reached (single call and queued)
+    k5_17 = next(e for e in extra if e["instantiation"]
+                 == "regtile_score_blocked_kernel<17,1,1,1>")
+    for wk, e, i32 in ((W, k5e, k5e["bound_int32_ms"]),
+                       (17, k5_17, bound(*k5_cost(
+                           17, n5, **K5_BENCH_PLANES,
+                           per_cell=K1_OPS_PER_CELL))[0])):
+        print(f"[kernels] K5 W={wk} bound {e['bound_ms']:.3f} ms "
+              f"({e['bound_by']}; int32 {i32:.3f} ms): "
+              f"{100 * e['bound_ms'] / e['ms']:.1f}% reached in "
+              f"{e['ms']:.3f} ms, {100 * e['bound_ms'] / e['ms_queued']:.1f}%"
+              f" queued ({e['ms_queued']:.3f} ms); pairs on the packed loop "
+              f"{e['packed_share']:.4f}", flush=True)
     return out, extra
+
+
+def k5_packed_share(K, ops, kw) -> float:
+    """The share of K5's pairs of alignments that its packed loop scored
+    (one more launch with a counter), required to equal what
+    ``kernels.k5_packed_pairs`` admits."""
+    cnt = torch.zeros(1, dtype=torch.int32, device=ops[0].device)
+    K.regtile_score_blocked(*ops, packed_count=cnt, **kw)
+    guard = {k: v for k, v in kw.items() if k not in ("seq_f", "unroll")}
+    admitted = int(K.k5_packed_pairs(*ops, **guard).sum())
+    n_pairs = ops[0].shape[0] * 512
+    require(int(cnt) == admitted,
+            f"K5's packed loop took {int(cnt)} pairs, its guard admits "
+            f"{admitted}")
+    print(f"[kernels] K5 G={ops[0].shape[0]} W={kw['band']}: pairs on the "
+          f"packed loop {int(cnt)} of {n_pairs}", flush=True)
+    return int(cnt) / n_pairs
 
 
 def k4_widths(K, genome, words, rng, starts, k4_args, t):
@@ -851,8 +905,7 @@ def band_checks(K, genome, words, rng, dev, k1_args, true_w0, k2_args, t):
          f"B={nr} M={L} W={W2} (packed windows)",
          f"banded_score_windows_kernel<{W2},0>"),
         ("regtile_score_blocked", k5,
-         (K1_OPS_PER_CELL * n5 * L * W2, n5 * (3 * L + W2 - 1) * 4
-          + 4 * n5 * 4),
+         k5_cost(W2, n5, **K5_BENCH_PLANES),
          f"G={G_K5_2} L={L} W={W2} seq_f full_text uniform_plen",
          f"regtile_score_blocked_kernel<{W2},1,1,1>")])
 
@@ -904,23 +957,27 @@ def local_stage(K, args, want, extract_window):
 
 
 def k5_operands(wk: int, g: int, dev):
-    """bench.py's GCUPS operands (bench.py:424-440), made on the card from a
-    seed: random codes, the flat mismatch plane, every pattern L long and
-    every text spanning L+W-1."""
+    """bench.py's GCUPS operands on g blocks (``tools.k5_operands``)."""
     from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.tools.k5_operands import bench_operands
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(wk)
-    lp = (L + 7) // 8 * 8
-    i32 = torch.int32
-    return (torch.randint(0, 4, (g, lp, 8, 128), generator=gen, device=dev,
-                          dtype=i32),
-            torch.full((g, 1, 8, 128), L, dtype=i32, device=dev),
-            torch.randint(0, 4, (g, lp + wk, 8, 128), generator=gen,
-                          device=dev, dtype=i32),
-            torch.full((g, 1, 8, 128), L + wk - 1, dtype=i32, device=dev),
-            torch.full((g, lp, 8, 128), MapParams().scoring.mismatch,
-                       dtype=i32, device=dev))
+    return bench_operands(wk, dev, MapParams().scoring.mismatch, G=g,
+                          length=L)
+
+
+# the length planes bench.py's flags leave unread (k5_cost)
+K5_BENCH_PLANES = dict(uniform_plen=True, full_text=True)
+
+
+def k5_cost(wk: int, n: int, *, uniform_plen: bool, full_text: bool,
+            per_cell: int = K1_OPS_PER_CELL_PACKED):
+    """(operations, bytes) of K5 on n alignments at band wk: the rows the
+    function reads (L of patterns and penalties, L+W-1 of texts), the plen
+    plane unless uniform_plen, the tlen plane unless full_text, and its two
+    outputs."""
+    planes = 2 + (not uniform_plen) + (not full_text)
+    return (per_cell * n * L * wk, n * (2 * L + L + wk - 1) * 4
+            + planes * n * 4)
 
 
 def k5_bench_flags(scoring, wk: int) -> dict:

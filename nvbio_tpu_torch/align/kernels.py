@@ -175,7 +175,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P] * 5 + [I] * 13 + [P, P, P]
     elif name == "regtile_score_blocked":
         fn = lib.nvbt_regtile_score_blocked
-        fn.argtypes = [P] * 5 + [I] * 11 + [P, P, P]
+        fn.argtypes = [P] * 5 + [I] * 12 + [P] * 4
     else:
         fn = lib.nvbt_myers_semiglobal
         fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4
@@ -1107,7 +1107,7 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
                           scoring: GotohScoring, band: int, length: int,
                           seq_f: bool = True, full_text: bool = False,
                           uniform_plen: bool = False, unroll: int = 1,
-                          t_regs: bool = True):
+                          t_regs: bool = True, packed_count=None):
     """SEMI_GLOBAL banded Gotoh score and first-max band index of every
     alignment of a blocked batch: the contract of the TPU function of the
     same name. ``patsb``/``mmb`` (G, Lp, 8, 128) int32 with Lp >= length,
@@ -1123,6 +1123,12 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
     and change no result: they are checked (``unroll`` must divide
     ``length``) and do nothing on the card. For CPU tensors:
     ``regtile_score_blocked_plain``.
+
+    The kernel scores the pairs of neighbouring alignments that
+    ``k5_packed_pairs`` admits in 16-bit halves, the others in int32; the
+    result is the same. ``packed_count``: None, or a one-element int32
+    tensor on the operands' device to which the call adds the number of
+    pairs scored in 16-bit halves (on the CPU, the pairs the guard admits).
     """
     if scoring.text_gap_ext < scoring.text_gap_open:
         seq_f = False  # the sequential F needs te >= to
@@ -1141,7 +1147,15 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
             or tuple(txtsb.shape[2:]) != (8, 128):
         raise ValueError(f"txtsb must be (G, >= {length + W - 1}, 8, 128); "
                          f"got {tuple(txtsb.shape)}")
+    if packed_count is not None:
+        _check(packed_count, "packed_count", torch.int32, (1,),
+               patsb.device)
     if patsb.device.type == "cpu":
+        if packed_count is not None:
+            packed_count += k5_packed_pairs(
+                patsb, plb, txtsb, tlb, mmb, scoring=scoring, band=band,
+                length=length, full_text=full_text,
+                uniform_plen=uniform_plen).sum().to(torch.int32)
         return regtile_score_blocked_plain(
             patsb, plb, txtsb, tlb, mmb, scoring=scoring, band=band,
             length=length, seq_f=seq_f, full_text=full_text,
@@ -1155,19 +1169,76 @@ def regtile_score_blocked(patsb, plb, txtsb, tlb, mmb, *,
     _check(txtsb, "txtsb", torch.int32, (G, TWp, 8, 128), dev)
     _check(plb, "plb", torch.int32, (G, 1, 8, 128), dev)
     _check(tlb, "tlb", torch.int32, (G, 1, 8, 128), dev)
+    # the kernel reads each pair of alignments with one 8-byte load
+    patsb, plb, txtsb, tlb, mmb = (x if x.data_ptr() % 8 == 0 else x.clone()
+                                   for x in (patsb, plb, txtsb, tlb, mmb))
     score = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
     kbest = torch.empty((G, 1, 8, 128), dtype=torch.int32, device=dev)
     flags = int(seq_f) | (int(full_text) << 1) | (int(uniform_plen) << 2)
     rc_code = _lib("regtile_score_blocked", W).nvbt_regtile_score_blocked(
         patsb.data_ptr(), plb.data_ptr(), txtsb.data_ptr(), tlb.data_ptr(),
         mmb.data_ptr(), G, Lp, TWp, length, W, flags, *_gaps(scoring),
-        score.data_ptr(), kbest.data_ptr(), _stream(dev))
+        k1_packed_limit(scoring, W), score.data_ptr(), kbest.data_ptr(),
+        None if packed_count is None else packed_count.data_ptr(),
+        _stream(dev))
     _raise_if_failed(rc_code, "regtile_score_blocked", W)
     regtile_score_blocked.launches += 1
     return score, kbest
 
 
 regtile_score_blocked.launches = 0
+
+
+def k5_packed_pairs(patsb, plb, txtsb, tlb, mmb, *, scoring: GotohScoring,
+                    band: int, length: int, full_text: bool = False,
+                    uniform_plen: bool = False) -> torch.Tensor:
+    """The guard of K5's packed loop: (G, 1, 8, 64) bool, True where the
+    kernel scores alignments 2j and 2j+1 of a block row in the 16-bit halves
+    of a register (``regtile_score_blocked.cu``), False where it scores
+    them in int32. Same operands and flags as ``regtile_score_blocked``.
+
+    A pair is admitted when ``k1_packed_limit(scoring, band)`` >= 0 and
+      * both halves have a FIN row (``uniform_plen``, or 1 <= plen <=
+        length; they run rows = length or plen) and a text that spans it
+        (``full_text``, or tlen >= rows + band - 1);
+      * over the R = max(rows_lo, rows_hi) rows the pair runs, the sum of
+        max(|mm_lo[r]|, |mm_hi[r]|, |match|) is at most the limit and each
+        term at most 127 (the per-half substitution tables hold int8);
+      * every text code of both halves at positions < R + band - 1 lies in
+        [0, 4) (the text pair selects bytes of those tables; a pattern code
+        outside [0, 4) matches nothing, as in int32).
+    Then every value stays within +-K1_PACKED_RANGE, as
+    ``k1_packed_limit`` argues for K1, and the result equals int32's; the
+    shorter half stops being read at its own FIN row, and the rows after it
+    only keep its values in range."""
+    W, L = band, length
+    G = patsb.shape[0]
+    lim = k1_packed_limit(scoring, W)
+    dev = patsb.device
+    plen = plb.reshape(G, 512, 2).to(torch.int64)
+    tlen = tlb.reshape(G, 512, 2).to(torch.int64)
+    if uniform_plen:
+        fin = torch.ones_like(plen, dtype=torch.bool)
+        rows = torch.full_like(plen, L)
+    else:
+        fin = (plen >= 1) & (plen <= L)
+        rows = torch.where(fin, plen, 0)
+    ok = fin.all(dim=2)
+    if not full_text:
+        ok &= (tlen >= rows + W - 1).all(dim=2)
+    R = rows.max(dim=2).values                                  # (G, 512)
+    mag = mmb[:, :L].reshape(G, L, 512, 2).to(torch.int64).abs()
+    mag = torch.maximum(mag.max(dim=3).values,
+                        torch.tensor(abs(scoring.match), device=dev))
+    run = torch.arange(L, device=dev)[None, :, None] < R[:, None, :]
+    mag = torch.where(run, mag, 0)
+    ok &= (mag.sum(dim=1) <= lim) & (mag.max(dim=1).values <= 127)
+    TW = L + W - 1
+    txt = txtsb[:, :TW].reshape(G, TW, 512, 2)
+    bad = ((txt < 0) | (txt > 3)).any(dim=3)
+    read = torch.arange(TW, device=dev)[None, :, None] < (R + W - 1)[:, None]
+    ok &= ~(bad & read).any(dim=1)
+    return (ok & (lim >= 0)).reshape(G, 1, 8, 64)
 
 
 def _unblock(x):

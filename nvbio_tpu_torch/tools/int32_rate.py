@@ -31,7 +31,12 @@ Needs a CUDA card and the CUDA toolkit (nvcc, cuobjdump). It
      (``myers_regs_windows_kernel<NW>``, M = 100 and 150): its 16-step
      loop per word-step;
   7. reads the SASS of K3's row loop at W = 31 (``banded_score_kernel`` and
-     ``banded_score_windows_kernel``, SEMI_GLOBAL): per band cell.
+     ``banded_score_windows_kernel``, SEMI_GLOBAL): per band cell;
+  8. reads the SASS of K5 (``regtile_score_blocked_kernel<W, 1, 1, 1>``,
+     bench.py's flags, W = 31 and 17): per band cell of its packed loop
+     (two alignments a thread) and of its int32 loop, and, from its queued
+     time at bench.py's GCUPS shape (G = 4096, L = 100; ``k2_time.time_k5``),
+     the thread-instructions per SM per clock its packed loop retires.
 Prints one JSON object as its last line (and writes it to ``--out``).
 """
 
@@ -324,6 +329,63 @@ def k3_loops(W: int = 31) -> dict:
     return out
 
 
+def k5_rows_per_trip() -> int:
+    """kU of ``csrc/regtile_score_blocked.cu``: rows per trip of K5's packed
+    loop."""
+    src = os.path.join(os.path.dirname(_HERE), "csrc",
+                       "regtile_score_blocked.cu")
+    with open(src) as f:
+        m = re.search(r"constexpr int kU = (\d+);", f.read())
+    if m is None:
+        raise RuntimeError(f"no kU in {src}")
+    return int(m.group(1))
+
+
+def k5_loops(sms: int, hz: float) -> dict:
+    """SASS per band cell of K5's bench instantiations at W = 31 and 17:
+    the packed loop (the one with 16x2 instructions; kU rows a trip, two
+    cells per thread) and the int32 loop (the largest other loop, one row a
+    trip; the kernel holds two copies, one a half); then, from the queued
+    time of ``k2_time.time_k5`` on bench.py's operands, the
+    thread-instructions per SM per clock of its packed loop."""
+    from nvbio_tpu_torch.tools.k2_time import time_k5
+
+    lib = os.path.join(K._BUILD, "libregtile_score_blocked.so")
+    rows = k5_rows_per_trip()
+    timed: dict = {}
+    time_k5(K, MapParams, timed)
+    out = {}
+    for W in (31, 17):
+        loops = sass_loops(lib, f"regtile_score_blocked_kernelILi{W}ELb1E"
+                                f"Lb1ELb1E")
+        packed = [lp for lp in loops if any("16x2" in op.lower() for op in lp)]
+        plain = [lp for lp in loops if lp not in packed]
+        if not packed or not plain:
+            raise RuntimeError(f"K5 W={W}: {len(packed)} packed and "
+                               f"{len(plain)} int32 loops")
+        res = {}
+        for name, lp, n in (("packed", packed[0], 2 * rows * W),
+                            ("int32", plain[0], W)):
+            res[name] = dict(loop_instructions=len(lp), cells_per_trip=n,
+                             instructions_per_cell=len(lp) / n,
+                             loads=sum(op.startswith("LDG") for op in lp),
+                             opcodes=_hist(lp, 12))
+            print(f"[k5] W={W} {name}: {len(lp)} SASS for {n} cells = "
+                  f"{len(lp) / n:.2f} per cell; {res[name]['opcodes']}",
+                  flush=True)
+        t = timed[f"k5_w{W}"]
+        cells = t["G"] * 1024 * t["L"] * W
+        per_clk = (cells * res["packed"]["instructions_per_cell"]
+                   / (t["ms_queued"] * 1e-3) / sms / hz)
+        res["rate"] = dict(ms_queued=t["ms_queued"], cells=cells,
+                           instructions_per_sm_clock=per_clk)
+        print(f"[k5] G={t['G']} L={t['L']} W={W}: {t['ms_queued']:.3f} ms "
+              f"queued, {cells:.4g} cells, {per_clk:.1f} thread-instructions "
+              f"per SM per clock (packed loop)", flush=True)
+        out[f"w{W}"] = res
+    return out
+
+
 def k1_rate(sms: int, hz: float, per_cell: float) -> dict:
     """K1 timed at the main path's shapes (B=32768, C=24, L=100, W=31) on
     random windows, all of which take the packed path, and the
@@ -374,10 +436,11 @@ def main() -> int:
     wide = wide_loops()
     k4 = k4_loops()
     k3 = k3_loops()
+    k5 = k5_loops(sms, hz)
     res = dict(card=card, sms=sms, max_sm_mhz=mhz,
                sm_mhz_after=smi("clocks.sm"),
                issue_ceiling_per_sm_clock=ISSUE_LANES_PER_SM_CLOCK,
-               probe=rates, k1=k1, k2=k2, wide=wide, k4=k4, k3=k3,
+               probe=rates, k1=k1, k2=k2, wide=wide, k4=k4, k3=k3, k5=k5,
                seconds=time.time() - t0)
     line = json.dumps(res)
     if a.out:

@@ -1,10 +1,10 @@
 """K2 (``kernels.banded_traceback``), K2-WIDE (``banded_traceback_wide``),
-the local candidate stage and the mate-rescue stage (K4 and K3) timed on
-the card, for comparing two checkouts and for choosing K2's and K4's lanes
-per read.
+the local candidate stage, the mate-rescue stage (K4 and K3) and K5
+(``regtile_score_blocked``) timed on the card, for comparing two checkouts
+and for choosing K2's and K4's lanes per read.
 
     python nvbio_tpu_torch/tools/k2_time.py [--root DIR]
-        [--what k2,wide,local,rescue] [--sweep] [--out FILE]
+        [--what k2,wide,local,rescue,k5] [--sweep] [--out FILE]
 
 Times the wrappers of the checkout at ``--root`` (default: the one holding
 this file) on seeded inputs: the median of 7 single calls (CUDA events
@@ -37,6 +37,11 @@ alternation. ``--what`` (default ``k2``) picks, comma-separated:
   the checkout has them, the packed entries (``myers_semiglobal_windows``,
   ``banded_score_windows``, the route of the mapping path); then each
   kernel alone, and K4's packed entry at M=100 and 150.
+- ``k5``: K5 as bench.py's GCUPS leg runs it (bench.py:421-467): G=4096
+  blocks of 1024 alignments, L=100, W=31 and 17, seq_f, full_text and
+  uniform_plen, random codes in [0, 4) and the flat mismatch plane, made
+  on the card from a seed (``k5_operands.bench_operands``, of the checkout
+  holding this file); GCUPS = alignments * L * W over the queued time.
 
 ``--sweep`` also times, queued, every batch size of ``SWEEP_B`` under each
 group size of ``kernels.K2_GROUPS`` (the checkout's wrapper must take
@@ -55,6 +60,11 @@ import sys
 
 import numpy as np
 import torch
+
+if __package__:
+    from .k5_operands import G_BENCH, L_BENCH, bench_operands
+else:  # run as a script: this file's directory leads sys.path
+    from k5_operands import G_BENCH, L_BENCH, bench_operands
 
 B, M, MAX_DIST = 32768, 100, 15
 W = 2 * MAX_DIST + 1
@@ -221,6 +231,33 @@ def time_local_stage(K, MapParams, x, res):
 
 MAXINS = 500
 RW = MAXINS + W                  # K4's window: maxins + band
+K5_BANDS = (31, 17)
+
+
+def time_k5(K, MapParams, res):
+    """K5 at bench.py's shape, W = 31 and 17: res["k5_w<W>"]."""
+    sc = MapParams().scoring
+    dev = torch.device("cuda")
+    for wk in K5_BANDS:
+        ops = bench_operands(wk, dev, sc.mismatch)
+        kw = dict(scoring=sc, band=wk, length=L_BENCH, seq_f=True,
+                  full_text=True, uniform_plen=True,
+                  unroll=10 if wk == 31 else 4)
+        got = K.regtile_score_blocked(*ops, **kw)
+        want = K.regtile_score_blocked_plain(*ops, **kw)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"k2_time: K5 W={wk} differs from the plain "
+                             f"version")
+        del want
+        fn = lambda: K.regtile_score_blocked(*ops, **kw)  # noqa: E731,B023
+        cells = G_BENCH * 1024 * L_BENCH * wk
+        row = dict(G=G_BENCH, L=L_BENCH, W=wk, ms=cuda_ms(fn),
+                   ms_queued=cuda_ms_queued(fn))
+        row["gcups"] = cells / (row["ms_queued"] * 1e-3) / 1e9
+        res[f"k5_w{wk}"] = row
+        print(f"[k5] W={wk}: {row}", flush=True)
+        del ops, got
+        torch.cuda.empty_cache()
 
 
 def time_rescue(K, MapParams, x, res):
@@ -329,7 +366,7 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)))),
                     help="checkout whose nvbio_tpu_torch is timed")
     ap.add_argument("--what", default="k2",
-                    help="comma-separated: k2, wide, local, rescue")
+                    help="comma-separated: k2, wide, local, rescue, k5")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every SWEEP_B under each group size")
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -353,6 +390,8 @@ def main() -> int:
                      ("local", time_local_stage), ("rescue", time_rescue)):
         if part in what:
             fn(K, MapParams, x, res)
+    if "k5" in what:
+        time_k5(K, MapParams, res)
     if a.sweep:
         if "group" not in inspect.signature(K.banded_traceback).parameters:
             raise SystemExit("k2_time: --sweep needs a wrapper with group=")

@@ -16,6 +16,7 @@ import torch
 from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align.types import GotohScoring
 from nvbio_tpu_torch.packed import extract_window, pack, words_to_tensor
+from nvbio_tpu_torch.tools.k5_operands import guard_operands
 
 SW = GotohScoring(0, -6, -8, -3, -8, -3)
 ED = GotohScoring(0, -1, -1, -1, -1, -1)
@@ -530,31 +531,34 @@ def test_wide_traceback_at_bands_not_compiled_in(W, M):
 @pytest.mark.parametrize("W", [7, 17, 31, *EXTRA_BANDS])
 @pytest.mark.parametrize("flags", range(8))
 def test_regtile_kernel_bit_equal_to_plain(W, flags):
+    """Every flag at the compiled bands and at bands built at first use:
+    bit for bit against the plain version, and the pairs the packed loop
+    took (``packed_count``) are those ``k5_packed_pairs`` admits. The
+    operands (``guard_operands``) mix admitted and refused halves; block
+    rows 0 and 7 draw plen from [0, L + 1] and tlen from [0, TWp]."""
     dev = _card()
     rng = np.random.default_rng(100 * W + flags)
     seq_f, full_text, uniform = bool(flags & 1), bool(flags & 2), \
         bool(flags & 4)
     G, L = 4, 100
-    Lp, TWp = 104, 104 + W
-    pats = rng.integers(0, 5, (G, Lp, 8, 128))
-    txts = rng.integers(0, 4, (G, TWp, 8, 128))
-    txts[..., ::2] = np.pad(np.minimum(pats[:, :L], 3),
-                            ((0, 0), (2, TWp - L - 2), (0, 0), (0, 0)))[
-        ..., ::2]
-    mm = -rng.integers(1, 7, (G, Lp, 8, 128))
-    plen = np.full((G, 1, 8, 128), L) if uniform else \
-        rng.integers(0, L + 2, (G, 1, 8, 128))
-    tlen = np.full((G, 1, 8, 128), TWp) if full_text else \
-        rng.integers(0, TWp + 1, (G, 1, 8, 128))
-    ops = [_t(x, dev) for x in (pats, plen, txts, tlen, mm)]
-    for scoring in (SW, LAZY):
+    ops = [_t(x, dev) for x in guard_operands(rng, G, L, W,
+                                               uniform_plen=uniform,
+                                               full_text=full_text)]
+    for scoring in (SW, LAZY, ED):
         kw = dict(scoring=scoring, band=W, length=L, seq_f=seq_f,
                   full_text=full_text, uniform_plen=uniform)
+        guard = dict(kw)
+        del guard["seq_f"]
+        admitted = int(K.k5_packed_pairs(*ops, **guard).sum())
+        assert 0 < admitted < G * 512
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
         before = K.regtile_score_blocked.launches
-        got = K.regtile_score_blocked(*ops, **kw)
+        got = K.regtile_score_blocked(*ops, packed_count=cnt, **kw)
         assert K.regtile_score_blocked.launches == before + 1
         for g, w in zip(got, K.regtile_score_blocked_plain(*ops, **kw)):
-            assert torch.equal(g, w)
+            assert torch.equal(g, w), \
+                f"first differences at {(g != w).nonzero()[:4].tolist()}"
+        assert int(cnt) == admitted
 
 
 @pytest.mark.gpu
