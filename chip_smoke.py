@@ -54,27 +54,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
      batch of 32768 reads, K1 +2 and K2 +1 through the band-21 libraries,
      sensitivity >= 0.95; and paired-end with 150-base mates and rescue
      on (K4 over 5 words): 1 batch of 32768 pairs, as the paired-end path;
-  6. local path: 2 batches of 32768 reads under --local, a third with a
+  6. FM seeding: the genome's FM index (host SA-IS, then BWT, checkpoints,
+     sampled SA at interval 8 and the rank and SSA rows on the host, moved
+     to the card, its k = 11 table built there; each part's seconds and
+     the bytes on the card); [fmi-search]: 8192 seeds of 22 bases through
+     backward search (the table's start), locate of 6 rows each and the
+     1-mismatch top-K search on cuda, equal to the same calls on the cpu
+     index (no table); ms a call, device ops, a bytes bound for search and
+     locate (32-byte rank rows, 8-byte SSA rows); [fmi]: 2 batches of 32768
+     reads with seeding="fmi" (pass 0 on, the reseed pass's 1-mismatch
+     search), K1 +2 and K2 +1 a batch, sensitivity >= 0.95, one batch
+     profiled and its FM stage alone (ms, device ops, share of the batch's
+     device busy, peak memory); [paired-fmi]: 1 batch of FR pairs as the
+     paired-end path's (K1, K2, K3 and K4 +2; proper >= 0.90, seedless
+     mates placed >= 0.90);
+  7. local path: 2 batches of 32768 reads under --local, a third with a
      random 15-base genome-right tail; K1 (LOCAL) +2 (first pass and
      reseed), K2-LOCAL +1, K3 +0 per batch; sensitivity >= 0.95, tailed
      reads soft-clipped >= 0.8; the peak device memory of one batch;
-  7. paired-full: 1 batch of the paired-end pairs with
+  8. paired-full: 1 batch of the paired-end pairs with
      pe_full_traceback=True (K2-WIDE +2, K2 +0, K1 +2, K3 +2, K4 +2,
      packed entries), and 1 batch under --local (K2-WIDE-LOCAL +2, K1
      (LOCAL) +2, K3 +2, K4 +2);
      per-mate sensitivity >= 0.95, proper share >= 0.90, every mapped
      CIGAR's query length equal to len(SEQ);
-  8. all: the genome again with 2 Mbp of it pasted, exactly, over other
+  9. all: the genome again with 2 Mbp of it pasted, exactly, over other
      loci (its own q-gram index), so reads from those segments have two
      loci; 1 batch of 32768 of its reads through map_batch_all (--all; K1
      +1, K2 +1), primaries placed >= 0.95, some record at the truth >=
      0.95, secondaries per read > 0;
-  9. paired-all: 1 batch of 32768 pairs of that genome, with no seedless
+ 10. paired-all: 1 batch of 32768 pairs of that genome, with no seedless
      mate, through map_pair_batch_all (K1 +2, K2 +2), per-mate primaries
      placed >= 0.95, secondary records > 0;
- 10. gcups: K5 at W=31 and 17 as bench.py's GCUPS leg runs it (G=4096,
+ 11. gcups: K5 at W=31 and 17 as bench.py's GCUPS leg runs it (G=4096,
      three passes of 10 launches, median), its GCUPS and launch count;
- 11. cli: the app (``map``) in this process, on cuda, against the genome
+ 12. cli: the app (``map``) in this process, on cuda, against the genome
      written as g.pac/.ann/.amb (the app builds its q-gram index): 2
      batches of 32768 single-end reads with -o se.bam --report
      --debug-output --mapq-filter 10 (K1 +2, K2 +1 a batch, plus the batch
@@ -88,14 +102,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      own .pac) through the app on cuda (with --profile: a trace written)
      and on cpu, identical BAM records, debug bytes and report counts; the
      app's overlapped single-end loop against a map_batch loop over the
-     same 2 batches, A B B A twice, equal records;
- 12. profile: one batch's dispatch of each mapping path under
+     same 2 batches, A B B A twice, equal records; and the first 8 Mbp as
+     a .ref.npz prefix with the port's .fmi.npz beside it: 1024 reads with
+     --seeding fmi to SAM on cuda (K1 +2, K2 +1, plus the probe) and on
+     cpu, identical records;
+ 13. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
      batch;
- 13. GPU = CPU: 1024 reads or pairs of each of the eight mapping paths
+ 14. GPU = CPU: 1024 reads or pairs of each of the ten mapping paths
      mapped on cuda and on cpu must give identical SAM records (those of
-     the two --all paths including secondaries).
+     the two --all paths including secondaries; the FM paths' cpu index
+     has no k-mer table).
 Prints one JSON line of kernels before the card's line and the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 nvbio_tpu.
@@ -1452,6 +1470,247 @@ def phase_gcups(card):
 
 
 # ---------------------------------------------------------------------------
+# FM-index seeding: the index of the 100 Mbp genome, its search on the card
+# against the CPU ([fmi-search]), the FM-seeded single-end ([fmi]) and
+# paired-end ([paired-fmi]) paths
+# ---------------------------------------------------------------------------
+
+FTAB_K = 11                 # the k-mer table the mapper attaches on cuda
+N_FM_SEEDS = 8192           # [fmi-search]: seeds of the operating point
+N_BATCHES_FM = 2
+RANK_ROW_BYTES = 32         # one rank query: one 32-byte rank row
+SSA_ROW_BYTES = 8           # one locate step's (marks word, popcount) row
+SSA_VAL_BYTES = 4
+
+
+def build_fm(genome):
+    """The FM index of the genome: the suffix array by host SA-IS, then BWT,
+    checkpoints, sampled SA and the rank and SSA rows on the host, the
+    tables moved to the card and the k = 11 table built there. Returns
+    (host index, card index, build stats)."""
+    from nvbio_tpu_torch.fmi.index import attach_ftab, build_fmindex
+    from nvbio_tpu_torch.index.sa import suffix_array
+
+    t = {}
+    t0 = time.time()
+    sa = suffix_array(genome, method="native")
+    t["sa_s"] = time.time() - t0
+    t0 = time.time()
+    host = build_fmindex(genome, sa=sa)
+    del sa
+    t["tables_s"] = time.time() - t0
+    t0 = time.time()
+    gpu = host.to("cuda")
+    torch.cuda.synchronize()
+    t["to_cuda_s"] = time.time() - t0
+    t0 = time.time()
+    gpu = attach_ftab(gpu, FTAB_K)
+    torch.cuda.synchronize()
+    t["ftab_s"] = time.time() - t0
+    t["bytes_on_card"] = gpu.nbytes()
+    t["table_bytes"] = {
+        k: getattr(gpu, k).numel() * getattr(gpu, k).element_size()
+        for k in ("rank_rows", "bwt_words", "occ", "ssa_vals", "ssa_rows",
+                  "ssa_marks", "ssa_cum", "ftab_lo", "ftab_hi")}
+    parts = ", ".join(f"{k} {v / 1e6:.1f}"
+                      for k, v in t["table_bytes"].items())
+    print(f"[index] FM over {len(genome)} bp: host SA-IS {t['sa_s']:.2f} s, "
+          f"BWT + checkpoints + SSA + rank/SSA rows {t['tables_s']:.2f} s, "
+          f"to the card {t['to_cuda_s']:.2f} s, k={FTAB_K} table on the card "
+          f"{t['ftab_s']:.2f} s; {t['bytes_on_card'] / 1e6:.1f} MB on the "
+          f"card ({parts} MB)", flush=True)
+    return host, gpu, t
+
+
+def device_ops(fn) -> tuple[int, float]:
+    """(device ops, device busy ms) of one call of ``fn`` (torch.profiler,
+    after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
+
+
+def fm_active_lanes(index, q, ql, k: int) -> int:
+    """Lane-steps of ``backward_search_core`` with a k-symbol table that
+    this data needs: the steps past the first k at which a lane's query is
+    not yet consumed and its interval not yet empty (counted on the CPU
+    index; the table's intervals are the first k steps')."""
+    from nvbio_tpu_torch.fmi.search import step_backward
+
+    L = q.shape[1]
+    ql = ql.to(torch.int64)
+    lo = torch.zeros(q.shape[0], dtype=torch.int64)
+    hi = torch.full_like(lo, index.n + 1)
+    n_active = 0
+    for s in range(L):
+        active = (s < ql) & (hi > lo)
+        n_active += int(active.sum()) if s >= k else 0
+        c = torch.gather(q, 1, (ql - 1 - s).clamp(0, L - 1)[:, None])[:, 0]
+        nlo, nhi = step_backward(index, c, lo, hi)
+        lo, hi = torch.where(active, nlo, lo), torch.where(active, nhi, hi)
+    return n_active
+
+
+def phase_fmi_search(genome, cpu_index, gpu_index, params, card):
+    """Backward search (k-mer table start), locate and the 1-mismatch top-K
+    search over N_FM_SEEDS seeds of the operating point on the card,
+    against the same calls on the CPU index (no table): equal intervals
+    (empty ones compared as empty), positions and top-K intervals. Each
+    call's ms (CUDA events, median of 7), device ops (torch.profiler) and,
+    for search and locate, a bytes bound: the 32-byte rank rows, 8-byte SSA
+    rows and 4-byte sampled values this data needs, plus inputs and
+    outputs, over the HBM rate."""
+    from nvbio_tpu_torch.bowtie.pipeline import reverse_strand, seed_grid
+    from nvbio_tpu_torch.fmi import search as S
+
+    batch, _, _ = read_batch(genome, SEED + 1600)
+    n_reads = -(-N_FM_SEEDS // (2 * params.seeds_per_strand))
+    reads = torch.from_numpy(batch.codes[:n_reads].astype(np.int32))
+    lens = torch.from_numpy(batch.lengths[:n_reads])
+    _, seeds, _ = seed_grid(reads, reverse_strand(reads, lens), lens, params)
+    q = seeds.reshape(-1, params.seed_len)[:N_FM_SEEDS].contiguous()
+    ql = torch.full((N_FM_SEEDS,), params.seed_len, dtype=torch.int32)
+    qg, qlg = q.cuda(), ql.cuda()
+    H = params.hits_per_seed
+    A = (params.seed_len + 1) // 2
+    out = {}
+
+    lo, hi = S.backward_search_core(gpu_index, qg, qlg)
+    wlo, whi = S.backward_search_core(cpu_index, q, ql)
+    ne = whi > wlo
+    require(torch.equal((hi > lo).cpu(), ne)
+            and torch.equal(lo.cpu()[ne], wlo[ne])
+            and torch.equal(hi.cpu()[ne], whi[ne]),
+            "fmi-search: intervals on cuda (k-mer table) differ from cpu")
+    nlo, nhi = S.backward_search_core(gpu_index.without_ftab(), qg, qlg)
+    require(torch.equal(nlo.cpu(), wlo) and torch.equal(nhi.cpu(), whi),
+            "fmi-search: intervals on cuda (no table) differ from cpu")
+    rows = (wlo[:, None] + torch.arange(H)).clamp(0, cpu_index.n).reshape(-1)
+    rows_g = rows.cuda()
+    pos, done = S.locate_core(gpu_index, rows_g)
+    wpos, wdone = S.locate_core(cpu_index, rows)
+    require(torch.equal(pos.cpu(), wpos) and torch.equal(done.cpu(), wdone)
+            and bool(wdone.all()),
+            "fmi-search: located positions differ between cuda and cpu")
+    got = S.search_1mm_hybrid_topk(gpu_index, qg, qlg, A, K=8)
+    want = S.search_1mm_hybrid_topk(cpu_index, q, ql, A, K=8)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+            "fmi-search: 1-mismatch top-K intervals differ between cuda "
+            "and cpu")
+
+    n_active = fm_active_lanes(cpu_index, q, ql, gpu_index.ftab_k)
+    io_bytes = (q.numel() * q.element_size() + ql.numel() * 4
+                + 2 * N_FM_SEEDS * 8)
+    bs_bytes = (2 * n_active * RANK_ROW_BYTES
+                + N_FM_SEEDS * 2 * gpu_index.ftab_lo.element_size()
+                + io_bytes)
+    tpos = wpos % cpu_index.sa_interval     # LF steps each walk needs
+    R = rows.numel()
+    loc_bytes = (int((tpos + 1).sum()) * SSA_ROW_BYTES
+                 + int(tpos.sum()) * RANK_ROW_BYTES + R * SSA_VAL_BYTES
+                 + R * (8 + 8 + 1))
+    nnz = int((got[3] > got[2]).sum())
+    calls = {
+        "backward_search": (lambda: S.backward_search_core(gpu_index, qg,
+                                                           qlg), bs_bytes),
+        "locate": (lambda: S.locate_core(gpu_index, rows_g), loc_bytes),
+        "search_1mm_hybrid_topk": (
+            lambda: S.search_1mm_hybrid_topk(gpu_index, qg, qlg, A, K=8),
+            None),
+    }
+    for name, (fn, nbytes) in calls.items():
+        ms = cuda_ms(fn)
+        ops, busy = device_ops(fn)
+        bound = None if nbytes is None else nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=ms, device_ops=ops, device_busy_ms=busy,
+                         bound_ms=bound, bound_bytes=nbytes)
+        print(f"[fmi-search] {name}: {ms:.3f} ms a call, {ops} device ops, "
+              f"device busy {busy:.3f} ms"
+              + ("" if bound is None else
+                 f"; bytes bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB)")
+              + f"; card {card}", flush=True)
+    print(f"[fmi-search] {N_FM_SEEDS} seeds of {params.seed_len}: "
+          f"{int(ne.sum())} nonempty intervals, {n_active} lane-steps past "
+          f"the k={gpu_index.ftab_k} table, {R} rows located "
+          f"({float(tpos.float().mean()):.3f} LF steps a row), {nnz} "
+          f"nonempty 1-mismatch branches; cuda = cpu", flush=True)
+    out.update(seeds=N_FM_SEEDS, nonempty=int(ne.sum()),
+               lane_steps=n_active, rows=R,
+               lf_steps_per_row=float(tpos.float().mean()),
+               mm_branches=nnz)
+    return out
+
+
+def fm_stage(mapper, batch):
+    """The FM seeding work of one single-end batch, alone: seeds of both
+    strands searched and H rows each located, pass 0 (whole reads), and
+    the reseed pass's seeds (B2 reads, shifted grid) with their 1-mismatch
+    search — what ``align_batch_core`` runs between the reads and K1."""
+    from nvbio_tpu_torch.bowtie.pipeline import (
+        fm_seed_hits,
+        fm_seed_hits_1mm,
+        fm_whole_read,
+        reverse_strand,
+        seed_grid,
+    )
+
+    P, index = mapper.params, mapper.index
+    reads, lens, _ = mapper.batch_tensors(batch)
+    B2 = max(8, min(B, int(round(B * P.reseed_frac / 8)) * 8))
+    phase = P.seed_stride // (P.max_reseed + 1)
+
+    def run():
+        rc = reverse_strand(reads, lens)
+        _, seeds, valid = seed_grid(reads, rc, lens, P)
+        out = [fm_seed_hits(index, seeds, valid, P.hits_per_seed),
+               fm_whole_read(index, reads, rc, lens)]
+        _, seeds2, valid2 = seed_grid(reads[:B2], rc[:B2], lens[:B2], P,
+                                      phase)
+        out += [fm_seed_hits(index, seeds2, valid2, P.hits_per_seed),
+                fm_seed_hits_1mm(index, seeds2)]
+        return out
+
+    run.b2 = B2
+    return run
+
+
+def phase_fmi(genome, ref, gpu_index, params, card):
+    """[fmi]: N_BATCHES_FM batches of B single-end reads, FM-seeded (the
+    card index with its k-mer table), through phase_main_path (K1 x2, K2 x1
+    a batch, sensitivity >= 0.95); one batch profiled, and its FM stage
+    alone: ms, device ops, device busy and its share of the batch's, peak
+    device memory."""
+    mapper, batch0, launches, stats = phase_main_path(
+        genome, ref, gpu_index, params, card, label="fmi",
+        n_batches=N_BATCHES_FM, seed=SEED + 1400)
+    stats["profile"] = phase_profile("fmi", lambda: mapper.dispatch(batch0))
+    stage = fm_stage(mapper, batch0)
+    ms = cuda_ms(stage)
+    ops, busy = device_ops(stage)
+    peak = peak_memory("fmi stage", stage)
+    share = (None if stats["profile"] is None
+             else busy / stats["profile"]["device_busy_ms"])
+    print(f"[fmi] FM stage of one batch ({B} reads, reseed pass "
+          f"{stage.b2}): "
+          f"{ms:.3f} ms, {ops} device ops, device busy {busy:.3f} ms"
+          + ("" if share is None else
+             f" = {100 * share:.1f}% of the batch's device busy")
+          + f"; peak {peak / 1e6:.1f} MB; card {card}", flush=True)
+    stats["fm_stage"] = dict(ms=ms, device_ops=ops, device_busy_ms=busy,
+                             share_of_batch_busy=share, peak_bytes=peak)
+    stats["peak_bytes"] = peak_memory("fmi",
+                                      lambda: mapper.dispatch(batch0))
+    return mapper, batch0, launches, stats
+
+
+# ---------------------------------------------------------------------------
 # [cli]: the app itself (python -m nvbio_tpu_torch map), in-process so the
 # launch counters can be read, on a .pac reference, with BAM output, a
 # report, debug records, the MAPQ filter and a profile
@@ -1726,6 +1985,37 @@ def phase_cli(genome, mapper, card):
           f"{n_kernels} device kernels", flush=True)
     out["profile_kernel_events"] = n_kernels
 
+    # --- FM seeding through the app: a .ref.npz prefix with the port's own
+    # .fmi.npz beside it, one batch to SAM on cuda and on cpu ---
+    from nvbio_tpu_torch.fmi.index import build_fmindex
+
+    t0 = time.time()
+    Reference(["sim8M"], np.array([0, len(small)], np.int64), small).save(
+        p("hf.ref.npz"))
+    build_fmindex(small).save(p("hf.fmi.npz"))
+    t_save = time.time() - t0
+    fm = {}
+    for run, dev_args in (("card", list(CLI_GPU_ARGS)),
+                          ("host", ["--device", "cpu"])):
+        reset_launches()
+        secs, _ = run_cli([p("hf"), p("ses.fq"), "--seeding", "fmi", "-o",
+                           p(f"fmi_{run}.sam"), *CLI_FLAGS, "--batch",
+                           str(N_CMP), *dev_args])
+        if run == "card":
+            cli_launches("cli fmi", read_launches(),
+                         {"banded_score_cands": 2, "banded_traceback": 1}, 1)
+        with open(p(f"fmi_{run}.sam")) as f:
+            fm[run] = ([ln for ln in f if not ln.startswith("@PG")], secs)
+    (g, g_s), (c, c_s) = fm["card"], fm["host"]
+    diff = sum(a != b for a, b in zip(g, c))
+    n_rec = sum(not ln.startswith("@") for ln in g)
+    print(f"[gpu=cpu] cli fmi: {n_rec} SAM records, {diff} differ; index "
+          f"built and saved in {t_save:.2f} s; cuda {g_s:.2f} s, cpu "
+          f"{c_s:.2f} s", flush=True)
+    require(n_rec == N_CMP and len(g) == len(c) and diff == 0,
+            "cli fmi: SAM records differ between cuda and cpu")
+    out["fmi"] = dict(records=n_rec, cuda_s=g_s, cpu_s=c_s, index_s=t_save)
+
     # --- the overlapped single-end loop against a map_batch loop ----------
     batches = list(fastq_batches(p("se.fq"), B, L))
 
@@ -1765,6 +2055,20 @@ def phase_cli(genome, mapper, card):
     return out
 
 
+def device_rows(prof) -> list:
+    """(device µs, calls, name) of each kernel a profile saw; host ops are
+    left out, their device time is their kernels'."""
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return rows
+
+
 def phase_profile(label, dispatch):
     """Device time of one batch's ``dispatch()`` by kernel (torch.profiler):
     busy share of the wall time and the largest device-time consumers."""
@@ -1778,14 +2082,7 @@ def phase_profile(label, dispatch):
         dispatch()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue  # host ops: their device time is the kernels' below
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"[profile] {label}: the profiler saw no device time: not "
@@ -1921,6 +2218,18 @@ def main() -> int:
         genome, gpu150, card, label="paired-150", n_batches=1, rl=L_PE2,
         seed=SEED + 900)
 
+    # FM-index seeding: the index built once, its search on the card against
+    # the CPU, then the FM-seeded single-end and paired-end paths
+    fm_params = dataclasses.replace(params, seeding="fmi")
+    fm_cpu, fm_gpu, fm_build = build_fm(genome)
+    fm_search = phase_fmi_search(genome, fm_cpu, fm_gpu, fm_params, card)
+    gpu_fm, fm_batch0, fm_launches, fm_stats = phase_fmi(
+        genome, ref, fm_gpu, fm_params, card)
+    fm_stats.update(build=fm_build, search=fm_search)
+    pfm0, pfm_launches, pfm_stats = phase_paired(
+        genome, gpu_fm, card, label="paired-fmi", n_batches=1,
+        seed=SEED + 1500)
+
     gpu_local = gpu(local_params)
     local0, local_launches, local_stats = phase_local(genome, gpu_local,
                                                       card)
@@ -1952,7 +2261,8 @@ def main() -> int:
             "local": local_launches, "paired_full": pf_launches,
             "paired_full_local": pfl_launches, "all": all_launches,
             "paired_all": pa_launches, "gcups": gcups_launches,
-            "single_end_w21": se21_launches, "paired_150": pe150_launches}
+            "single_end_w21": se21_launches, "paired_150": pe150_launches,
+            "fmi": fm_launches, "paired_fmi": pfm_launches}
     # each entry's path, its batches there and its wrapper
     own = {"banded_score_cands": ("single_end", N_BATCHES),
            "banded_score_cands_local": ("local", N_BATCHES_LOCAL),
@@ -1991,6 +2301,8 @@ def main() -> int:
         "local", lambda: gpu_local.dispatch(local0))
     pa_stats["profile"] = phase_profile(
         "paired-all", lambda: dispatch_pair_batch_all(gpu_rep, *pa0))
+    pfm_stats["profile"] = phase_profile(
+        "paired-fmi", lambda: dispatch_pair_batch(gpu_fm, *pfm0))
 
     cpu_index = gpu_index.to("cpu")
 
@@ -2035,6 +2347,16 @@ def main() -> int:
                          lambda: map_pair_batch(gpu150, q1, q2),
                          lambda: map_pair_batch(cpu150, q1, q2), 2 * N_CMP)
 
+    # FM seeding: the CPU maps with the same index and no k-mer table
+    cpu_fm = ReadMapper.build(ref, fm_params, index=fm_cpu, device="cpu")
+    small_fm = head(fm_batch0)
+    phase_gpu_equals_cpu("fmi", lambda: gpu_fm.map_batch(small_fm),
+                         lambda: cpu_fm.map_batch(small_fm), N_CMP)
+    m1, m2 = head(pfm0[0]), head(pfm0[1])
+    phase_gpu_equals_cpu("paired-fmi",
+                         lambda: map_pair_batch(gpu_fm, m1, m2),
+                         lambda: map_pair_batch(cpu_fm, m1, m2), 2 * N_CMP)
+
     print(json.dumps({"kernels": kernels, "kernel_extra": extra,
                       "main_path": stats, "paired_end": pe_stats,
                       "single_end_w21": se21_stats,
@@ -2042,6 +2364,7 @@ def main() -> int:
                       "local": local_stats, "paired_full": pf_stats,
                       "paired_full_local": pfl_stats, "all": all_stats,
                       "paired_all": pa_stats, "gcups": gcups,
+                      "fmi": fm_stats, "paired_fmi": pfm_stats,
                       "cli": cli_stats, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ Port of ``nvbio_tpu/apps/map_app.py``: single-end and paired-end,
 end-to-end or local (``--local``), best-alignment or all-mapping
 (``--all``: every locus above threshold, SE and PE, the others as secondary
 records). ``--config FILE`` overlays ``key=value`` lines onto the
-``MapParams`` fields after the presets. The reference is a FASTA (q-gram
-index built on the fly), the prefix of the JAX package's ``index``
-artifacts (``<prefix>.ref.npz``, and ``<prefix>.qgram.npz`` when present),
-or a BWA-style ``<prefix>.pac/.ann/.amb`` set (q-gram index built on the
+``MapParams`` fields after the presets. Seeding is by q-gram index
+(default) or FM index (``--seeding fmi``, or ``seeding=fmi`` in the
+config). The reference is a FASTA (index built on the fly), the prefix of
+the JAX package's ``index`` artifacts (``<prefix>.ref.npz``, and
+``<prefix>.qgram.npz`` or ``<prefix>.fmi.npz`` when present, else built on
+the fly), or a BWA-style ``<prefix>.pac/.ann/.amb`` set (index built on the
 fly). The output is SAM, or BAM by the ``.bam`` extension. ``--mapq-filter
 Q`` writes mapped primaries below Q as unmapped and drops filtered
 secondaries; ``--report`` writes an HTML stats report (SE and PE, not
@@ -22,8 +24,9 @@ secondaries; ``--report`` writes an HTML stats report (SE and PE, not
 ``--all``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into
 DIR. The single-end loop dispatches batch i+1, with its copies to the host
 enqueued behind it, before it formats batch i. Runs on the CUDA card unless
-``--device cpu`` is given. FM-index seeding (``--seeding fmi``) and the
-multi-host flags are rejected with a "not yet ported" error.
+``--device cpu`` is given. The multi-host flags and randomized hit
+selection (``select_mode=randomized`` in a config) are rejected as not yet
+ported.
 """
 
 from __future__ import annotations
@@ -35,8 +38,7 @@ import time
 import numpy as np
 import torch
 
-# flags of `nvbio_tpu map` whose paths are not ported yet (and the `fmi`
-# value of --seeding, checked in `run`)
+# flags of `nvbio_tpu map` whose paths are not ported yet
 NOT_PORTED = ("--dist", "--coordinator", "--num-processes", "--process-id")
 
 
@@ -107,7 +109,12 @@ def reject_not_ported(argv: list[str]) -> None:
                              f"(multi-host mapping)")
 
 
-def _load_reference(path: str):
+def _load_reference(path: str, seeding: str = "qgram"):
+    """(Reference, seeding index or None): a FASTA or ``.pac`` prefix has
+    no index (the mapper builds one); a ``.ref.npz`` prefix brings the
+    ``.qgram.npz`` (q-gram seeding) or ``.fmi.npz`` (FM seeding) the JAX
+    package's ``index`` app wrote beside it, where present."""
+    from nvbio_tpu_torch.fmi.index import FMIndex
     from nvbio_tpu_torch.io.reference import Reference
     from nvbio_tpu_torch.qgram import QGramIndex
 
@@ -122,8 +129,10 @@ def _load_reference(path: str):
                          f"{path}.pac found")
     ref = Reference.load(path + ".ref.npz")
     index = None
-    if os.path.exists(path + ".qgram.npz"):
+    if seeding == "qgram" and os.path.exists(path + ".qgram.npz"):
         index = QGramIndex.load(path + ".qgram.npz")
+    elif seeding == "fmi" and os.path.exists(path + ".fmi.npz"):
+        index = FMIndex.load(path + ".fmi.npz")
     return ref, index
 
 
@@ -236,9 +245,6 @@ def run(args):
     from nvbio_tpu_torch.utils.console import log_info, log_stats
     from nvbio_tpu_torch.utils.stats import AlignmentStats, html_report
 
-    if args.seeding == "fmi":
-        raise SystemExit("nvbio_tpu_torch map: --seeding fmi is not yet "
-                         "ported (q-gram seeding only)")
     paired = args.mate1 is not None
     if paired and not args.mate2:
         raise SystemExit("paired-end needs both -1 and -2")
@@ -274,7 +280,7 @@ def run(args):
     if paired and not args.all_mode:  # --all pairs have no mate rescue
         check_paired_supported(params, args.max_read_len)
     t0 = time.time()
-    ref, index = _load_reference(args.reference)
+    ref, index = _load_reference(args.reference, params.seeding)
     mapper = ReadMapper.build(ref, params, index=index, device=args.device)
     log_info(f"reference + index ready in {time.time() - t0:.1f}s "
              f"({ref.total_length:,} bp, seeding={params.seeding}) on "

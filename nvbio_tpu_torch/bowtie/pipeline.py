@@ -1,7 +1,7 @@
 """Single-end read mapping pipeline, torch: seed -> locate -> dedup ->
 extend -> reduce -> reseed -> traceback -> MAPQ -> SAM.
 
-Port of the q-gram path of ``nvbio_tpu.bowtie.pipeline``
+Port of ``nvbio_tpu.bowtie.pipeline``
 (``read_candidates`` :207, ``finalize_best`` :627, ``align_batch_all``
 :714, ``align_batch_core`` :809, ``ReadMapper`` :926). Every stage is
 fixed-shape tensor code on the mapper's device, apart from the hand
@@ -17,11 +17,15 @@ followed; where it sends local candidates to its flat scorer over
 extracted windows (``pipeline.py:573-581``), the port computes the same
 function in the candidate kernel, straight from the packed genome.
 
-Positions are int64 throughout, so the JAX package's clip-at-zero uint32
-helpers become plain clamps, and its dtype-max sentinels become one int64
-constant ``_BIG`` compared by value. FM-index seeding, the sharded indexes
-and randomized hit selection are not ported yet and raise
-``NotImplementedError``.
+Seeding is by the q-gram index or, under ``seeding="fmi"``, by the FM
+index (``fmi/``: backward search, stratified rows of each SA interval
+located by the sampled suffix array, the whole-read exact pass 0, and the
+approx-hybrid 1-mismatch search in the reseed pass; ``pipeline.py:330-373``
+and ``:426-451`` of the JAX package). Positions are int64 throughout, so
+the JAX package's clip-at-zero uint32 helpers become plain clamps, and its
+dtype-max sentinels become one int64 constant ``_BIG`` compared by value.
+The sharded indexes and randomized hit selection are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end, mapq_v2_local
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.device import resolve_device
+from nvbio_tpu_torch.fmi.index import FMIndex, attach_ftab, build_fmindex
+from nvbio_tpu_torch.fmi.search import (
+    backward_search_core,
+    locate_core,
+    search_1mm_hybrid_topk,
+)
 from nvbio_tpu_torch.io.sam import (
     FLAG_REVERSE,
     FLAG_SECONDARY,
@@ -58,6 +68,7 @@ from nvbio_tpu_torch.qgram import (
     qgram_range,
     seed_keys_from_batch,
     stratified_locate_rows,
+    stratified_offsets,
 )
 
 # "no position" sentinel: larger than any genome position plus tolerance
@@ -66,9 +77,8 @@ _BIG = torch.iinfo(torch.int64).max
 
 def check_supported(params: MapParams) -> None:
     """Raise for parameter values that select a path not ported yet."""
-    if params.seeding != "qgram":
-        raise NotImplementedError(
-            f"seeding={params.seeding!r} is not ported yet (q-gram only)")
+    if params.seeding not in ("qgram", "fmi"):
+        raise ValueError(f"unknown seeding {params.seeding!r}")
     if params.select_mode != "stratified":
         raise NotImplementedError(
             f"select_mode={params.select_mode!r} is not ported yet")
@@ -226,21 +236,111 @@ def _vote_reps(pv, valid, tol: int, n_reps: int):
     return torch.where(rep_valid, rep, 0), rep_valid
 
 
-def read_candidates(index: QGramIndex, genome_words, n_genome: int, reads,
-                    lens, quals, params: MapParams, seed_phase: int = 0,
-                    approx_1mm: bool = False):
+def reverse_strand(reads, lens):
+    """Reverse complements of (B, L) int32 read codes by length; read Ns
+    (code 4) reverse on their own plane and stay 4."""
+    rc = 3 - packed.reverse_rows(reads.clamp(max=3), lens)
+    return torch.where(
+        packed.reverse_rows((reads > 3).to(torch.int32), lens) > 0, 4, rc)
+
+
+def seed_grid(reads, rc, lens, params: MapParams, seed_phase: int = 0):
+    """The seeds of both strands: S1 = ``params.seeds_per_strand`` starts
+    ``seed_phase + i * seed_stride``; returns (starts (S1,), seeds (B, 2S1,
+    seed_len) forward strand first, valid (B, 2S1): the seed lies inside
+    the read and holds no N)."""
+    P = params
+    dev, L = reads.device, reads.shape[1]
+    starts = seed_phase + torch.arange(P.seeds_per_strand, dtype=torch.int64,
+                                       device=dev) * P.seed_stride
+    gather = (starts[:, None] + torch.arange(P.seed_len, device=dev)[None, :]
+              ).clamp(max=L - 1)
+    seeds = torch.cat([reads[:, gather], rc[:, gather]], dim=1)
+    seed_valid = (starts[None, :] + P.seed_len) <= lens[:, None]
+    seed_valid2 = torch.cat([seed_valid, seed_valid], dim=1)
+    return starts, seeds, seed_valid2 & ~torch.any(seeds > 3, dim=-1)
+
+
+def _append_pass0(pos, hit_valid, pos_e, ok_e, B: int, S1: int):
+    """Append the pass-0 whole-read exact loci (fwd = pos_e[:B], rc =
+    pos_e[B:]) as 2 extra hit columns on the offset-0 seed rows of each
+    strand, twice: the duplicate is a free extra vote in the dedup, so a
+    pass-0 locus cannot lose its slot to single-seed repeat loci."""
+    NS = pos.shape[1]
+    extra_pos = torch.zeros((B, NS, 2), dtype=pos.dtype, device=pos.device)
+    extra_ok = torch.zeros((B, NS, 2), dtype=torch.bool, device=pos.device)
+    extra_pos[:, 0, :] = pos_e[:B, None]
+    extra_pos[:, S1, :] = pos_e[B:, None]
+    extra_ok[:, 0, :] = ok_e[:B, None]
+    extra_ok[:, S1, :] = ok_e[B:, None]
+    return (torch.cat([pos, extra_pos], dim=-1),
+            torch.cat([hit_valid, extra_ok], dim=-1))
+
+
+def fm_seed_hits(index: FMIndex, seeds, seed_valid2, H: int):
+    """FM seeding of (B, NS, s) seeds: backward search, H stratified rows
+    of each SA interval (``qgram.stratified_offsets``), clipped to [0, n],
+    located. Returns (pos (B, NS, H) int64, hit_valid)."""
+    B, NS, slen = seeds.shape
+    lo, hi = backward_search_core(
+        index, seeds.reshape(B * NS, slen),
+        torch.full((B * NS,), slen, dtype=torch.int64, device=seeds.device))
+    lo, hi = lo.reshape(B, NS), hi.reshape(B, NS)
+    range_size = (hi - lo).clamp(min=0)
+    k = torch.arange(H, device=seeds.device)
+    hit_valid = (k < range_size[:, :, None]) & seed_valid2[:, :, None]
+    rows = lo[:, :, None] + stratified_offsets(range_size, H, NS)
+    pos, _ = locate_core(index, rows.clamp(0, index.n).reshape(-1))
+    return pos.reshape(B, NS, H), hit_valid
+
+
+def fm_whole_read(index: FMIndex, reads, rc, lens):
+    """Pass 0: both strands of every read backward-searched whole, the
+    middle row of each interval located. Returns (pos (2B,), ok (2B,)):
+    forward strands first."""
+    q2 = torch.cat([reads.clamp(max=3), rc.clamp(max=3)])
+    l2 = torch.cat([lens, lens])
+    lo, hi = backward_search_core(index, q2, l2)
+    pos, _ = locate_core(index, (lo + (hi - lo) // 2).clamp(0, index.n))
+    ok = (hi > lo) & (l2 > 0) & ~torch.any(torch.cat([reads, rc]) > 3, dim=1)
+    return pos, ok
+
+
+def fm_seed_hits_1mm(index: FMIndex, seeds):
+    """The FM reseed pass's 1-mismatch loci: ``search_1mm_hybrid_topk``
+    over the seeds ((seed_len+1)//2 approximate positions, 8 survivors a
+    seed, as the JAX package), the middle row of each range located.
+    Returns (pos (B, NS, 8), nonempty)."""
+    B, NS, slen = seeds.shape
+    _, _, mm_lo, mm_hi = search_1mm_hybrid_topk(
+        index, seeds.reshape(B * NS, slen),
+        torch.full((B * NS,), slen, dtype=torch.int64, device=seeds.device),
+        (slen + 1) // 2, K=8)
+    pos, _ = locate_core(
+        index, (mm_lo + (mm_hi - mm_lo) // 2).clamp(0, index.n).reshape(-1))
+    return (pos.reshape(B, NS, -1),
+            (mm_hi - mm_lo).reshape(B, NS, -1) > 0)
+
+
+def read_candidates(index: QGramIndex | FMIndex, genome_words, n_genome: int,
+                    reads, lens, quals, params: MapParams,
+                    seed_phase: int = 0, approx_1mm: bool = False):
     """Seed + locate + dedup + extension-score candidates for one batch.
 
     Returns a dict of per-candidate (B, C) tensors (scores, w0, strand,
     valid) plus the per-read strands and penalty planes. ``seed_phase``
     shifts the seed grid (reseed passes); ``approx_1mm`` adds the
-    1-mismatch mutated-key loci (two per seed, by a within-seed vote).
+    1-mismatch loci (two per seed, by a within-seed vote). A ``QGramIndex``
+    seeds by direct lookup, an ``FMIndex`` by backward search and locate
+    (plus, in the first pass under ``whole_read_exact``, the whole-read
+    exact pass 0).
     """
     P = params
     check_supported(P)
-    if not isinstance(index, QGramIndex):
-        raise NotImplementedError(
-            f"{type(index).__name__} seeding is not ported yet")
+    want = FMIndex if P.seeding == "fmi" else QGramIndex
+    if not isinstance(index, want):
+        raise TypeError(f"seeding={P.seeding!r} needs a {want.__name__}, "
+                        f"not a {type(index).__name__}")
     dev = reads.device
     B, L = reads.shape
     S1 = P.seeds_per_strand
@@ -250,46 +350,48 @@ def read_candidates(index: QGramIndex, genome_words, n_genome: int, reads,
     reads = reads.to(torch.int32)
     lens = lens.to(torch.int32)
 
-    # ---- strands: read Ns (code 4) reverse on their own plane ------------
-    rc = 3 - packed.reverse_rows(reads.clamp(max=3), lens)
-    rc = torch.where(
-        packed.reverse_rows((reads > 3).to(torch.int32), lens) > 0, 4, rc)
+    rc = reverse_strand(reads, lens)
     pen = _mm_penalties(reads, quals, P)
     mm = None if pen is None else -pen
     mm_rc = None if pen is None else -packed.reverse_rows(pen, lens)
+    starts, seeds, seed_valid2 = seed_grid(reads, rc, lens, P, seed_phase)
 
-    # ---- seeding -------------------------------------------------------------
-    starts = seed_phase + torch.arange(S1, dtype=torch.int64,
-                                       device=dev) * P.seed_stride
-    gather = (starts[:, None] + torch.arange(P.seed_len, device=dev)[None, :]
-              ).clamp(max=L - 1)
-    seeds = torch.cat([reads[:, gather], rc[:, gather]], dim=1)  # (B,2S1,s)
-    seed_valid = (starts[None, :] + P.seed_len) <= lens[:, None]
-    seed_valid2 = torch.cat([seed_valid, seed_valid], dim=1)
-    seed_valid2 = seed_valid2 & ~torch.any(seeds > 3, dim=-1)
-
-    keys = seed_keys_from_batch(seeds, index.q)              # (B, 2S1)
-    lo, hi = qgram_range(index, keys)
-    range_size = (hi - lo).clamp(min=0)
-    k = torch.arange(H, device=dev)
-    hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
-        seed_valid2[:, :, None]
-    pos = stratified_locate_rows(index, lo, range_size, H, 2 * S1)
+    if isinstance(index, FMIndex):
+        pos, hit_valid = fm_seed_hits(index, seeds, seed_valid2, H)
+        if P.whole_read_exact and seed_phase == 0:
+            pos_e, ok_e = fm_whole_read(index, reads, rc, lens)
+            pos, hit_valid = _append_pass0(pos, hit_valid, pos_e, ok_e, B, S1)
+            H = H + 2
+    else:
+        keys = seed_keys_from_batch(seeds, index.q)          # (B, 2S1)
+        lo, hi = qgram_range(index, keys)
+        range_size = (hi - lo).clamp(min=0)
+        k = torch.arange(H, device=dev)
+        hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
+            seed_valid2[:, :, None]
+        pos = stratified_locate_rows(index, lo, range_size, H, 2 * S1)
 
     if approx_1mm:
-        # every single-symbol mutation of each seed key, one bucket entry
-        # each; a within-seed vote keeps the two best-supported loci
-        qq = index.q
-        jj = torch.arange(qq, dtype=torch.int32, device=dev)
-        dd = torch.arange(1, 4, dtype=torch.int32, device=dev)
-        xor = (dd[None, :] << (2 * (qq - 1 - jj))[:, None]).reshape(3 * qq)
-        mut_keys = keys[:, :, None] ^ xor[None, None, :]     # (B, NS, 3q)
-        if index.mid_pos is not None:
-            pos1, nonempty = midpos_lookup(index, mut_keys)
+        if isinstance(index, FMIndex):
+            # approx-hybrid 1-mismatch ranges of each seed, the middle row
+            # of each nonempty range located
+            pos1, nonempty = fm_seed_hits_1mm(index, seeds)
         else:
-            lo1, hi1 = qgram_range(index, mut_keys)
-            rs1 = (hi1 - lo1).clamp(min=0)
-            pos1, nonempty = qgram_locate(index, lo1, rs1 // 2), rs1 > 0
+            # every single-symbol mutation of each seed key, one bucket
+            # entry each
+            qq = index.q
+            jj = torch.arange(qq, dtype=torch.int32, device=dev)
+            dd = torch.arange(1, 4, dtype=torch.int32, device=dev)
+            xor = (dd[None, :] << (2 * (qq - 1 - jj))[:, None]).reshape(
+                3 * qq)
+            mut_keys = keys[:, :, None] ^ xor[None, None, :]  # (B, NS, 3q)
+            if index.mid_pos is not None:
+                pos1, nonempty = midpos_lookup(index, mut_keys)
+            else:
+                lo1, hi1 = qgram_range(index, mut_keys)
+                rs1 = (hi1 - lo1).clamp(min=0)
+                pos1, nonempty = qgram_locate(index, lo1, rs1 // 2), rs1 > 0
+        # a within-seed vote keeps the two best-supported loci
         valid1 = nonempty & seed_valid2[:, :, None]
         NK = 2
         pos_extra, valid_extra = _vote_reps(pos1, valid1, 2 * P.max_dist, NK)
@@ -390,8 +492,8 @@ def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
     )
 
 
-def align_batch_core(index: QGramIndex, genome_words, n_genome: int, reads,
-                     lens, quals, params: MapParams):
+def align_batch_core(index: QGramIndex | FMIndex, genome_words,
+                     n_genome: int, reads, lens, quals, params: MapParams):
     """Map one dense batch of reads (single-end); per-read result tensors.
 
     One seeding + extension pass, then one capacity-bounded reseed pass per
@@ -471,8 +573,8 @@ def align_batch_core(index: QGramIndex, genome_words, n_genome: int, reads,
     return out
 
 
-def align_batch_all(index: QGramIndex, genome_words, n_genome: int, reads,
-                    lens, quals, params: MapParams):
+def align_batch_all(index: QGramIndex | FMIndex, genome_words,
+                    n_genome: int, reads, lens, quals, params: MapParams):
     """All-mapping of one dense batch (single-end): a traceback of every
     candidate of every read, in one flattened (B*C) call of the traceback
     kernel; ``keep`` marks the candidates above threshold, ``is_best`` the
@@ -532,7 +634,7 @@ def align_batch_all(index: QGramIndex, genome_words, n_genome: int, reads,
 class ReadMapper:
     """Host-side driver owning the device index and reference metadata."""
 
-    index: QGramIndex            # on ``device``
+    index: QGramIndex | FMIndex  # on ``device``, per ``params.seeding``
     genome_words: torch.Tensor   # int32 bits of the packed uint32 genome
     n_genome: int
     ref_names: list
@@ -543,16 +645,27 @@ class ReadMapper:
     @classmethod
     def build(cls, reference, params: MapParams = MapParams(), index=None,
               device=None) -> "ReadMapper":
-        """From an ``io.Reference`` (host): builds the q-gram index on the
-        host unless given, then moves index and genome to ``device``
-        (``cuda`` unless the caller passes ``device="cpu"``)."""
+        """From an ``io.Reference`` (host): builds the seeding index of
+        ``params.seeding`` on the host unless given (a q-gram index, or an
+        FM index by host SA-IS), then moves index and genome to ``device``
+        (``cuda`` unless the caller passes ``device="cpu"``). On cuda an FM
+        index without a k-mer table gets the k = 11 one, built on the card
+        (the JAX package attaches it off the CPU only; results do not
+        depend on it)."""
         dev = resolve_device(device)
         check_supported(params)
         if index is None:
-            index = build_qgram_index(reference.codes, params.qgram_q,
-                                      n_flags=reference.n_flags())
+            if params.seeding == "fmi":
+                index = build_fmindex(reference.codes)
+            else:
+                index = build_qgram_index(reference.codes, params.qgram_q,
+                                          n_flags=reference.n_flags())
+        index = index.to(dev)
+        if (isinstance(index, FMIndex) and index.ftab_lo is None
+                and dev.type == "cuda"):
+            index = attach_ftab(index, k=11)
         return cls(
-            index=index.to(dev),
+            index=index,
             genome_words=packed.words_to_tensor(reference.packed_words(),
                                                 dev),
             n_genome=reference.total_length,

@@ -3,7 +3,8 @@
 Takes numpy arrays and plain values only — never JAX or ``nvbio_tpu``
 objects — so both packages can be held against each other on the same
 tables: ``np.asarray`` a JAX ``QGramIndex``'s fields and packed genome
-words, or ``dataclasses.asdict`` a JAX ``MapParams``, and pass them here.
+words, a JAX ``FMIndex``'s arrays, or ``dataclasses.asdict`` a JAX
+``MapParams``, and pass them here.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from nvbio_tpu_torch.align.types import GotohScoring
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.device import resolve_device
+from nvbio_tpu_torch.fmi.index import FMIndex
 from nvbio_tpu_torch.packed import words_to_tensor
 from nvbio_tpu_torch.qgram import QGramIndex
 
@@ -30,6 +32,19 @@ def qgram_index_from_arrays(q: int, n: int, offsets: np.ndarray,
     unless ``device="cpu"`` is asked for."""
     return QGramIndex.from_arrays(q, n, offsets, positions,
                                   mid_pos).to(resolve_device(device))
+
+
+def fmindex_from_arrays(bwt_words, occ, count, primary: int, n: int,
+                        sa_interval: int, ssa_marks, ssa_cum, ssa_vals,
+                        ftab_k: int = 0, ftab_lo=None, ftab_hi=None,
+                        device=None) -> FMIndex:
+    """The port's FM index from a JAX ``FMIndex``'s fields (numpy arrays:
+    ``np.asarray`` each), with its rank and SSA rows built and the k-mer
+    table carried when ``ftab_lo``/``ftab_hi`` are given, on ``cuda``
+    unless ``device="cpu"`` is asked for."""
+    return FMIndex.from_arrays(
+        bwt_words, occ, count, primary, n, sa_interval, ssa_marks, ssa_cum,
+        ssa_vals, ftab_k, ftab_lo, ftab_hi).to(resolve_device(device))
 
 
 def genome_words_from_array(words: np.ndarray, device=None) -> torch.Tensor:

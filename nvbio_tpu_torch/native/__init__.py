@@ -1,8 +1,9 @@
 """Native (C++) host helpers, built on demand with g++ and loaded by ctypes.
 
-A copy of the q-gram and BGZF halves of ``nvbio_tpu.native``: ``qgram.cpp``
-is the same counting-sort builder and ``bgzf.cpp`` the same multithreaded
-BGZF block compressor (linked with zlib), each compiled at first use into
+A copy of the q-gram, BGZF and SA-IS parts of ``nvbio_tpu.native``:
+``qgram.cpp`` is the same counting-sort table construction, ``bgzf.cpp``
+the same multithreaded BGZF block compressor (linked with zlib) and
+``sais.cpp`` the same SA-IS suffix sorter, each compiled at first use into
 ``nvbio_tpu_torch/native/build/`` (gitignored, content-hash staleness).
 """
 
@@ -57,6 +58,51 @@ def load(name: str, sources: list[str], extra_flags=()) -> ctypes.CDLL:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(_compile(name, sources, extra_flags))
         return _LIBS[name]
+
+
+def get_sais() -> ctypes.CDLL:
+    """Native SA-IS suffix sorter (int32 and int64 index engines)."""
+    lib = load("nvbio_torch_sais", ["sais.cpp"])
+    fn = lib.nvbio_tpu_sais_u8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ]
+    fn64 = lib.nvbio_tpu_sais_u8_64
+    fn64.restype = ctypes.c_int
+    fn64.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    return lib
+
+
+def sais_u8(codes, K: int = 4):
+    """Suffix array of ``codes`` (+ implicit sentinel): int32[n+1]
+    (dispatches to the int64 engine past 2^31 symbols)."""
+    lib = get_sais()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = len(codes)
+    if n >= 2**31 - 1:
+        return sais_u8_64(codes, K)
+    sa = np.empty(n + 1, dtype=np.int32)
+    rc = lib.nvbio_tpu_sais_u8(
+        codes.ctypes.data, np.int32(n), np.int32(K), sa.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"sais failed: {rc}")
+    return sa
+
+
+def sais_u8_64(codes, K: int = 4):
+    """64-bit-index SA-IS: suffix array int64[n+1] for multi-GB texts."""
+    lib = get_sais()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = len(codes)
+    sa = np.empty(n + 1, dtype=np.int64)
+    rc = lib.nvbio_tpu_sais_u8_64(
+        codes.ctypes.data, np.int64(n), np.int64(K), sa.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"sais64 failed: {rc}")
+    return sa
 
 
 def get_qgram() -> ctypes.CDLL:

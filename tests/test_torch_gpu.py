@@ -1,6 +1,7 @@
 """On a CUDA card: the port's kernels against their plain versions and the
 mappers (single-end, paired-end, local, the full-matrix mate traceback,
-all-mapping) on cuda against the same on cpu. Imports no JAX, so it also
+all-mapping, FM-index seeding) and the FM search on cuda against the same
+on cpu. Imports no JAX, so it also
 runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
@@ -791,3 +792,95 @@ def test_fetched_host_arrays_outlive_the_next_batch():
     assert not all(np.array_equal(h1[k], h2[k]) for k in h1)
     assert [r.line() for r in mapper.format_fetched(b1, h1)] == \
         [r.line() for r in mapper.map_batch(b1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 100003])
+def test_fm_search_on_cuda_equals_cpu(n):
+    """The FM index on the card (with its k = 8 table built there) against
+    the same index on the CPU (no table): ranks at every position, locate
+    of every row (0, ``primary``, n among them), backward search of text
+    substrings (the text's ends included) and random seeds, and the
+    1-mismatch top-K search. The text's end falls on a 64-symbol block at
+    n = 65536."""
+    dev = _card()
+    from nvbio_tpu_torch.fmi import rank as R
+    from nvbio_tpu_torch.fmi import search as S
+    from nvbio_tpu_torch.fmi.index import attach_ftab, build_fmindex
+
+    rng = np.random.default_rng(n)
+    text = rng.integers(0, 4, size=n, dtype=np.uint8)
+    cpu = build_fmindex(text)
+    gpu = attach_ftab(cpu.to(dev), k=8)
+    i = torch.arange(n + 1)
+    for c in range(4):
+        assert torch.equal(
+            R.rank(gpu.rank_rows, torch.full_like(i, c).to(dev),
+                   i.to(dev)).cpu(),
+            R.rank(cpu.rank_rows, torch.full_like(i, c), i))
+    pos, done = S.locate_core(gpu, i.to(dev))
+    want, wdone = S.locate_core(cpu, i)
+    assert torch.equal(pos.cpu(), want) and bool(done.all())
+    assert torch.equal(done.cpu(), wdone)
+    Q, Ls = 4096, 22
+    qs = rng.integers(0, 4, size=(Q, Ls))
+    starts = rng.integers(0, n - Ls, Q // 2)
+    starts[:2] = (0, n - Ls)
+    qs[: Q // 2] = text[starts[:, None] + np.arange(Ls)]
+    lens = rng.integers(0, Ls + 1, Q)
+    lens[: Q // 2] = Ls
+    q, ql = torch.from_numpy(qs), torch.from_numpy(lens)
+    lo, hi = S.backward_search_core(gpu, q.to(dev), ql.to(dev))
+    wlo, whi = S.backward_search_core(cpu, q, ql)
+    ne = whi > wlo
+    assert torch.equal((hi > lo).cpu(), ne) and bool(ne[: Q // 2].all())
+    assert torch.equal(lo.cpu()[ne], wlo[ne])
+    assert torch.equal(hi.cpu()[ne], whi[ne])
+    got = S.search_1mm_hybrid_topk(gpu, q.to(dev), ql.to(dev), 11, K=8)
+    want = S.search_1mm_hybrid_topk(cpu, q, ql, 11, K=8)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_fm_seeded_mappers_on_cuda_equal_cpu(tmp_path):
+    """``map --seeding fmi`` on cuda (FM index built on the fly, its k = 11
+    table on the card) and on cpu for 256 reads: identical BAM records;
+    paired-end with rescue through the mappers: identical SAM records."""
+    _card()
+    from nvbio_tpu_torch.__main__ import main
+    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.io.bam import read_bam
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import sample_pairs
+
+    genome = _se_files(tmp_path, n=256)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = str(tmp_path / f"{dev}.bam")
+        assert main(["map", str(tmp_path / "g"), str(tmp_path / "se.fq"),
+                     "--seeding", "fmi", "--max-read-len", "100",
+                     "--hits-per-seed", "6", "--batch", "256", "-o", t,
+                     *(["--device", "cpu"] if dev == "cpu" else [])]) == 0
+        out[dev] = read_bam(t)[1]
+    assert len(out["cuda"]) == 256 and out["cuda"] == out["cpu"]
+
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    pe = MapParams(max_read_len=100, hits_per_seed=6, seeding="fmi")
+    gpu = ReadMapper.build(ref, pe, device="cuda")
+    assert gpu.index.ftab_k == 11
+    cpu = ReadMapper.build(ref, pe, device="cpu",
+                           index=gpu.index.to("cpu").without_ftab())
+    r1, r2, _, _, _, _ = sample_pairs(genome, 256, 100, 200, 500, seed=12,
+                                      subst_rate=0.01)
+    r2[::10, 9::15] = (r2[::10, 9::15] + 1) % 4      # seedless mates
+    rng = np.random.default_rng(13)
+    b1, b2 = (ReadBatch([f"p{i}" for i in range(256)], r.astype(np.uint8),
+                        rng.integers(5, 41, size=r.shape).astype(np.uint8),
+                        np.full(256, 100, np.int32)) for r in (r1, r2))
+    assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
+        [r.line() for r in map_pair_batch(cpu, b1, b2)]

@@ -149,11 +149,17 @@ def test_profile_leaves_a_parseable_trace(se_dir):
     assert any(ev.get("ph") == "X" for ev in events)
 
 
-def test_fmi_seeding_and_multi_host_stop_by_name():
+def test_fmi_seeding_and_multi_host_stop_by_name(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="--seeding fmi is not yet ported"):
-        main(["map", "ref.fa", "reads.fq", "--seeding", "fmi"])
+    # FM seeding is ported (tests/test_torch_fmi_pipeline.py); randomized
+    # hit selection is what a config file can still select and is refused
+    (tmp_path / "rand.cfg").write_text(
+        "seeding=fmi\nselect_mode=randomized\n")
+    with pytest.raises(NotImplementedError,
+                       match="select_mode='randomized' is not ported"):
+        main(["map", "ref.fa", "reads.fq", "--seeding", "fmi", "--config",
+              str(tmp_path / "rand.cfg"), "--device", "cpu"])
     for flag in ("--dist", "--coordinator=h:1", "--num-processes",
                  "--process-id"):
         with pytest.raises(SystemExit, match=f"{flag.split('=')[0]} is not "

@@ -158,7 +158,7 @@ def test_cli_map_matches_jax_cli(tmp_path):
 def test_cli_rejects_what_is_not_ported(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    for flag in (["--seeding", "fmi"], ["--num-processes", "2"],
+    for flag in (["--num-processes", "2"],
                  ["-1", "a.fq", "-2", "b.fq", "--dist"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(["map", "ref.fa", "reads.fq", *flag])
@@ -167,14 +167,18 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit, match="nope.pac"):
         main(["map", str(tmp_path / "nope"), "reads.fq", "-o", "x.bam",
               "--device", "cpu"])
-    # an option file that selects FM seeding stops too
-    (tmp_path / "fmi.txt").write_text("seeding=fmi\n")
-    with pytest.raises(NotImplementedError, match="seeding='fmi'"):
+    # FM seeding is ported; an option file that selects randomized hit
+    # selection (not ported) stops, for either seeding
+    (tmp_path / "rand.txt").write_text("select_mode=randomized\n")
+    with pytest.raises(NotImplementedError, match="select_mode='randomized'"):
         main(["map", "ref.fa", "reads.fq", "--config",
-              str(tmp_path / "fmi.txt"), "--all", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
-                          TMapParams(seeding="fmi"), device="cpu")
+              str(tmp_path / "rand.txt"), "--all", "--device", "cpu"])
+    for seeding in ("qgram", "fmi"):
+        with pytest.raises(NotImplementedError):
+            TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
+                              TMapParams(seeding=seeding,
+                                         select_mode="randomized"),
+                              device="cpu")
     assert torch.device("cpu") == TReadMapper.build(
         TReference.from_records([("c", "ACGT" * 50)]),
         TMapParams(pe_full_traceback=True), device="cpu").device
