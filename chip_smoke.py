@@ -54,11 +54,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      batch of 32768 reads, K1 +2 and K2 +1 through the band-21 libraries,
      sensitivity >= 0.95; and paired-end with 150-base mates and rescue
      on (K4 over 5 words): 1 batch of 32768 pairs, as the paired-end path;
-  6. FM seeding: the genome's FM index (host SA-IS, then BWT, checkpoints,
-     sampled SA at interval 8 and the rank and SSA rows on the host, moved
-     to the card, its k = 11 table built there; each part's seconds and
-     the bytes on the card); [fmi-search]: 8192 seeds of 22 bases through
-     backward search (the table's start), locate of 6 rows each and the
+  6. FM seeding: the genome's FM index built twice, by host SA-IS (then
+     BWT, checkpoints, sampled SA at interval 8 and the rank and SSA rows
+     on the host: the cpu index) and on the card ([index-device]:
+     build_fmindex_device, prefix doubling over torch.sort and every table
+     on the card; seconds by stage, rows tied after the 26-symbol
+     bootstrap, doubling rounds, peak device memory, M suffixes/s; every
+     table equal to the host build's; one build profiled), its k = 11
+     table built there; each part's seconds and the bytes on the card;
+     [fmi-search]: 8192 seeds of 22 bases through backward search (the table's start), locate of 6 rows each and the
      1-mismatch top-K search on cuda, equal to the same calls on the cpu
      index (no table); ms a call, device ops, a bytes bound for search and
      locate (32-byte rank rows, 8-byte SSA rows); [fmi]: 2 batches of 32768
@@ -68,6 +72,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      device busy, peak memory); [paired-fmi]: 1 batch of FR pairs as the
      paired-end path's (K1, K2, K3 and K4 +2; proper >= 0.90, seedless
      mates placed >= 0.90);
+  6b. [index-device]: the repeat-planted genome of phase 9 built on the
+     card against its host SA-IS build (every table equal; host seconds
+     from the same run), and one build of 390 Mbp of random bases checked
+     by locating 8192 seeds drawn from the text at their positions;
+     [randomized]: select_mode="randomized" on 1 batch of 32768 SE reads
+     (q-gram), 1 batch FM-seeded and 1 batch of FR pairs: reads/s
+     (pairs/s), sensitivity >= 0.95, launches as their stratified paths',
+     one profiled batch each, GPU = CPU records on 1024 reads and pairs;
   7. local path: 2 batches of 32768 reads under --local, a third with a
      random 15-base genome-right tail; K1 (LOCAL) +2 (first pass and
      reseed), K2-LOCAL +1, K3 +0 per batch; sensitivity >= 0.95, tailed
@@ -105,7 +117,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      same 2 batches, A B B A twice, equal records; and the first 8 Mbp as
      a .ref.npz prefix with the port's .fmi.npz beside it: 1024 reads with
      --seeding fmi to SAM on cuda (K1 +2, K2 +1, plus the probe) and on
-     cpu, identical records;
+     cpu, identical records; then the index app (``index``) in this
+     process on cuda: the 100 Mbp genome as a FASTA with --fmi --no-qgram
+     (the suffix sort on the card; .ref.npz and .fmi.npz equal to the
+     in-process builds, stage seconds from its log), its first 8 Mbp with
+     --fmi --bwt --bwt-lz4 --pac --qgroup 16 --no-qgram (.fmi.npz,
+     .ref.npz, .qgroup.npz, .bwt and .pac equal to the in-process
+     builds), and map from that prefix (Q-Group seeding, q = 16) of 1024
+     reads on cuda and on cpu, identical records;
  13. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
@@ -1483,26 +1502,37 @@ SSA_ROW_BYTES = 8           # one locate step's (marks word, popcount) row
 SSA_VAL_BYTES = 4
 
 
-def build_fm(genome):
-    """The FM index of the genome: the suffix array by host SA-IS, then BWT,
-    checkpoints, sampled SA and the rank and SSA rows on the host, the
-    tables moved to the card and the k = 11 table built there. Returns
-    (host index, card index, build stats)."""
-    from nvbio_tpu_torch.fmi.index import attach_ftab, build_fmindex
+def host_fm(genome) -> tuple:
+    """The FM index by host SA-IS, then BWT, checkpoints, sampled SA and
+    the rank and SSA rows on the host: (index, SA-IS s, tables s)."""
+    from nvbio_tpu_torch.fmi.index import build_fmindex
     from nvbio_tpu_torch.index.sa import suffix_array
 
-    t = {}
     t0 = time.time()
     sa = suffix_array(genome, method="native")
-    t["sa_s"] = time.time() - t0
+    t_sa = time.time() - t0
     t0 = time.time()
     host = build_fmindex(genome, sa=sa)
-    del sa
-    t["tables_s"] = time.time() - t0
-    t0 = time.time()
-    gpu = host.to("cuda")
-    torch.cuda.synchronize()
-    t["to_cuda_s"] = time.time() - t0
+    return host, t_sa, time.time() - t0
+
+
+def build_fm(genome):
+    """The FM index of the genome twice: by host SA-IS and tables on the
+    host (the CPU's index), and on the card (``build_fmindex_device``,
+    equal to the host's: ``[index-device]``), where the k = 11 table is
+    added. Returns (host index, card index, build stats)."""
+    from nvbio_tpu_torch.fmi.index import attach_ftab
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+
+    t = {}
+    host, t["sa_s"], t["tables_s"] = host_fm(genome)
+    t["device"] = device_build(genome, "uniform", host)
+    print(f"[index-device] uniform: host SA-IS {t['sa_s']:.2f} s + tables "
+          f"{t['tables_s']:.2f} s in the same run", flush=True)
+    gpu = t["device"].pop("index")
+    t["device"]["profile"] = phase_profile(
+        "index-device uniform", lambda: build_fmindex_device(genome,
+                                                             device="cuda"))
     t0 = time.time()
     gpu = attach_ftab(gpu, FTAB_K)
     torch.cuda.synchronize()
@@ -1515,11 +1545,178 @@ def build_fm(genome):
     parts = ", ".join(f"{k} {v / 1e6:.1f}"
                       for k, v in t["table_bytes"].items())
     print(f"[index] FM over {len(genome)} bp: host SA-IS {t['sa_s']:.2f} s, "
-          f"BWT + checkpoints + SSA + rank/SSA rows {t['tables_s']:.2f} s, "
-          f"to the card {t['to_cuda_s']:.2f} s, k={FTAB_K} table on the card "
-          f"{t['ftab_s']:.2f} s; {t['bytes_on_card'] / 1e6:.1f} MB on the "
-          f"card ({parts} MB)", flush=True)
+          f"BWT + checkpoints + SSA + rank/SSA rows {t['tables_s']:.2f} s; "
+          f"on the card {t['device']['total_s']:.3f} s (equal tables), k="
+          f"{FTAB_K} table on the card {t['ftab_s']:.2f} s; "
+          f"{t['bytes_on_card'] / 1e6:.1f} MB on the card ({parts} MB)",
+          flush=True)
     return host, gpu, t
+
+
+# ---------------------------------------------------------------------------
+# [index-device]: the FM index built on the card (index.device_sa: suffix
+# sort by prefix doubling over torch.sort, then every table), held equal to
+# the host SA-IS build
+# ---------------------------------------------------------------------------
+
+FM_TABLES = ("bwt_words", "occ", "count", "ssa_marks", "ssa_cum", "ssa_vals",
+             "rank_rows", "ssa_rows")
+BIG_GENOME = 390_000_000   # the reach device_sa.py:22-24 states for a chip
+N_LOCATE_SEEDS = 8192
+
+
+def device_build(codes, label, host=None) -> dict:
+    """``build_fmindex_device`` of ``codes`` on the card, after a warm-up
+    build of 1 Mbp: seconds by stage, tied rows and rounds, peak device
+    memory above what was held, M suffixes/s; every table equal to
+    ``host``'s where given. Returns the stats with the index under
+    "index"."""
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+
+    build_fmindex_device(codes[:1_000_000], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    t0 = time.time()
+    index = build_fmindex_device(codes, device="cuda", stats=st)
+    torch.cuda.synchronize()
+    st["total_s"] = time.time() - t0
+    st["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    st["held_bytes"] = index.nbytes()
+    m = len(codes) + 1
+    st["sort_msuffixes_per_s"] = m / (st["bootstrap_s"] + st["tie_s"]) / 1e6
+    st["build_msuffixes_per_s"] = m / st["total_s"] / 1e6
+    stages = ", ".join(f"{k[:-2]} {st[k]:.3f}" for k in
+                       ("upload_s", "bootstrap_s", "tie_s", "planes_s",
+                        "rows_s"))
+    same = None
+    if host is not None:
+        t0 = time.time()
+        differ = [f for f in FM_TABLES
+                  if not torch.equal(getattr(index, f).cpu(),
+                                     getattr(host, f))]
+        same = not differ and index.primary == host.primary
+        require(same, f"index-device {label}: tables {differ} (primary "
+                      f"{index.primary} against {host.primary}) differ "
+                      f"from the host build")
+        st["compare_s"] = time.time() - t0
+    print(f"[index-device] {label}, {len(codes)} bp: {st['total_s']:.3f} s "
+          f"on the card (s by stage: {stages}); {st['tied_rows']} rows "
+          f"tied after the 26-symbol bootstrap, {st['rounds']} doubling "
+          f"rounds; sort {st['sort_msuffixes_per_s']:.1f} M suffixes/s, "
+          f"build {st['build_msuffixes_per_s']:.1f} M suffixes/s; peak "
+          f"{st['peak_bytes'] / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB held, tables {st['held_bytes'] / 1e6:.1f} "
+          f"MB"
+          + ("" if same is None else
+             "; every table (rank and SSA rows included) equal to the host "
+             "SA-IS build's")
+          + f"; card {smi('name,power.limit')}", flush=True)
+    st["index"] = index
+    return st
+
+
+def locate_seeds(index, text, rng) -> dict:
+    """N_LOCATE_SEEDS seeds of 22 bases drawn from ``text``, searched and
+    their first 8 rows located on the card: each seed's position must be
+    among its interval's located rows (intervals of at most 8 rows)."""
+    from nvbio_tpu_torch.fmi import search as S
+
+    pos = rng.integers(0, len(text) - 22, N_LOCATE_SEEDS)
+    q = torch.from_numpy(text[pos[:, None] + np.arange(22)].astype(
+        np.int32)).cuda()
+    ql = torch.full((N_LOCATE_SEEDS,), 22, dtype=torch.int32, device="cuda")
+    lo, hi = S.backward_search_core(index, q, ql)
+    k = torch.arange(8, device="cuda")
+    got, _ = S.locate_core(index, (lo[:, None] + k).clamp(max=index.n)
+                           .reshape(-1))
+    size = hi - lo
+    want = torch.from_numpy(pos).cuda()
+    found = ((got.reshape(-1, 8) == want[:, None])
+             & (k[None, :] < size[:, None])).any(dim=1)
+    narrow = size <= 8
+    n_found = int((found & narrow).sum())
+    require(n_found == int(narrow.sum()) and n_found > 0,
+            f"index-device: {n_found} of {int(narrow.sum())} seeds located "
+            f"at their positions")
+    return dict(seeds=N_LOCATE_SEEDS, located=n_found,
+                wide=int((~narrow).sum()), multi=int((size > 1).sum()))
+
+
+def phase_index_device(rep_genome, card) -> dict:
+    """[index-device] beyond the uniform genome's build (``build_fm``): the
+    repeat-planted genome on the card against its host SA-IS build, then
+    one build of BIG_GENOME random bases checked by locating seeds."""
+    out = {}
+    host, t_sa, t_tables = host_fm(rep_genome)
+    out["repeats"] = device_build(rep_genome, "repeats", host)
+    out["repeats"].update(host_sa_s=t_sa, host_tables_s=t_tables)
+    print(f"[index-device] repeats: host SA-IS {t_sa:.2f} s + tables "
+          f"{t_tables:.2f} s in the same run", flush=True)
+    del host, out["repeats"]["index"]
+    rng = np.random.default_rng(SEED + 2000)
+    t0 = time.time()
+    big = rng.integers(0, 4, size=BIG_GENOME, dtype=np.uint8)
+    t_gen = time.time() - t0
+    out["big"] = device_build(big, "big")
+    loc = locate_seeds(out["big"].pop("index"), big, rng)
+    out["big"].update(loc, genome_s=t_gen)
+    print(f"[index-device] big: {loc['located']} of {loc['seeds']} seeds "
+          f"located at their positions ({loc['multi']} intervals of more "
+          f"than one row, {loc['wide']} of more than 8); card {card}",
+          flush=True)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [randomized]: select_mode="randomized" (SumTree draws from the port's
+# threefry) on the SE q-gram, SE FM and PE paths
+# ---------------------------------------------------------------------------
+
+def phase_randomized(genome, ref, index, fm_gpu, fm_cpu, params, card):
+    """One batch of B single-end reads with the q-gram index, one with the
+    FM index and one batch of B pairs, all under select_mode="randomized":
+    reads/s, sensitivity >= 0.95, launches as their stratified paths', one
+    profiled batch each (device ops and busy), and GPU = CPU records on
+    N_CMP reads and pairs."""
+    from nvbio_tpu_torch.bowtie.paired import dispatch_pair_batch
+    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+
+    rp = dataclasses.replace(params, select_mode="randomized")
+    fp = dataclasses.replace(rp, seeding="fmi")
+    out, launches = {}, {}
+    mq, bq, launches["randomized_qgram"], out["qgram"] = phase_main_path(
+        genome, ref, index, rp, card, label="randomized-qgram",
+        n_batches=1, seed=SEED + 1700)
+    mf, bf, launches["randomized_fmi"], out["fmi"] = phase_main_path(
+        genome, ref, fm_gpu, fp, card, label="randomized-fmi", n_batches=1,
+        seed=SEED + 1800)
+    pair0, launches["randomized_paired"], out["paired"] = phase_paired(
+        genome, mq, card, label="randomized-paired", n_batches=1,
+        seed=SEED + 1900)
+    out["qgram"]["profile"] = phase_profile("randomized-qgram",
+                                            lambda: mq.dispatch(bq))
+    out["fmi"]["profile"] = phase_profile("randomized-fmi",
+                                          lambda: mf.dispatch(bf))
+    out["paired"]["profile"] = phase_profile(
+        "randomized-paired", lambda: dispatch_pair_batch(mq, *pair0))
+    cq = ReadMapper.build(ref, rp, index=index.to("cpu"), device="cpu")
+    cf = ReadMapper.build(ref, fp, index=fm_cpu, device="cpu")
+    sq, sf = head(bq), head(bf)
+    phase_gpu_equals_cpu("randomized-qgram", lambda: mq.map_batch(sq),
+                         lambda: cq.map_batch(sq), N_CMP)
+    phase_gpu_equals_cpu("randomized-fmi", lambda: mf.map_batch(sf),
+                         lambda: cf.map_batch(sf), N_CMP)
+    p1, p2 = head(pair0[0]), head(pair0[1])
+    phase_gpu_equals_cpu("randomized-paired",
+                         lambda: map_pair_batch(mq, p1, p2),
+                         lambda: map_pair_batch(cq, p1, p2), 2 * N_CMP)
+    return out, launches
 
 
 def device_ops(fn) -> tuple[int, float]:
@@ -1732,9 +1929,10 @@ CLI_GPU_ARGS: tuple = ()
 PROBE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
 
 
-def run_cli(argv) -> tuple[float, str]:
-    """``python -m nvbio_tpu_torch map *argv`` in this process: (seconds,
-    the app's log, which is also echoed). Fails unless it exits 0."""
+def run_cli(argv, command="map") -> tuple[float, str]:
+    """``python -m nvbio_tpu_torch <command> *argv`` in this process:
+    (seconds, the app's log, which is also echoed). Fails unless it exits
+    0."""
     import contextlib
     import io
 
@@ -1744,11 +1942,11 @@ def run_cli(argv) -> tuple[float, str]:
     t0 = time.time()
     try:
         with contextlib.redirect_stderr(log):
-            rc = main(["map", *argv])
+            rc = main([command, *argv])
     finally:
         for line in log.getvalue().splitlines():
             print(f"[cli]   {line}", flush=True)
-    require(rc == 0, f"map {' '.join(argv)} exited {rc}")
+    require(rc == 0, f"{command} {' '.join(argv)} exited {rc}")
     return time.time() - t0, log.getvalue()
 
 
@@ -2055,6 +2253,145 @@ def phase_cli(genome, mapper, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [cli] index: python -m nvbio_tpu_torch index in this process, on the card
+# ---------------------------------------------------------------------------
+
+QGROUP_Q = 16
+
+
+def write_fasta_codes(path, name, codes, width=100):
+    """``codes`` as one FASTA record of lines of ``width`` bases."""
+    chars = np.frombuffer(b"ACGT", np.uint8)[codes]
+    full = len(chars) // width * width
+    rows = np.concatenate([chars[:full].reshape(-1, width),
+                           np.full((full // width, 1), ord("\n"), np.uint8)],
+                          axis=1)
+    with open(path, "wb") as f:
+        f.write(f">{name}\n".encode() + rows.tobytes())
+        if full < len(chars):
+            f.write(chars[full:].tobytes() + b"\n")
+
+
+def npz_equal(path, arrays: dict, label: str) -> None:
+    """Every key of ``arrays`` in the .npz at ``path``, equal in dtype,
+    shape and values, and no other key."""
+    z = np.load(path)
+    differ = [k for k in arrays
+              if k not in z.files or z[k].dtype != np.asarray(arrays[k]).dtype
+              or not np.array_equal(z[k], arrays[k])]
+    require(not differ and set(z.files) == set(arrays),
+            f"{label}: {path} differs from the in-process build in "
+            f"{differ or sorted(set(z.files) ^ set(arrays))}")
+
+
+def index_stages(log: str) -> str:
+    found = re.findall(r"stages: (.*)", log)
+    return found[-1] if found else ""
+
+
+def phase_cli_index(genome, fm_host, card) -> dict:
+    """The ``index`` app in this process on the card: the genome as a
+    FASTA with ``--fmi`` (its .ref.npz and .fmi.npz equal to the
+    in-process builds; the suffix sort on the card, as ``auto`` picks for
+    2^22 bases or more on cuda; the q-gram table left out); its first
+    CLI_CMP_GENOME bases with ``--fmi --bwt --bwt-lz4 --pac --qgroup 16
+    --no-qgram`` (every artifact checked against the in-process builds),
+    then ``map`` from that prefix (Q-Group seeding, q = 16) on cuda and on
+    cpu: identical records."""
+    import tempfile
+
+    from nvbio_tpu_torch import packed
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+    from nvbio_tpu_torch.io.pac import load_bwt, load_pac
+    from nvbio_tpu_torch.qgram import build_qgroup_index
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    tmp = tempfile.TemporaryDirectory()
+
+    def p(name):
+        return f"{tmp.name}/{name}"
+
+    def ref_arrays(codes, name):   # Reference.save of a genome without N
+        return dict(names=np.array([name]),
+                    offsets=np.array([0, len(codes)], np.int64), codes=codes,
+                    n_mask_words=np.zeros((len(codes) + 31) // 32, np.uint32))
+
+    out = {}
+    t0 = time.time()
+    write_fasta_codes(p("g.fa"), "sim100M", genome)
+    t_fa = time.time() - t0
+    secs, log = run_cli([p("g.fa"), p("g"), "--fmi", "--no-qgram",
+                         *CLI_GPU_ARGS], "index")
+    t0 = time.time()
+    npz_equal(p("g.ref.npz"), ref_arrays(genome, "sim100M"), "index 100M")
+    npz_equal(p("g.fmi.npz"), fm_host.arrays(), "index 100M")
+    out["genome"] = dict(seconds=secs, fasta_s=t_fa, stages=index_stages(log),
+                         check_s=time.time() - t0)
+    print(f"[cli] index {len(genome)} bp --fmi --no-qgram: {secs:.2f} s end "
+          f"to end (FASTA written in {t_fa:.2f} s); stages: "
+          f"{out['genome']['stages']}; .ref.npz and .fmi.npz equal to the "
+          f"in-process builds; card {card}", flush=True)
+
+    small = genome[:CLI_CMP_GENOME]
+    write_fasta_codes(p("h.fa"), "sim8M", small)
+    secs, log = run_cli([p("h.fa"), p("h"), "--fmi", "--bwt", "--bwt-lz4",
+                         "--pac", "--qgroup", str(QGROUP_Q), "--no-qgram",
+                         *CLI_GPU_ARGS], "index")
+    t0 = time.time()
+    fm = build_fmindex_device(small, device="cuda").arrays()
+    npz_equal(p("h.fmi.npz"), fm, "index 8M")
+    npz_equal(p("h.ref.npz"), ref_arrays(small, "sim8M"), "index 8M")
+    qg = build_qgroup_index(small, QGROUP_Q)
+    npz_equal(p("h.qgroup.npz"), dict(
+        q=np.asarray(QGROUP_Q), I=qg.I.numpy().view(np.uint32),
+        S=qg.S.numpy(), SS=qg.SS.numpy(), P=qg.P.numpy(),
+        n=np.asarray(len(small))), "index 8M")
+    bwt, primary, _ = load_bwt(p("h.bwt"))
+    require(primary == int(fm["primary"]) and np.array_equal(
+        bwt, packed.unpack(fm["bwt_words"], len(small), 2)),
+        "index 8M: h.bwt differs from the FM index's BWT")
+    require(np.array_equal(load_pac(p("h.pac")), small),
+            "index 8M: h.pac differs from the genome")
+    with open(p("h.bwt"), "rb") as f:
+        require(f.read(4) == b"NB4\x01", "index 8M: h.bwt has no LZ4 magic")
+    out["prefix"] = dict(seconds=secs, stages=index_stages(log),
+                         check_s=time.time() - t0)
+    print(f"[cli] index {len(small)} bp --fmi --bwt --bwt-lz4 --pac "
+          f"--qgroup {QGROUP_Q} --no-qgram: {secs:.2f} s end to end; "
+          f"stages: {out['prefix']['stages']}; .fmi.npz, .ref.npz, "
+          f".qgroup.npz, .bwt (LZ4 frames) and .pac equal to the in-process "
+          f"builds; card {card}", flush=True)
+
+    sb = head(read_batch(small, SEED + 2100)[0])
+    write_fastq(p("q.fq"), sb.names, sb.codes, sb.quals)
+    sam = {}
+    for run, dev_args in (("card", list(CLI_GPU_ARGS)),
+                          ("host", ["--device", "cpu"])):
+        reset_launches()
+        secs, log = run_cli([p("h"), p("q.fq"), "-o", p(f"q_{run}.sam"),
+                             *CLI_FLAGS, "--batch", str(N_CMP), *dev_args])
+        if run == "card":
+            cli_launches("cli qgroup", read_launches(),
+                         {"banded_score_cands": 2, "banded_traceback": 1}, 1)
+        with open(p(f"q_{run}.sam")) as f:
+            sam[run] = ([ln for ln in f if not ln.startswith("@PG")], secs)
+    (g, g_s), (c, c_s) = sam["card"], sam["host"]
+    diff = sum(a != b for a, b in zip(g, c))
+    recs = [ln.split("\t") for ln in g if not ln.startswith("@")]
+    n_ok = sum(not int(r[1]) & 4 for r in recs)
+    print(f"[gpu=cpu] cli qgroup (q = {QGROUP_Q}): {len(recs)} SAM records, "
+          f"{diff} differ, {n_ok} mapped; cuda {g_s:.2f} s, cpu {c_s:.2f} s",
+          flush=True)
+    require(len(recs) == N_CMP and len(g) == len(c) and diff == 0,
+            "cli qgroup: SAM records differ between cuda and cpu")
+    require(n_ok >= 0.95 * N_CMP, f"cli qgroup: {n_ok} of {N_CMP} mapped")
+    out["qgroup_map"] = dict(records=len(recs), mapped=n_ok, cuda_s=g_s,
+                             cpu_s=c_s)
+    tmp.cleanup()
+    return out
+
+
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
     left out, their device time is their kernels'."""
@@ -2230,6 +2567,17 @@ def main() -> int:
         genome, gpu_fm, card, label="paired-fmi", n_batches=1,
         seed=SEED + 1500)
 
+    # index construction on the card beyond the uniform genome's, and
+    # randomized hit selection on three paths
+    t0 = time.time()
+    rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
+    print(f"[index] repeat-planted genome ({N_REPEATS} x {REPEAT_LEN} bp) "
+          f"in {time.time() - t0:.2f} s", flush=True)
+    index_device = phase_index_device(rep_genome, card)
+    index_device["uniform"] = fm_build["device"]
+    rand_stats, rand_launches = phase_randomized(
+        genome, ref, gpu_index, fm_gpu, fm_cpu, params, card)
+
     gpu_local = gpu(local_params)
     local0, local_launches, local_stats = phase_local(genome, gpu_local,
                                                       card)
@@ -2243,18 +2591,18 @@ def main() -> int:
         full_launches, card)
     # the --all paths map against the genome with exact repeats planted
     t0 = time.time()
-    rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
     rep_ref = Reference(["sim100M_rep"], np.array([0, GENOME_LEN], np.int64),
                         rep_genome, np.zeros(0, np.uint32))
     gpu_rep = ReadMapper.build(
         rep_ref, params, index=build_qgram_index(rep_genome, params.qgram_q),
         device="cuda")
-    print(f"[index] repeat-planted genome ({N_REPEATS} x {REPEAT_LEN} bp) "
-          f"and its index in {time.time() - t0:.2f} s", flush=True)
+    print(f"[index] the repeat-planted genome's q-gram index in "
+          f"{time.time() - t0:.2f} s", flush=True)
     all0, all_launches, all_stats = phase_all(rep_genome, gpu_rep, card)
     pa0, pa_launches, pa_stats = phase_paired_all(rep_genome, gpu_rep, card)
     gcups_launches, gcups = phase_gcups(card)
     cli_stats = phase_cli(genome, gpu_mapper, card)
+    cli_stats["index"] = phase_cli_index(genome, fm_cpu, card)
 
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
@@ -2262,7 +2610,8 @@ def main() -> int:
             "paired_full_local": pfl_launches, "all": all_launches,
             "paired_all": pa_launches, "gcups": gcups_launches,
             "single_end_w21": se21_launches, "paired_150": pe150_launches,
-            "fmi": fm_launches, "paired_fmi": pfm_launches}
+            "fmi": fm_launches, "paired_fmi": pfm_launches,
+            **rand_launches}
     # each entry's path, its batches there and its wrapper
     own = {"banded_score_cands": ("single_end", N_BATCHES),
            "banded_score_cands_local": ("local", N_BATCHES_LOCAL),
@@ -2365,6 +2714,8 @@ def main() -> int:
                       "paired_full_local": pfl_stats, "all": all_stats,
                       "paired_all": pa_stats, "gcups": gcups,
                       "fmi": fm_stats, "paired_fmi": pfm_stats,
+                      "index_device": index_device,
+                      "randomized": rand_stats,
                       "cli": cli_stats, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,20 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="nvbio_tpu_torch",
-        description="PyTorch/CUDA port of nvbio_tpu (read mapping)",
+        description="PyTorch/CUDA port of nvbio_tpu (indexing, read "
+                    "mapping)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    from nvbio_tpu_torch.apps import map_app
+    from nvbio_tpu_torch.apps import index_app, map_app
 
-    map_app.add_parser(sub)
+    apps = {"index": index_app, "map": map_app}
+    for app in apps.values():
+        app.add_parser(sub)
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    map_app.reject_not_ported(argv)
+    if argv and argv[0] in apps:
+        apps[argv[0]].reject_not_ported(argv)
     args = parser.parse_args(argv)
     try:
         return args.func(args)

@@ -11,21 +11,21 @@ Port of ``nvbio_tpu/apps/map_app.py``: single-end and paired-end,
 end-to-end or local (``--local``), best-alignment or all-mapping
 (``--all``: every locus above threshold, SE and PE, the others as secondary
 records). ``--config FILE`` overlays ``key=value`` lines onto the
-``MapParams`` fields after the presets. Seeding is by q-gram index
-(default) or FM index (``--seeding fmi``, or ``seeding=fmi`` in the
-config). The reference is a FASTA (index built on the fly), the prefix of
-the JAX package's ``index`` artifacts (``<prefix>.ref.npz``, and
-``<prefix>.qgram.npz`` or ``<prefix>.fmi.npz`` when present, else built on
-the fly), or a BWA-style ``<prefix>.pac/.ann/.amb`` set (index built on the
-fly). The output is SAM, or BAM by the ``.bam`` extension. ``--mapq-filter
+``MapParams`` fields after the presets (``select_mode=randomized`` picks
+hits by SumTree draws). Seeding is by q-gram index (default) or FM index
+(``--seeding fmi``, or ``seeding=fmi`` in the config). The reference is a
+FASTA (index built on the fly), the prefix of either package's ``index``
+artifacts (``<prefix>.ref.npz``, and ``<prefix>.qgram.npz`` or else
+``<prefix>.qgroup.npz``, or ``<prefix>.fmi.npz`` when present, else built
+on the fly), or a BWA-style ``<prefix>.pac/.ann/.amb`` set (index built on
+the fly). The output is SAM, or BAM by the ``.bam`` extension. ``--mapq-filter
 Q`` writes mapped primaries below Q as unmapped and drops filtered
 secondaries; ``--report`` writes an HTML stats report (SE and PE, not
 ``--all``); ``--debug-output`` writes binary per-read diagnostics (SE, not
 ``--all``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into
 DIR. The single-end loop dispatches batch i+1, with its copies to the host
 enqueued behind it, before it formats batch i. Runs on the CUDA card unless
-``--device cpu`` is given. The multi-host flags and randomized hit
-selection (``select_mode=randomized`` in a config) are rejected as not yet
+``--device cpu`` is given. The multi-host flags are rejected as not yet
 ported.
 """
 
@@ -112,11 +112,12 @@ def reject_not_ported(argv: list[str]) -> None:
 def _load_reference(path: str, seeding: str = "qgram"):
     """(Reference, seeding index or None): a FASTA or ``.pac`` prefix has
     no index (the mapper builds one); a ``.ref.npz`` prefix brings the
-    ``.qgram.npz`` (q-gram seeding) or ``.fmi.npz`` (FM seeding) the JAX
-    package's ``index`` app wrote beside it, where present."""
+    index either package's ``index`` app wrote beside it, where present:
+    for q-gram seeding its ``.qgram.npz``, else its ``.qgroup.npz``; for
+    FM seeding its ``.fmi.npz``."""
     from nvbio_tpu_torch.fmi.index import FMIndex
     from nvbio_tpu_torch.io.reference import Reference
-    from nvbio_tpu_torch.qgram import QGramIndex
+    from nvbio_tpu_torch.qgram import QGramIndex, QGroupIndex
 
     if path.endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
         return Reference.from_fasta(path), None
@@ -131,6 +132,8 @@ def _load_reference(path: str, seeding: str = "qgram"):
     index = None
     if seeding == "qgram" and os.path.exists(path + ".qgram.npz"):
         index = QGramIndex.load(path + ".qgram.npz")
+    elif seeding == "qgram" and os.path.exists(path + ".qgroup.npz"):
+        index = QGroupIndex.load(path + ".qgroup.npz")
     elif seeding == "fmi" and os.path.exists(path + ".fmi.npz"):
         index = FMIndex.load(path + ".fmi.npz")
     return ref, index

@@ -17,15 +17,18 @@ followed; where it sends local candidates to its flat scorer over
 extracted windows (``pipeline.py:573-581``), the port computes the same
 function in the candidate kernel, straight from the packed genome.
 
-Seeding is by the q-gram index or, under ``seeding="fmi"``, by the FM
-index (``fmi/``: backward search, stratified rows of each SA interval
-located by the sampled suffix array, the whole-read exact pass 0, and the
-approx-hybrid 1-mismatch search in the reseed pass; ``pipeline.py:330-373``
-and ``:426-451`` of the JAX package). Positions are int64 throughout, so
-the JAX package's clip-at-zero uint32 helpers become plain clamps, and its
-dtype-max sentinels become one int64 constant ``_BIG`` compared by value.
-The sharded indexes and randomized hit selection are not ported yet and
-raise ``NotImplementedError``.
+Seeding is by a q-gram index (the direct-address ``QGramIndex`` or the
+two-level ``QGroupIndex``) or, under ``seeding="fmi"``, by the FM index
+(``fmi/``: backward search, rows of each SA interval located by the
+sampled suffix array, the whole-read exact pass 0, and the approx-hybrid
+1-mismatch search in the reseed pass; ``pipeline.py:330-373`` and
+``:426-451`` of the JAX package). Hits are picked from each seed's range
+by stratified slots or, under ``select_mode="randomized"``, by the SumTree
+draws of ``_sumtree_select`` (``threefry.py`` gives ``jax.random``'s
+bits). Positions are int64 throughout, so the JAX package's clip-at-zero
+uint32 helpers become plain clamps, and its dtype-max sentinels become one
+int64 constant ``_BIG`` compared by value. The sharded indexes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from nvbio_tpu_torch import packed
+from nvbio_tpu_torch import packed, sumtree, threefry
 from nvbio_tpu_torch.align.kernels import banded_score_cands
 from nvbio_tpu_torch.align.traceback import (
     batch_traceback_banded_fast,
@@ -54,6 +57,10 @@ from nvbio_tpu_torch.fmi.search import (
     locate_core,
     search_1mm_hybrid_topk,
 )
+from nvbio_tpu_torch.index.device_sa import (
+    build_fmindex_device,
+    prefer_device_sa,
+)
 from nvbio_tpu_torch.io.sam import (
     FLAG_REVERSE,
     FLAG_SECONDARY,
@@ -62,10 +69,11 @@ from nvbio_tpu_torch.io.sam import (
 )
 from nvbio_tpu_torch.qgram import (
     QGramIndex,
+    QGroupIndex,
     build_qgram_index,
+    index_locate,
+    index_range,
     midpos_lookup,
-    qgram_locate,
-    qgram_range,
     seed_keys_from_batch,
     stratified_locate_rows,
     stratified_offsets,
@@ -79,9 +87,8 @@ def check_supported(params: MapParams) -> None:
     """Raise for parameter values that select a path not ported yet."""
     if params.seeding not in ("qgram", "fmi"):
         raise ValueError(f"unknown seeding {params.seeding!r}")
-    if params.select_mode != "stratified":
-        raise NotImplementedError(
-            f"select_mode={params.select_mode!r} is not ported yet")
+    if params.select_mode not in ("stratified", "randomized"):
+        raise ValueError(f"unknown select_mode {params.select_mode!r}")
     if params.mode not in ("end-to-end", "local"):
         raise ValueError(f"unknown mode {params.mode!r}")
 
@@ -261,6 +268,55 @@ def seed_grid(reads, rc, lens, params: MapParams, seed_phase: int = 0):
     return starts, seeds, seed_valid2 & ~torch.any(seeds > 3, dim=-1)
 
 
+# the key of randomized hit selection: fold_in(PRNGKey(_SELECT_SEED), phase)
+_SELECT_SEED = 0x5E1EC7
+
+
+def _sumtree_select(lo, range_size, seed_valid2, starts, S1: int, H: int,
+                    seed_phase: int):
+    """SumTree-CDF randomized hit selection (``select.h:52-80``; the JAX
+    package's ``_sumtree_select``, ``pipeline.py:135-182``).
+
+    Each strand half draws its S1*H slots: which seed to locate from, with
+    probability proportional to 1/range^2 (specific seeds get the budget),
+    then a uniform slot within that seed's range. The uniforms are
+    ``jax.random.uniform(fold_in(fold_in(PRNGKey(0x5E1EC7), seed_phase),
+    h), (2, B, S1*H))`` for half h, bit for bit. Returns (lo_c, slot,
+    seed_off, valid), all (B, 2*S1, H): the chosen seed's range start, the
+    slot within it, the chosen seed's read offset, draw validity."""
+    B = lo.shape[0]
+    key = threefry.fold_in(threefry.prng_key(_SELECT_SEED), seed_phase)
+    outs = []
+    for h in (0, 1):
+        sl = slice(h * S1, (h + 1) * S1)
+        rs_h = range_size[:, sl]
+        rsf = rs_h.to(torch.float32)
+        w = torch.where(seed_valid2[:, sl] & (rs_h > 0),
+                        1.0 / (rsf * rsf + 1e-30), 0.0)
+        uk, us = threefry.uniform(threefry.fold_in(key, h),
+                                  (2, B, S1 * H), lo.device)
+        choice = sumtree.sample_columns(w, uk)               # (B, S1*H)
+        rs_c = torch.gather(rs_h, 1, choice)
+        slot = torch.minimum((us * rs_c.to(torch.float32)).to(torch.int64),
+                             (rs_c - 1).clamp(min=0))
+        valid = (w.sum(dim=-1) > 0)[:, None] & (rs_c > 0)
+        outs.append((torch.gather(lo[:, sl], 1, choice), slot,
+                     starts[choice], valid))
+    return tuple(torch.cat([o[i].reshape(B, S1, H) for o in outs], dim=1)
+                 for i in range(4))
+
+
+def _append_offsets(sel_off, starts, k: int):
+    """``sel_off`` (B, 2S1, H) with k more columns holding each row's own
+    seed offset (extra hits of a seed row belong to that seed); None stays
+    None."""
+    if sel_off is None:
+        return None
+    B, NS, _ = sel_off.shape
+    own = torch.cat([starts, starts])[None, :, None].expand(B, NS, k)
+    return torch.cat([sel_off, own], dim=-1)
+
+
 def _append_pass0(pos, hit_valid, pos_e, ok_e, B: int, S1: int):
     """Append the pass-0 whole-read exact loci (fwd = pos_e[:B], rc =
     pos_e[B:]) as 2 extra hit columns on the offset-0 seed rows of each
@@ -277,21 +333,31 @@ def _append_pass0(pos, hit_valid, pos_e, ok_e, B: int, S1: int):
             torch.cat([hit_valid, extra_ok], dim=-1))
 
 
-def fm_seed_hits(index: FMIndex, seeds, seed_valid2, H: int):
-    """FM seeding of (B, NS, s) seeds: backward search, H stratified rows
-    of each SA interval (``qgram.stratified_offsets``), clipped to [0, n],
-    located. Returns (pos (B, NS, H) int64, hit_valid)."""
+def fm_seed_ranges(index: FMIndex, seeds):
+    """SA intervals of (B, NS, s) seeds by backward search: (lo, size),
+    each (B, NS) int64."""
     B, NS, slen = seeds.shape
     lo, hi = backward_search_core(
         index, seeds.reshape(B * NS, slen),
         torch.full((B * NS,), slen, dtype=torch.int64, device=seeds.device))
-    lo, hi = lo.reshape(B, NS), hi.reshape(B, NS)
-    range_size = (hi - lo).clamp(min=0)
+    return lo.reshape(B, NS), (hi - lo).clamp(min=0).reshape(B, NS)
+
+
+def fm_locate_rows(index: FMIndex, rows):
+    """Text positions of SA rows (any shape), clipped to [0, n]."""
+    pos, _ = locate_core(index, rows.clamp(0, index.n).reshape(-1))
+    return pos.reshape(rows.shape)
+
+
+def fm_seed_hits(index: FMIndex, seeds, seed_valid2, H: int):
+    """FM seeding of (B, NS, s) seeds: backward search, H stratified rows
+    of each SA interval (``qgram.stratified_offsets``) located. Returns
+    (pos (B, NS, H) int64, hit_valid)."""
+    lo, range_size = fm_seed_ranges(index, seeds)
     k = torch.arange(H, device=seeds.device)
     hit_valid = (k < range_size[:, :, None]) & seed_valid2[:, :, None]
-    rows = lo[:, :, None] + stratified_offsets(range_size, H, NS)
-    pos, _ = locate_core(index, rows.clamp(0, index.n).reshape(-1))
-    return pos.reshape(B, NS, H), hit_valid
+    rows = lo[:, :, None] + stratified_offsets(range_size, H, seeds.shape[1])
+    return fm_locate_rows(index, rows), hit_valid
 
 
 def fm_whole_read(index: FMIndex, reads, rc, lens):
@@ -322,24 +388,27 @@ def fm_seed_hits_1mm(index: FMIndex, seeds):
             (mm_hi - mm_lo).reshape(B, NS, -1) > 0)
 
 
-def read_candidates(index: QGramIndex | FMIndex, genome_words, n_genome: int,
-                    reads, lens, quals, params: MapParams,
+def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
+                    n_genome: int, reads, lens, quals, params: MapParams,
                     seed_phase: int = 0, approx_1mm: bool = False):
     """Seed + locate + dedup + extension-score candidates for one batch.
 
     Returns a dict of per-candidate (B, C) tensors (scores, w0, strand,
     valid) plus the per-read strands and penalty planes. ``seed_phase``
     shifts the seed grid (reseed passes); ``approx_1mm`` adds the
-    1-mismatch loci (two per seed, by a within-seed vote). A ``QGramIndex``
-    seeds by direct lookup, an ``FMIndex`` by backward search and locate
-    (plus, in the first pass under ``whole_read_exact``, the whole-read
-    exact pass 0).
+    1-mismatch loci (two per seed, by a within-seed vote). A q-gram index
+    (``QGramIndex`` or ``QGroupIndex``) seeds by direct lookup, an
+    ``FMIndex`` by backward search and locate (plus, in the first pass
+    under ``whole_read_exact``, the whole-read exact pass 0). Each seed's
+    hits are its stratified slots, or the SumTree draws of
+    ``_sumtree_select`` under ``select_mode="randomized"``.
     """
     P = params
     check_supported(P)
-    want = FMIndex if P.seeding == "fmi" else QGramIndex
+    want = (FMIndex,) if P.seeding == "fmi" else (QGramIndex, QGroupIndex)
     if not isinstance(index, want):
-        raise TypeError(f"seeding={P.seeding!r} needs a {want.__name__}, "
+        raise TypeError(f"seeding={P.seeding!r} needs a "
+                        f"{' or '.join(w.__name__ for w in want)}, "
                         f"not a {type(index).__name__}")
     dev = reads.device
     B, L = reads.shape
@@ -355,21 +424,41 @@ def read_candidates(index: QGramIndex | FMIndex, genome_words, n_genome: int,
     mm = None if pen is None else -pen
     mm_rc = None if pen is None else -packed.reverse_rows(pen, lens)
     starts, seeds, seed_valid2 = seed_grid(reads, rc, lens, P, seed_phase)
+    randomized = P.select_mode == "randomized"
+    sel_off = None   # (B, 2S1, H) read offset of each randomized draw's seed
 
     if isinstance(index, FMIndex):
-        pos, hit_valid = fm_seed_hits(index, seeds, seed_valid2, H)
+        if randomized:
+            lo, range_size = fm_seed_ranges(index, seeds)
+            lo_c, slot, sel_off, hit_valid = _sumtree_select(
+                lo, range_size, seed_valid2, starts, S1, H, seed_phase)
+            pos = fm_locate_rows(index, lo_c + slot)
+        else:
+            pos, hit_valid = fm_seed_hits(index, seeds, seed_valid2, H)
         if P.whole_read_exact and seed_phase == 0:
             pos_e, ok_e = fm_whole_read(index, reads, rc, lens)
             pos, hit_valid = _append_pass0(pos, hit_valid, pos_e, ok_e, B, S1)
+            sel_off = _append_offsets(sel_off, starts, 2)
             H = H + 2
     else:
         keys = seed_keys_from_batch(seeds, index.q)          # (B, 2S1)
-        lo, hi = qgram_range(index, keys)
+        lo, hi = index_range(index, keys)
         range_size = (hi - lo).clamp(min=0)
-        k = torch.arange(H, device=dev)
-        hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
-            seed_valid2[:, :, None]
-        pos = stratified_locate_rows(index, lo, range_size, H, 2 * S1)
+        if randomized:
+            lo_c, slot, sel_off, hit_valid = _sumtree_select(
+                lo, range_size, seed_valid2, starts, S1, H, seed_phase)
+            pos = index_locate(index, lo_c, slot)
+        else:
+            k = torch.arange(H, device=dev)
+            hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
+                seed_valid2[:, :, None]
+            if isinstance(index, QGroupIndex):
+                # per-slot locate (the JAX package's slot layout for it)
+                pos = index_locate(index, lo[:, :, None],
+                                   stratified_offsets(range_size, H, 2 * S1))
+            else:
+                pos = stratified_locate_rows(index, lo, range_size, H,
+                                             2 * S1)
 
     if approx_1mm:
         if isinstance(index, FMIndex):
@@ -385,23 +474,26 @@ def read_candidates(index: QGramIndex | FMIndex, genome_words, n_genome: int,
             xor = (dd[None, :] << (2 * (qq - 1 - jj))[:, None]).reshape(
                 3 * qq)
             mut_keys = keys[:, :, None] ^ xor[None, None, :]  # (B, NS, 3q)
-            if index.mid_pos is not None:
+            if getattr(index, "mid_pos", None) is not None:
                 pos1, nonempty = midpos_lookup(index, mut_keys)
-            else:
-                lo1, hi1 = qgram_range(index, mut_keys)
+            else:   # the middle slot of each range (a Q-Group index)
+                lo1, hi1 = index_range(index, mut_keys)
                 rs1 = (hi1 - lo1).clamp(min=0)
-                pos1, nonempty = qgram_locate(index, lo1, rs1 // 2), rs1 > 0
+                pos1, nonempty = index_locate(index, lo1, rs1 // 2), rs1 > 0
         # a within-seed vote keeps the two best-supported loci
         valid1 = nonempty & seed_valid2[:, :, None]
         NK = 2
         pos_extra, valid_extra = _vote_reps(pos1, valid1, 2 * P.max_dist, NK)
         pos = torch.cat([pos, pos_extra], dim=-1)
         hit_valid = torch.cat([hit_valid, valid_extra], dim=-1)
+        sel_off = _append_offsets(sel_off, starts, NK)
         H = H + NK
 
-    # candidate window start: seed offset within the (strand) read, slack of
-    # max_dist on each side
-    seed_off = torch.cat([starts, starts])[None, :, None]
+    # candidate window start: seed offset within the (strand) read (each
+    # draw's own seed under randomized selection), slack of max_dist on
+    # each side
+    seed_off = (torch.cat([starts, starts])[None, :, None] if sel_off is None
+                else sel_off)
     w0 = (pos - (seed_off + P.max_dist)).clamp(min=0)
     w0 = w0.clamp(max=max(n_genome - 1, 0))
     CH = S1 * H
@@ -646,8 +738,10 @@ class ReadMapper:
     def build(cls, reference, params: MapParams = MapParams(), index=None,
               device=None) -> "ReadMapper":
         """From an ``io.Reference`` (host): builds the seeding index of
-        ``params.seeding`` on the host unless given (a q-gram index, or an
-        FM index by host SA-IS), then moves index and genome to ``device``
+        ``params.seeding`` unless given (a q-gram index on the host, or an
+        FM index: on the card where ``prefer_device_sa`` says so, as the
+        JAX package does on an accelerator, else by host SA-IS; the index
+        is the same either way), then moves index and genome to ``device``
         (``cuda`` unless the caller passes ``device="cpu"``). On cuda an FM
         index without a k-mer table gets the k = 11 one, built on the card
         (the JAX package attaches it off the CPU only; results do not
@@ -655,7 +749,10 @@ class ReadMapper:
         dev = resolve_device(device)
         check_supported(params)
         if index is None:
-            if params.seeding == "fmi":
+            if params.seeding == "fmi" and prefer_device_sa(
+                    reference.total_length, dev):
+                index = build_fmindex_device(reference.codes, device=dev)
+            elif params.seeding == "fmi":
                 index = build_fmindex(reference.codes)
             else:
                 index = build_qgram_index(reference.codes, params.qgram_q,

@@ -92,13 +92,14 @@ class FMIndex:
             ftab_lo=None if ftab_lo is None else _t(ftab_lo),
             ftab_hi=None if ftab_hi is None else _t(ftab_hi))
 
-    def save(self, path: str) -> None:
-        """The JAX package's ``.fmi.npz``, key for key."""
+    def arrays(self) -> dict:
+        """The compact tables of the JAX package's ``.fmi.npz``, key for
+        key, fetched to the host as numpy arrays (the rank and SSA rows
+        stay where they are)."""
         def u32(t):
             return t.cpu().numpy().view(np.uint32)
 
-        np.savez_compressed(
-            path,
+        return dict(
             bwt_words=u32(self.bwt_words),
             occ=self.occ.cpu().numpy(),
             count=self.count.cpu().numpy().astype(np.int32),
@@ -109,6 +110,10 @@ class FMIndex:
             ssa_cum=self.ssa_cum.cpu().numpy(),
             ssa_vals=self.ssa_vals.cpu().numpy(),
         )
+
+    def save(self, path: str) -> None:
+        """The JAX package's ``.fmi.npz``, key for key."""
+        np.savez_compressed(path, **self.arrays())
 
     @classmethod
     def load(cls, path: str) -> "FMIndex":
@@ -153,13 +158,21 @@ def bwt_from_sa(text_codes: np.ndarray, sa: np.ndarray):
 
 
 def build_fmindex(text_codes: np.ndarray, sa: np.ndarray | None = None,
-                  sa_interval: int = 8, method: str = "auto") -> FMIndex:
+                  sa_interval: int = 8, method: str = "auto",
+                  device=None) -> FMIndex:
     """A complete FM-index of 2-bit text codes, built on the host (host
     tensors; ``.to(device)`` moves it). ``sa`` is built with
-    ``index.sa.suffix_array(method=...)`` when not given."""
+    ``index.sa.suffix_array(method=...)`` when not given; ``method="device"``
+    builds the whole index on ``device`` instead
+    (``index.device_sa.build_fmindex_device``, cuda unless the caller asks
+    for the CPU) and returns it there."""
     from nvbio_tpu_torch import packed
     from nvbio_tpu_torch.index.sa import suffix_array
 
+    if sa is None and method == "device":
+        from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+
+        return build_fmindex_device(text_codes, sa_interval, device)
     text_codes = np.asarray(text_codes, dtype=np.uint8)
     n = len(text_codes)
     if n >= 2**31 - 1:
@@ -189,3 +202,46 @@ def build_fmindex(text_codes: np.ndarray, sa: np.ndarray | None = None,
     return FMIndex.from_arrays(bwt_words, occ, count, primary, n,
                                sa_interval, marks, cum.astype(np.int32),
                                sa[rows].astype(np.int32))
+
+
+def fmindex_from_bwt(bwt_codes: np.ndarray, primary: int,
+                     sa_interval: int = 8, device=None):
+    """A complete FM index rebuilt from a BWT alone (the nvSSA job,
+    ``nvSSA/nvSSA.cpp:42-119``; ``nvbio_tpu.fmi.index.fmindex_from_bwt``)
+    as torch ops on ``device`` (cuda unless the caller asks for the CPU):
+    LF over the full BWT (the sentinel at row ``primary`` maps to row 0),
+    the SA by Wyllie list ranking over LF (SA[i] = hops from row i to the
+    primary row: ceil(log2(n+1)) rounds of r += r[nxt], nxt = nxt[nxt]),
+    the text from the F column, then every table on that device."""
+    from nvbio_tpu_torch.device import resolve_device
+    from nvbio_tpu_torch.index.device_sa import fm_tables, plane_of
+
+    dev = resolve_device(device)
+    bwt = torch.from_numpy(np.asarray(bwt_codes, np.uint8).copy()).to(dev)
+    n = bwt.shape[0]
+    n_rows = n + 1
+    counts = torch.stack([(bwt == c).sum() for c in range(4)])
+    count = torch.ones(5, dtype=torch.int64, device=dev)
+    count[1:] += torch.cumsum(counts, dim=0)
+    full = torch.cat([bwt[:primary].to(torch.int8),
+                      torch.full((1,), -1, dtype=torch.int8, device=dev),
+                      bwt[primary:].to(torch.int8)])
+    lf = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    for c in range(4):
+        hit = full == c
+        before = torch.cumsum(hit, dim=0) - hit.to(torch.int64)
+        lf[hit] = count[c] + before[hit]
+    lf[primary] = 0
+    nxt = lf
+    nxt[primary] = primary
+    r = torch.ones(n_rows, dtype=torch.int64, device=dev)
+    r[primary] = 0
+    for _ in range(max(1, int(np.ceil(np.log2(n_rows))))):
+        r = r + r[nxt]
+        nxt = nxt[nxt]
+    sa = r
+    rows = torch.arange(1, n_rows, dtype=torch.int64, device=dev)
+    text = torch.empty(n, dtype=torch.uint8, device=dev)
+    text[sa[1:]] = torch.searchsorted(count[1:], rows, right=True).to(
+        torch.uint8)
+    return fm_tables(plane_of(text), sa, n, sa_interval)

@@ -81,6 +81,29 @@ def build_ssa_rows(marks: np.ndarray, cum: np.ndarray) -> np.ndarray:
         [m, np.asarray(cum, dtype=np.int32)], axis=1))
 
 
+def rank_rows_tensor(bwt_words: torch.Tensor, n: int,
+                     occ: torch.Tensor) -> torch.Tensor:
+    """``build_rank_rows`` as torch ops on the tables' device: int32 bits
+    of the packed words and int32 checkpoints in, (n//K + 2, 8) int32
+    rows out."""
+    nb = n // K + 2
+    rows = torch.zeros((nb, ROW), dtype=torch.int32, device=occ.device)
+    rows[:occ.shape[0], :4] = occ
+    rows[occ.shape[0]:, :4] = occ[-1]
+    words = torch.zeros(nb * WORDS_PER_BLOCK, dtype=torch.int32,
+                        device=occ.device)
+    words[:bwt_words.shape[0]] = bwt_words
+    rows[:, 4:] = words.view(nb, WORDS_PER_BLOCK)
+    return rows
+
+
+def ssa_rows_tensor(marks: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """``build_ssa_rows`` as torch ops: (n_words, 2) int32 rows of the
+    marks' int32 bits and their exclusive popcounts."""
+    return torch.stack([marks.to(torch.int32), cum.to(torch.int32)],
+                       dim=1).contiguous()
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Bits set in the low 32 bits of int64 ``x`` (SWAR)."""
     x = x - ((x >> 1) & _EVEN)

@@ -1,9 +1,10 @@
-"""Suffix-array construction, on the host (a copy of ``nvbio_tpu.index.sa``).
+"""Suffix-array construction (a copy of ``nvbio_tpu.index.sa``).
 
 ``suffix_array`` returns the SA of T$ (n+1 entries, sa[0] == n): the
-native C++ SA-IS engine (``native/sais.cpp``, method "native"/"auto") or
-Manber-Myers prefix doubling in numpy ("doubling"). The suffix array is
-unique, so every method gives the same index.
+native C++ SA-IS engine (``native/sais.cpp``, method "native"/"auto"),
+Manber-Myers prefix doubling in numpy ("doubling") or prefix doubling over
+``torch.sort`` on a device ("device", ``index.device_sa``). The suffix
+array is unique, so every method gives the same index.
 """
 
 from __future__ import annotations
@@ -11,17 +12,19 @@ from __future__ import annotations
 import numpy as np
 
 
-def suffix_array(codes: np.ndarray, method: str = "auto") -> np.ndarray:
+def suffix_array(codes: np.ndarray, method: str = "auto",
+                 device=None) -> np.ndarray:
     """SA of text + sentinel (n+1 entries, sa[0] == n).
 
     method: "native" (C++ SA-IS, O(n)), "doubling" (numpy, O(n log^2 n)),
-    or "auto" (native if the toolchain is available, else doubling).
-    "device" (the JAX package's sort on the accelerator) is not ported.
+    "auto" (native if the toolchain is available, else doubling), or
+    "device" (``index.device_sa.suffix_array_device`` on ``device``: cuda
+    unless the caller asks for the CPU).
     """
     if method == "device":
-        raise NotImplementedError(
-            "index construction on the card is not ported yet: use "
-            "method='auto', 'native' or 'doubling'")
+        from nvbio_tpu_torch.index.device_sa import suffix_array_device
+
+        return suffix_array_device(codes, device)
     if method not in ("auto", "native", "doubling"):
         raise ValueError(f"unknown suffix array method {method!r}")
     if method in ("auto", "native"):

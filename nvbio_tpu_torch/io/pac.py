@@ -5,9 +5,8 @@ Counterpart of the reference's ``nvBWT/nvBWT.cu:280-308`` (``save_pac``:
 ``l_pac/4 + 2``) and ``nvbio/basic/bnt.{h,cpp}`` (``save_bns``/``load_bns``:
 the .ann/.amb contig-name/offset/ambiguity sidecars). Files written here are
 readable by BWA and vice versa, so indexes interoperate at the artifact
-level. A copy of the text half of ``nvbio_tpu.io.pac``; the ``.bwt``
-artifacts (``save_bwt``/``load_bwt``) belong to the FM index and are not
-ported yet.
+level. A copy of ``nvbio_tpu.io.pac``, with the nvBWT ``.bwt`` artifacts
+(``save_bwt``/``load_bwt``, plain or in LZ4 frames).
 """
 
 from __future__ import annotations
@@ -141,3 +140,102 @@ def load_reference_pac(prefix: str):
         np.bitwise_or.at(mask, idx // 32,
                          np.uint32(1) << (idx % 32).astype(np.uint32))
     return Reference(names, offsets, codes, mask)
+
+
+_LZ4_MAGIC = b"NB4\x01"
+
+
+def save_bwt(bwt_codes: np.ndarray, primary: int, path: str,
+             compress: str | None = None) -> None:
+    """Write an nvBWT-format .bwt file (``nvBWT/nvBWT.cu:314-330``):
+    uint32 primary, uint32 cumFreq[4], then the 2-bit packed BWT words
+    (MSB-first within each word, the nvbio/BWA stream convention).
+
+    ``compress="lz4"`` writes the LZ4 variant instead (the reference's
+    ``sufsort/file_bwt_lz4.cu``), through ``native/lz4.cpp``: magic
+    ``NB4\\x01``, the same header, then [u32 raw_len][u32 comp_len]
+    [LZ4 block] frames over the packed word byte stream."""
+    import struct
+
+    if compress not in (None, "lz4"):
+        raise ValueError(f"unknown compress={compress!r}")
+    bwt_codes = np.asarray(bwt_codes, np.uint8)
+    n = len(bwt_codes)
+    CH = 1 << 26  # symbols per chunk, a multiple of 16
+    counts = np.zeros(4, np.int64)
+    for s in range(0, n, CH):
+        counts += np.bincount(bwt_codes[s:s + CH], minlength=4)[:4]
+    cum = np.cumsum(counts).astype(np.uint32)
+    shifts = (30 - 2 * np.arange(16, dtype=np.uint32)).astype(np.uint32)
+    with open(path, "wb") as f:
+        if compress == "lz4":
+            f.write(_LZ4_MAGIC)
+        f.write(struct.pack("<I", primary))
+        f.write(cum.astype("<u4").tobytes())
+        for s in range(0, n, CH):
+            seg = bwt_codes[s:s + CH]
+            nw = (len(seg) + 15) // 16
+            padded = np.zeros(nw * 16, np.uint32)
+            padded[:len(seg)] = seg
+            words = np.bitwise_or.reduce(
+                padded.reshape(nw, 16) << shifts, axis=1).astype(np.uint32)
+            raw = words.astype("<u4").tobytes()
+            if compress == "lz4":
+                from nvbio_tpu_torch import native
+
+                comp = native.lz4_compress(raw)
+                f.write(struct.pack("<II", len(raw), len(comp)))
+                f.write(comp.tobytes())
+            else:
+                f.write(raw)
+
+
+def _lz4_frames(data: bytes):
+    """(words, primary, cum) of an LZ4-framed .bwt; ValueError when the
+    frames do not parse (a plain file whose primary equals the magic)."""
+    import struct
+
+    from nvbio_tpu_torch import native
+
+    primary = struct.unpack("<I", data[4:8])[0]
+    cum = np.frombuffer(data[8:24], "<u4").astype(np.int64)
+    parts = []
+    i = 24
+    while i < len(data):
+        if i + 8 > len(data):
+            raise ValueError("truncated frame header")
+        raw_len, comp_len = struct.unpack("<II", data[i:i + 8])
+        i += 8
+        if i + comp_len > len(data):
+            raise ValueError("truncated frame")
+        parts.append(native.lz4_decompress(data[i:i + comp_len], raw_len))
+        i += comp_len
+    words = (np.concatenate(parts).view("<u4").astype(np.uint32)
+             if parts else np.zeros(0, np.uint32))
+    return words, primary, cum
+
+
+def load_bwt(path: str):
+    """Read an nvBWT .bwt file (plain or LZ4-framed, told apart by the
+    ``NB4\\x01`` magic and strict frame parsing) -> (bwt_codes, primary,
+    cumFreq)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    parsed = None
+    if data[:4] == _LZ4_MAGIC:
+        try:
+            parsed = _lz4_frames(data)
+        except ValueError:
+            parsed = None
+    if parsed is None:
+        primary = struct.unpack("<I", data[:4])[0]
+        cum = np.frombuffer(data[4:20], "<u4").astype(np.int64)
+        words = np.frombuffer(data[20:], "<u4").astype(np.uint32)
+    else:
+        words, primary, cum = parsed
+    n = int(cum[3])
+    shifts = (30 - 2 * np.arange(16, dtype=np.uint32)).astype(np.uint32)
+    codes = ((words[:, None] >> shifts) & 3).reshape(-1)[:n]
+    return codes.astype(np.uint8), int(primary), cum

@@ -1,9 +1,10 @@
 """Native (C++) host helpers, built on demand with g++ and loaded by ctypes.
 
-A copy of the q-gram, BGZF and SA-IS parts of ``nvbio_tpu.native``:
+A copy of the q-gram, BGZF, SA-IS and LZ4 parts of ``nvbio_tpu.native``:
 ``qgram.cpp`` is the same counting-sort table construction, ``bgzf.cpp``
-the same multithreaded BGZF block compressor (linked with zlib) and
-``sais.cpp`` the same SA-IS suffix sorter, each compiled at first use into
+the same multithreaded BGZF block compressor (linked with zlib),
+``sais.cpp`` the same SA-IS suffix sorter and ``lz4.cpp`` the same LZ4
+block codec (the ``.bwt`` LZ4 frames), each compiled at first use into
 ``nvbio_tpu_torch/native/build/`` (gitignored, content-hash staleness).
 """
 
@@ -182,3 +183,48 @@ def bgzf_available() -> bool:
     except (OSError, subprocess.CalledProcessError):
         return False
     return True
+
+
+def get_lz4() -> ctypes.CDLL:
+    """Native LZ4 block codec (``lz4.cpp``)."""
+    lib = load("nvbio_torch_lz4", ["lz4.cpp"])
+    lib.nvb_lz4_bound.restype = ctypes.c_int64
+    lib.nvb_lz4_bound.argtypes = [ctypes.c_int64]
+    for name in ("nvb_lz4_compress", "nvb_lz4_decompress"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_int64]
+    return lib
+
+
+def _bytes_u8(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray)):
+        return np.frombuffer(bytes(data), np.uint8)
+    return np.ascontiguousarray(data, dtype=np.uint8)
+
+
+def lz4_compress(data) -> np.ndarray:
+    """LZ4 block-format compression of bytes or a uint8 array; returns a
+    uint8 array."""
+    src = _bytes_u8(data)
+    lib = get_lz4()
+    cap = int(lib.nvb_lz4_bound(len(src)))
+    dst = np.empty(cap, np.uint8)
+    m = lib.nvb_lz4_compress(src.ctypes.data, len(src), dst.ctypes.data, cap)
+    if m < 0:
+        raise ValueError("lz4 compression overflow")
+    return dst[:m].copy()
+
+
+def lz4_decompress(comp, raw_len: int) -> np.ndarray:
+    """Inverse of ``lz4_compress``; ``raw_len`` is the original size.
+    Raises ValueError on a malformed block."""
+    src = _bytes_u8(comp)
+    lib = get_lz4()
+    dst = np.empty(max(raw_len, 1), np.uint8)
+    m = lib.nvb_lz4_decompress(src.ctypes.data, len(src), dst.ctypes.data,
+                               raw_len)
+    if m != raw_len:
+        raise ValueError(f"lz4 decompression failed ({m} != {raw_len})")
+    return dst[:raw_len]

@@ -1,9 +1,15 @@
-"""Direct-address q-gram index: host build + torch device lookups.
+"""Q-gram indexes: host builds + torch device lookups.
 
-Port of the parts of ``nvbio_tpu.qgram`` the single-end mapper uses: bucket
-offsets of size 4^q + 1 and a position table sorted by (q-gram, position),
-so a seed lookup is two gathers. The table is built on the host by the
-native counting sort (``nvbio_tpu_torch.native``), then moved to the device.
+Port of the parts of ``nvbio_tpu.qgram`` the mapper and the ``index`` app
+use. The direct-address ``QGramIndex``: bucket offsets of size 4^q + 1 and
+a position table sorted by (q-gram, position), so a seed lookup is two
+gathers; built on the host by the native counting sort
+(``nvbio_tpu_torch.native``). The two-level ``QGroupIndex`` (the
+reference's ``qgram/qgroup.h:81-200``): a presence bitvector over the 4^q
+keys, its popcount prefix, slot starts and positions; built on the host by
+numpy, as in the JAX package. Both move to the device with ``.to``, and
+``save``/``load`` read and write the JAX package's ``.qgram.npz`` and
+``.qgroup.npz``.
 
 Tables are int32 tensors for texts below 2^31 symbols (int64 above); every
 gathered position is widened to int64 before any arithmetic, so no
@@ -62,6 +68,20 @@ class QGramIndex:
         return cls.from_arrays(
             int(z["q"]), int(z["n"]), z["offsets"], z["positions"],
             z["mid_pos"] if "mid_pos" in z.files else None)
+
+    def save(self, path: str) -> None:
+        """Write the JAX package's ``.qgram.npz``, key for key: tables in
+        ``position_dtype(n)``, empty ``mid_pos`` buckets as its max."""
+        dt = position_dtype(self.n)
+        extra = {}
+        if self.mid_pos is not None:
+            mp = self.mid_pos.cpu().numpy()
+            extra["mid_pos"] = np.where(mp < 0, np.iinfo(dt).max,
+                                        mp).astype(dt)
+        np.savez_compressed(
+            path, q=self.q, offsets=self.offsets.cpu().numpy().astype(dt),
+            positions=self.positions.cpu().numpy().astype(dt), n=self.n,
+            **extra)
 
 
 def position_dtype(n: int):
@@ -160,3 +180,124 @@ def stratified_locate_rows(index: QGramIndex, lo: torch.Tensor,
     s_idx = torch.arange(NS, dtype=torch.int64, device=lo.device)
     base = lo + (excess // NS) * s_idx[None, :]             # (B, NS)
     return qgram_locate(index, base[..., None], off)
+
+
+def qgram_keys(codes: np.ndarray, q: int) -> np.ndarray:
+    """Rolling q-gram keys of a code array: key[i] = codes[i:i+q] base 4,
+    first symbol in the high bits (int64, host)."""
+    codes = np.asarray(codes, dtype=np.int64)
+    n = len(codes) - q + 1
+    if n <= 0:
+        return np.zeros(0, dtype=np.int64)
+    keys = np.zeros(n, dtype=np.int64)
+    for j in range(q):
+        keys = (keys << 2) | codes[j:j + n]
+    return keys
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    """A host int32 tensor of ``a``'s bits (uint32 words keep their bits)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.astype(np.int32, copy=False))
+
+
+@dataclasses.dataclass
+class QGroupIndex:
+    """Q-Group index: two-level compacted q-gram dictionary (PEANUT's, the
+    reference's ``QGroupIndexDevice``). int32 tensors; ``I`` holds uint32
+    bits."""
+
+    q: int
+    I: torch.Tensor    # int32 bits of uint32[ceil(4^q / 32)]: key present
+    S: torch.Tensor    # int32[len(I) + 1]: exclusive popcount prefix of I
+    SS: torch.Tensor   # int32[n_unique + 1]: slot start of each q-gram
+    P: torch.Tensor    # int32[n - q + 1]: positions sorted by (q-gram, pos)
+    n: int             # text length
+
+    def to(self, device) -> "QGroupIndex":
+        return QGroupIndex(self.q, self.I.to(device), self.S.to(device),
+                           self.SS.to(device), self.P.to(device), self.n)
+
+    def save(self, path: str) -> None:
+        """Write the JAX package's ``.qgroup.npz``, key for key."""
+        np.savez_compressed(
+            path, q=self.q, I=self.I.cpu().numpy().view(np.uint32),
+            S=self.S.cpu().numpy(), SS=self.SS.cpu().numpy(),
+            P=self.P.cpu().numpy(), n=self.n)
+
+    @classmethod
+    def load(cls, path: str) -> "QGroupIndex":
+        """Read a ``.qgroup.npz`` (either package's), as host tensors."""
+        z = np.load(path)
+        return cls(int(z["q"]), _i32(z["I"]), _i32(z["S"]), _i32(z["SS"]),
+                   _i32(z["P"]), int(z["n"]))
+
+
+def _popcount_u32(x: np.ndarray) -> np.ndarray:
+    """Bits set in each word of a uint32 array (SWAR, wrapping uint32)."""
+    x = x - ((x >> 1) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return (x * np.uint32(0x01010101)) >> 24
+
+
+def build_qgroup_index(codes: np.ndarray, q: int = 16) -> QGroupIndex:
+    """Host construction (sort, unique, popcount prefixes), as
+    ``nvbio_tpu.qgram.build_qgroup_index``; q up to 16 (32-bit keys)."""
+    if q < 1 or q > 16:
+        raise ValueError("q must be in [1, 16] (32-bit keys)")
+    keys = qgram_keys(codes, q)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    uniq = np.ones(len(sk), bool)
+    uniq[1:] = sk[1:] != sk[:-1]
+    SS = np.append(np.flatnonzero(uniq), len(sk)).astype(np.int32)
+    n_words = ((1 << (2 * q)) + 31) // 32
+    I = np.zeros(n_words, np.uint32)
+    uk = sk[uniq]
+    np.bitwise_or.at(I, uk >> 5, np.uint32(1) << (uk & 31).astype(np.uint32))
+    S = np.zeros(n_words + 1, np.int64)
+    np.cumsum(_popcount_u32(I), out=S[1:])
+    return QGroupIndex(q, _i32(I), _i32(S.astype(np.int32)), _i32(SS),
+                       _i32(order.astype(np.int32)), len(codes))
+
+
+def qgroup_range(index: QGroupIndex, keys: torch.Tensor):
+    """Bucket ranges [lo, hi) (int64) for q-gram keys — the reference's
+    ``QGroupIndexViewCore::range`` (``qgroup.h:120-136``). Keys are taken
+    modulo 2^(2q) in uint32 space, so q = 16 works with packed int32 seed
+    keys that wrap negative."""
+    from nvbio_tpu_torch.fmi.rank import popcount32
+
+    k = keys.to(torch.int64) & (((1 << (2 * index.q)) - 1) & 0xFFFFFFFF)
+    i = k >> 5
+    j = k & 31
+    word = index.I[i].to(torch.int64) & 0xFFFFFFFF
+    present = ((word >> j) & 1) == 1
+    slot = index.S[i].to(torch.int64) + popcount32(word & ((1 << j) - 1))
+    slot = slot.clamp(0, index.SS.shape[0] - 2)
+    lo = torch.where(present, index.SS[slot].to(torch.int64), 0)
+    hi = torch.where(present, index.SS[slot + 1].to(torch.int64), 0)
+    return lo, hi
+
+
+def qgroup_locate(index: QGroupIndex, lo: torch.Tensor, slot: torch.Tensor):
+    """Text positions (int64) of hit slots within bucket ranges."""
+    idx = (lo + slot).clamp(0, index.P.shape[0] - 1)
+    return index.P[idx].to(torch.int64)
+
+
+def index_range(index, keys: torch.Tensor):
+    """Bucket ranges of either q-gram index flavour."""
+    if isinstance(index, QGroupIndex):
+        return qgroup_range(index, keys)
+    return qgram_range(index, keys)
+
+
+def index_locate(index, lo: torch.Tensor, slot: torch.Tensor):
+    """Positions of hit slots of either q-gram index flavour."""
+    if isinstance(index, QGroupIndex):
+        return qgroup_locate(index, lo, slot)
+    return qgram_locate(index, lo, slot)

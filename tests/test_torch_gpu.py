@@ -1,8 +1,8 @@
 """On a CUDA card: the port's kernels against their plain versions and the
 mappers (single-end, paired-end, local, the full-matrix mate traceback,
-all-mapping, FM-index seeding) and the FM search on cuda against the same
-on cpu. Imports no JAX, so it also
-runs where only torch is installed:
+all-mapping, FM-index seeding, randomized hit selection), the FM search
+and the FM index built on the card against the same on cpu. Imports no
+JAX, so it also runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
@@ -882,5 +882,89 @@ def test_fm_seeded_mappers_on_cuda_equal_cpu(tmp_path):
     b1, b2 = (ReadBatch([f"p{i}" for i in range(256)], r.astype(np.uint8),
                         rng.integers(5, 41, size=r.shape).astype(np.uint8),
                         np.full(256, 100, np.int32)) for r in (r1, r2))
+    assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
+        [r.line() for r in map_pair_batch(cpu, b1, b2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 27, 65536, 300003])
+def test_device_fm_build_on_cuda_equals_host(n):
+    """``build_fmindex_device`` on the card against the host SA-IS build:
+    every table, rank and SSA rows included, on a random text with planted
+    repeats (ties past the 26-symbol bootstrap); the SA alone equals SA-IS;
+    ``fmindex_from_bwt`` on the card equals the host build."""
+    dev = _card()
+    from nvbio_tpu_torch.fmi.index import build_fmindex, fmindex_from_bwt
+    from nvbio_tpu_torch.index import device_sa as D
+    from nvbio_tpu_torch.index.sa import suffix_array
+
+    rng = np.random.default_rng(n)
+    text = rng.integers(0, 4, size=n, dtype=np.uint8)
+    for _ in range(min(20, n // 2000)):
+        s, d = rng.integers(0, n - 1000, 2)
+        text[d:d + 1000] = text[s:s + 1000]
+    stats = {}
+    got = D.build_fmindex_device(text, device=dev, stats=stats)
+    want = build_fmindex(text)
+    assert got.device.type == dev.type and got.primary == want.primary
+    for f in ("bwt_words", "occ", "count", "ssa_marks", "ssa_cum",
+              "ssa_vals", "rank_rows", "ssa_rows"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    np.testing.assert_array_equal(D.suffix_array_device(text, dev),
+                                  suffix_array(text, method="native"))
+    bwt, primary = D.bwt_device(text, dev)
+    again = fmindex_from_bwt(bwt, primary, device=dev)
+    assert torch.equal(again.rank_rows.cpu(), want.rank_rows)
+    if n >= 65536:
+        assert stats["tied_rows"] > 0
+
+
+@pytest.mark.gpu
+def test_randomized_selection_on_cuda_equals_cpu():
+    """``select_mode="randomized"`` on cuda and on cpu (q-gram, FM,
+    paired-end): the threefry draws and the SumTree CDF give the same bits
+    on both devices, so the SAM records are identical."""
+    dev = _card()
+    from nvbio_tpu_torch import sumtree, threefry
+    from nvbio_tpu_torch.bowtie.paired import map_pair_batch
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import sample_pairs, sample_reads
+
+    key = threefry.fold_in(threefry.prng_key(0x5E1EC7), 3)
+    u = threefry.uniform(key, (2, 1001, 24), dev)
+    assert torch.equal(u.cpu(), threefry.uniform(key, (2, 1001, 24), "cpu"))
+    w = torch.rand(1001, 7) * (torch.rand(1001, 7) < 0.5)
+    assert torch.equal(sumtree.sample_columns(w.to(dev), u[0]).cpu(),
+                       sumtree.sample_columns(w, u[0].cpu()))
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, size=400_000, dtype=np.uint8)
+    genome[200_000:260_000] = genome[:60_000]
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    reads, _, _ = sample_reads(genome, 512, 100, seed=6, subst_rate=0.02)
+    batch = ReadBatch([f"r{i}" for i in range(512)], reads.astype(np.uint8),
+                      rng.integers(5, 41, size=reads.shape).astype(np.uint8),
+                      np.full(512, 100, np.int32))
+    for seeding in ("qgram", "fmi"):
+        prm = MapParams(max_read_len=100, hits_per_seed=6, seeding=seeding,
+                        select_mode="randomized")
+        gpu = ReadMapper.build(ref, prm, device=dev)
+        cpu = ReadMapper.build(ref, prm, device="cpu",
+                               index=gpu.index.to("cpu"))
+        assert [r.line() for r in gpu.map_batch(batch)] == \
+            [r.line() for r in cpu.map_batch(batch)], seeding
+    r1, r2, _, _, _, _ = sample_pairs(genome, 256, 100, 200, 500, seed=8,
+                                      subst_rate=0.01)
+    b1, b2 = (ReadBatch([f"p{i}" for i in range(256)], r.astype(np.uint8),
+                        rng.integers(5, 41, size=r.shape).astype(np.uint8),
+                        np.full(256, 100, np.int32)) for r in (r1, r2))
+    prm = MapParams(max_read_len=100, hits_per_seed=6,
+                    select_mode="randomized")
+    gpu = ReadMapper.build(ref, prm, device=dev)
+    cpu = ReadMapper.build(ref, prm, device="cpu", index=gpu.index.to("cpu"))
     assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
         [r.line() for r in map_pair_batch(cpu, b1, b2)]

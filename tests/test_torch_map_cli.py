@@ -149,17 +149,28 @@ def test_profile_leaves_a_parseable_trace(se_dir):
     assert any(ev.get("ph") == "X" for ev in events)
 
 
-def test_fmi_seeding_and_multi_host_stop_by_name(tmp_path):
+def test_fmi_seeding_and_multi_host_stop_by_name(se_dir):
     from nvbio_tpu_torch.__main__ import main
 
-    # FM seeding is ported (tests/test_torch_fmi_pipeline.py); randomized
-    # hit selection is what a config file can still select and is refused
-    (tmp_path / "rand.cfg").write_text(
-        "seeding=fmi\nselect_mode=randomized\n")
-    with pytest.raises(NotImplementedError,
-                       match="select_mode='randomized' is not ported"):
-        main(["map", "ref.fa", "reads.fq", "--seeding", "fmi", "--config",
-              str(tmp_path / "rand.cfg"), "--device", "cpu"])
+    # FM seeding and randomized hit selection (which a config file selects)
+    # are ported: the port's SAM records equal nvbio_tpu's on the .pac
+    # reference; the multi-host flags stop by name
+    (se_dir / "rand.cfg").write_text("seeding=fmi\nselect_mode=randomized\n")
+    args = ["map", "se", "se.fq", *COMMON, "--batch", "32", "--seeding",
+            "fmi", "--config", "rand.cfg", "-o"]
+    r = _run("nvbio_tpu", [*args, "rand_jax.sam"], se_dir)
+    assert r.returncode == 0, r.stderr
+    assert main([*(str(se_dir / a) if a in ("se", "se.fq", "rand.cfg")
+                   else a for a in args),
+                 str(se_dir / "rand_port.sam"), "--device", "cpu"]) == 0
+
+    def records(name):
+        return [ln for ln in (se_dir / name).read_text().splitlines()
+                if not ln.startswith("@")]
+
+    assert records("rand_port.sam") == records("rand_jax.sam")
+    assert sum(not int(ln.split("\t")[1]) & 4
+               for ln in records("rand_port.sam")) >= 30
     for flag in ("--dist", "--coordinator=h:1", "--num-processes",
                  "--process-id"):
         with pytest.raises(SystemExit, match=f"{flag.split('=')[0]} is not "

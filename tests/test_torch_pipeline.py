@@ -167,18 +167,42 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit, match="nope.pac"):
         main(["map", str(tmp_path / "nope"), "reads.fq", "-o", "x.bam",
               "--device", "cpu"])
-    # FM seeding is ported; an option file that selects randomized hit
-    # selection (not ported) stops, for either seeding
+    # FM seeding and randomized hit selection are ported: an option file
+    # that selects randomized selection maps as nvbio_tpu's CLI does, and
+    # mappers of either seeding built with it write nvbio_tpu's records
+    recs, reads = _dataset(seed=11, n_reads=30)
+    (tmp_path / "ref.fa").write_text(
+        "".join(f">{n}\n{s}\n" for n, s in recs))
+    (tmp_path / "reads.fq").write_text(
+        "".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in reads))
     (tmp_path / "rand.txt").write_text("select_mode=randomized\n")
-    with pytest.raises(NotImplementedError, match="select_mode='randomized'"):
-        main(["map", "ref.fa", "reads.fq", "--config",
-              str(tmp_path / "rand.txt"), "--all", "--device", "cpu"])
+    common = ["reads.fq", "--max-read-len", str(L), "--seed-len", "16",
+              "--seed-stride", "10", "--batch", "32", "--max-dist", "5",
+              "--config", "rand.txt", "--all"]
+    r = _run("nvbio_tpu", ["map", "ref.fa", *common, "-o", "jax.sam"],
+             tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert main(["map", str(tmp_path / "ref.fa"),
+                 *(str(tmp_path / a) if a.endswith((".fq", ".txt")) else a
+                   for a in common),
+                 "-o", str(tmp_path / "port.sam"), "--device", "cpu"]) == 0
+
+    def records(name):
+        return [ln for ln in (tmp_path / name).read_text().splitlines()
+                if not ln.startswith("@")]
+
+    assert records("port.sam") == records("jax.sam")
+    assert len(records("port.sam")) >= len(reads)
     for seeding in ("qgram", "fmi"):
-        with pytest.raises(NotImplementedError):
-            TReadMapper.build(TReference.from_records([("c", "ACGT" * 50)]),
-                              TMapParams(seeding=seeding,
-                                         select_mode="randomized"),
-                              device="cpu")
+        kw = {**PARAMS, "seeding": seeding, "select_mode": "randomized"}
+        tm = TReadMapper.build(TReference.from_records(recs),
+                               TMapParams(**kw), device="cpu")
+        jm = JReadMapper.build(JReference.from_records(recs), JMapParams(**kw))
+        tsam = [r.line() for r in tm.map_batch(t_batch(reads, L,
+                                                       Alphabet.DNA_N))]
+        jsam = [r.line() for r in jm.map_batch(j_batch(reads, L,
+                                                       Alphabet.DNA_N))]
+        assert tsam == jsam, seeding
     assert torch.device("cpu") == TReadMapper.build(
         TReference.from_records([("c", "ACGT" * 50)]),
         TMapParams(pe_full_traceback=True), device="cpu").device
