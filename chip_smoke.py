@@ -76,6 +76,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      card against its host SA-IS build (every table equal; host seconds
      from the same run), and one build of 390 Mbp of random bases checked
      by locating 8192 seeds drawn from the text at their positions;
+     [blockwise]: blockwise_bwt of the 100 Mbp genome and of the
+     repeat-planted copy with knobs forcing >= 3 superblocks and >= 8
+     blocks (BWT and primary equal to the one-shot device builds'), then
+     of 2.5 Gbp of random bases (n > 2^31) with the defaults: seconds by
+     stage, superblocks, blocks, deepening rounds, host tie rows, peak
+     device memory, M suffixes/s; its symbol counts equal to the text's
+     and an LF walk over int64 checkpoints built on the card (every 2^16
+     rows) spelling the text's last 4096 symbols; [setbwt]: BwteDevice on
+     4 M reads of 100 bp (1% copies) in blocks of 500 k (seconds a block,
+     M symbols/s, peak memory; the read set's symbol counts and each
+     read's '$' tag once), and on its first 250 k reads equal to the
+     native engine's BWT (mse_bwt_incremental(method="native"), timed);
      [randomized]: select_mode="randomized" on 1 batch of 32768 SE reads
      (q-gram), 1 batch FM-seeded and 1 batch of FR pairs: reads/s
      (pairs/s), sensitivity >= 0.95, launches as their stratified paths',
@@ -123,8 +135,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      in-process builds, stage seconds from its log), its first 8 Mbp with
      --fmi --bwt --bwt-lz4 --pac --qgroup 16 --no-qgram (.fmi.npz,
      .ref.npz, .qgroup.npz, .bwt and .pac equal to the in-process
-     builds), and map from that prefix (Q-Group seeding, q = 16) of 1024
-     reads on cuda and on cpu, identical records;
+     builds), map from that prefix (Q-Group seeding, q = 16) of 1024
+     reads on cuda and on cpu, identical records, and the 8 Mbp FASTA
+     with --bwt-blockwise --bwt-lz4 (.bwt bytes equal to the --fmi --bwt
+     run's); then the setbwt app on 65536 reads of 100 bp with
+     --incremental 65536 --method device --txt --lz4 on cuda and on cpu,
+     identical files;
  13. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
@@ -1645,17 +1661,20 @@ def locate_seeds(index, text, rng) -> dict:
                 wide=int((~narrow).sum()), multi=int((size > 1).sum()))
 
 
-def phase_index_device(rep_genome, card) -> dict:
+def phase_index_device(rep_genome, card) -> tuple[dict, tuple]:
     """[index-device] beyond the uniform genome's build (``build_fm``): the
     repeat-planted genome on the card against its host SA-IS build, then
-    one build of BIG_GENOME random bases checked by locating seeds."""
+    one build of BIG_GENOME random bases checked by locating seeds.
+    Returns (stats, the repeats build's (BWT words on the host, primary))."""
     out = {}
     host, t_sa, t_tables = host_fm(rep_genome)
     out["repeats"] = device_build(rep_genome, "repeats", host)
     out["repeats"].update(host_sa_s=t_sa, host_tables_s=t_tables)
     print(f"[index-device] repeats: host SA-IS {t_sa:.2f} s + tables "
           f"{t_tables:.2f} s in the same run", flush=True)
-    del host, out["repeats"]["index"]
+    rep = out["repeats"].pop("index")
+    rep_bwt = (rep.bwt_words.cpu(), rep.primary)
+    del host, rep
     rng = np.random.default_rng(SEED + 2000)
     t0 = time.time()
     big = rng.integers(0, 4, size=BIG_GENOME, dtype=np.uint8)
@@ -1669,7 +1688,251 @@ def phase_index_device(rep_genome, card) -> dict:
           flush=True)
     del big
     torch.cuda.empty_cache()
+    return out, rep_bwt
+
+
+# ---------------------------------------------------------------------------
+# [blockwise]: the blockwise BWT (index.blockwise) on the card, held equal to
+# the one-shot device build; one text past 2^31 positions checked by its
+# symbol counts and an LF walk
+# ---------------------------------------------------------------------------
+
+# 100 Mbp through >= 3 superblocks and >= 8 blocks
+BW_KNOBS = dict(chunk=1 << 26, sb_cap=1 << 25, blk=1 << 23)
+BW_GENOME = 2_500_000_000   # past 2^31 positions and the one-shot build
+LF_INTERVAL = 1 << 16       # the LF check's checkpoint interval (rows)
+LF_CHECK = 4096             # symbols the LF walk spells
+
+
+def blockwise_build(codes, **knobs):
+    """``blockwise_bwt`` on the card: (bwt, primary, stats with the peak
+    device memory above what was held)."""
+    from nvbio_tpu_torch.index.blockwise import blockwise_bwt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwt, primary, st = blockwise_bwt(codes, device="cuda", **knobs)
+    torch.cuda.synchronize()
+    st["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    st["held_bytes"] = base
+    return bwt, primary, st
+
+
+def bw_stages(st) -> str:
+    return ", ".join(f"{k[:-2]} {st[k]:.3f}" for k in (
+        "counting_s", "upload_s", "extract_s", "sb_sort_s", "block_sort_s",
+        "deepen_s", "emit_fetch_s"))
+
+
+def blockwise_equal(codes, label, fm_words, fm_primary, card) -> dict:
+    """``codes`` built blockwise with BW_KNOBS: BWT and primary equal to the
+    one-shot device build's (``fm_words``: its packed BWT)."""
+    from nvbio_tpu_torch import packed
+
+    bwt, primary, st = blockwise_build(codes, **BW_KNOBS)
+    t0 = time.time()
+    words = torch.from_numpy(packed.pack(bwt, 2).view(np.int32))
+    same = primary == fm_primary and torch.equal(words, fm_words.cpu())
+    st["compare_s"] = time.time() - t0
+    print(f"[blockwise] {label}, {len(codes)} bp, knobs {BW_KNOBS}: "
+          f"{st['total_s']:.3f} s ({bw_stages(st)}); {st['superblocks']} "
+          f"superblocks, {st['blocks']} blocks, {st['deepen_rounds']} "
+          f"deepening rounds, {st['host_tie_small']} rows by the host "
+          f"tiny-tie path, {st['host_tie_fallbacks']} by the host fallback; "
+          f"{st['msuffixes_per_s']:.1f} M suffixes/s; peak "
+          f"{st['peak_bytes'] / 1e9:.3f} GB; BWT and primary "
+          f"{'equal to' if same else 'DIFFERENT from'} the one-shot device "
+          f"build's; card {card}", flush=True)
+    require(st["superblocks"] >= 3 and st["blocks"] >= 8,
+            f"blockwise {label}: {st['superblocks']} superblocks, "
+            f"{st['blocks']} blocks")
+    require(same, f"blockwise {label}: BWT or primary ({primary} against "
+                  f"{fm_primary}) differs from the one-shot device build")
+    return st
+
+
+def lf_spell(bwt: torch.Tensor, primary: int, count: list, k: int):
+    """The last ``k`` symbols of the text, spelled by an LF walk over the
+    BWT (``bwt``: n symbols on the card, the primary row dropped) from the
+    sentinel's row 0, with int64 checkpoints every LF_INTERVAL rows built
+    on the card. Returns (symbols, checkpoint seconds, walk seconds)."""
+    t0 = time.time()
+    n = bwt.shape[0]
+    full = n // LF_INTERVAL * LF_INTERVAL
+    blocks = bwt[:full].view(-1, LF_INTERVAL)
+    per = torch.stack([(blocks == c).sum(dim=1) for c in range(4)], dim=1)
+    ckpt = torch.zeros((per.shape[0] + 1, 4), dtype=torch.int64,
+                       device=bwt.device)
+    ckpt[1:] = torch.cumsum(per, dim=0)
+    del per
+    C = torch.tensor([1 + sum(count[:c]) for c in range(4)],
+                     dtype=torch.int64, device=bwt.device)
+    torch.cuda.synchronize()
+    t_ckpt = time.time() - t0
+    t0 = time.time()
+    ar = torch.arange(LF_INTERVAL, dtype=torch.int64, device=bwt.device)
+    r = torch.zeros((), dtype=torch.int64, device=bwt.device)
+    out = torch.empty(k, dtype=torch.int64, device=bwt.device)
+    for i in range(k):
+        rp = r - (r > primary).to(torch.int64)   # row in the dropped plane
+        c = bwt[rp].to(torch.int64)
+        b = rp // LF_INTERVAL
+        win = bwt[(b * LF_INTERVAL + ar).clamp(max=n - 1)]
+        part = ((win == c) & (ar < rp - b * LF_INTERVAL)).sum()
+        r = C[c] + ckpt[b, c] + part
+        out[i] = c
+    spelled = out.cpu().numpy()[::-1].astype(np.uint8)
+    return spelled, t_ckpt, time.time() - t0
+
+
+def phase_blockwise(genome, fm_gpu, rep_genome, rep_bwt, card) -> dict:
+    """[blockwise]: the 100 Mbp genome and its repeat-planted copy through
+    >= 3 superblocks and >= 8 blocks (BWT and primary equal to the one-shot
+    device builds'), then BW_GENOME random bases with the defaults: the
+    symbol counts of the BWT equal to the text's, and an LF walk over int64
+    checkpoints built on the card spelling the text's last LF_CHECK
+    symbols."""
+    from nvbio_tpu_torch.index.blockwise import blockwise_bwt
+
+    blockwise_bwt(genome[:1_000_000], device="cuda", **BW_KNOBS)  # warm-up
+    out = {"uniform": blockwise_equal(genome, "uniform", fm_gpu.bwt_words,
+                                      fm_gpu.primary, card),
+           "repeats": blockwise_equal(rep_genome, "repeats", *rep_bwt,
+                                      card)}
+    rng = np.random.default_rng(SEED + 3000)
+    t0 = time.time()
+    text = rng.integers(0, 4, size=BW_GENOME, dtype=np.uint8)
+    t_gen = time.time() - t0
+    bwt, primary, st = blockwise_build(text)
+    t0 = time.time()
+    count = np.bincount(text, minlength=4).tolist()
+    t_count = time.time() - t0
+    t0 = time.time()
+    dev_bwt = torch.from_numpy(bwt).cuda()
+    del bwt
+    bwt_count = [int((dev_bwt == c).sum()) for c in range(4)]
+    t_up = time.time() - t0
+    spelled, t_ckpt, t_walk = lf_spell(dev_bwt, primary, count, LF_CHECK)
+    del dev_bwt
+    torch.cuda.empty_cache()
+    lf_ok = np.array_equal(spelled, text[-LF_CHECK:])
+    st.update(genome_s=t_gen, text_count_s=t_count, bwt_upload_count_s=t_up,
+              lf_checkpoint_s=t_ckpt, lf_walk_s=t_walk, symbols=count)
+    print(f"[blockwise] big, {BW_GENOME} bp (n > 2^31) with the default "
+          f"knobs: {st['total_s']:.3f} s ({bw_stages(st)}); "
+          f"{st['superblocks']} superblocks, {st['blocks']} blocks "
+          f"(superblock sizes {st['sb_sizes']}), {st['deepen_rounds']} "
+          f"deepening rounds, {st['host_tie_small']} rows by the host "
+          f"tiny-tie path, {st['host_tie_fallbacks']} by the host fallback; "
+          f"{st['msuffixes_per_s']:.1f} M suffixes/s; peak "
+          f"{st['peak_bytes'] / 1e9:.3f} GB above the "
+          f"{st['held_bytes'] / 1e9:.3f} GB held; text generated in "
+          f"{t_gen:.2f} s; symbol counts {bwt_count} (text {count}); LF "
+          f"walk of {LF_CHECK} steps {t_walk:.2f} s over checkpoints built "
+          f"in {t_ckpt:.2f} s: {'spells' if lf_ok else 'does NOT spell'} "
+          f"the text's last {LF_CHECK} symbols; card {card}", flush=True)
+    require(bwt_count == count, f"blockwise big: BWT symbol counts "
+                                f"{bwt_count} differ from the text's {count}")
+    require(lf_ok, "blockwise big: the LF walk does not spell the text's end")
+    out["big"] = st
+    del text
     return out
+
+
+# ---------------------------------------------------------------------------
+# [setbwt]: the card's BWTE engine (index.bwte_device) on a read set
+# ---------------------------------------------------------------------------
+
+N_SETBWT_READS = 4_000_000
+SETBWT_L = 100
+SETBWT_BLOCK = 500_000
+N_SETBWT_NATIVE = 250_000   # the subset the native engine also builds
+
+
+def setbwt_reads(n, seed):
+    """``n`` reads of SETBWT_L random bases, 1% of them copies of others."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, size=(n, SETBWT_L), dtype=np.uint8)
+    dup = rng.choice(n, n // 100, replace=False)
+    reads[dup] = reads[rng.integers(0, n, n // 100)]
+    return reads
+
+
+def bwte_run(reads, block):
+    """``BwteDevice`` on the card over ``reads`` in blocks of ``block``:
+    (bwt, tags, seconds a block, peak device memory)."""
+    from nvbio_tpu_torch.index.bwte_device import BwteDevice
+
+    m, L = reads.shape
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = BwteDevice(capacity=m * (L + 1), n_strings=m, device="cuda")
+    secs = []
+    for i in range(0, m, block):
+        t0 = time.time()
+        eng.add_block(reads[i:i + block])
+        eng.sync()
+        secs.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    bwt, tags = eng.finalize()
+    return bwt, tags, secs, peak
+
+
+def phase_setbwt(card) -> dict:
+    """[setbwt]: BwteDevice on N_SETBWT_READS reads of SETBWT_L bases in
+    blocks of SETBWT_BLOCK (seconds a block, M symbols/s); the result has
+    the read set's symbol counts and one '$' a read, each read's tag once;
+    its first N_SETBWT_NATIVE reads, built again on the card in 4 blocks,
+    give the native engine's BWT (timed in this run)."""
+    from nvbio_tpu_torch.index.setbwt import mse_bwt_incremental
+
+    t0 = time.time()
+    reads = setbwt_reads(N_SETBWT_READS, SEED + 3100)
+    t_gen = time.time() - t0
+    bwte_run(reads[:8192], 4096)                              # warm-up
+    sub = reads[:N_SETBWT_NATIVE]
+    sblock = N_SETBWT_NATIVE // 4
+    sbwt, _, ssecs, _ = bwte_run(sub, sblock)
+    t0 = time.time()
+    nbwt = mse_bwt_incremental(sub, sblock, method="native")
+    t_native = time.time() - t0
+    sub_ok = np.array_equal(sbwt, nbwt)
+    bwt, tags, secs, peak = bwte_run(reads, SETBWT_BLOCK)
+    n_sym = N_SETBWT_READS * (SETBWT_L + 1)
+    t0 = time.time()
+    counts = np.bincount(bwt, minlength=5).tolist()
+    want = [N_SETBWT_READS] + (np.bincount(reads.reshape(-1), minlength=4)
+                               ).tolist()
+    tags_ok = np.array_equal(np.sort(tags[bwt == 0]),
+                             np.arange(N_SETBWT_READS))
+    t_check = time.time() - t0
+    st = dict(reads=N_SETBWT_READS, read_len=SETBWT_L, block=SETBWT_BLOCK,
+              symbols=n_sym, block_s=secs, total_s=sum(secs),
+              msymbols_per_s=n_sym / sum(secs) / 1e6, peak_bytes=peak,
+              reads_s=t_gen, check_s=t_check,
+              subset=dict(reads=N_SETBWT_NATIVE, block=sblock,
+                          device_s=sum(ssecs), native_s=t_native,
+                          native_msymbols_per_s=len(nbwt) / t_native / 1e6,
+                          equal=sub_ok))
+    print(f"[setbwt] BwteDevice, {N_SETBWT_READS} reads of {SETBWT_L} bp "
+          f"(1% duplicated) in blocks of {SETBWT_BLOCK}: {sum(secs):.3f} s, "
+          f"{st['msymbols_per_s']:.1f} M symbols/s, s a block "
+          f"{[round(x, 3) for x in secs]}, peak {peak / 1e9:.3f} GB; symbol "
+          f"counts {counts} (read set {want}), every tag once: {tags_ok}; "
+          f"first {N_SETBWT_NATIVE} reads in blocks of {sblock}: card "
+          f"{sum(ssecs):.3f} s, native engine {t_native:.2f} s "
+          f"({st['subset']['native_msymbols_per_s']:.2f} M symbols/s), "
+          f"{'equal' if sub_ok else 'DIFFERENT'} BWTs; card {card}",
+          flush=True)
+    require(sub_ok, "setbwt: the card's BWT of the subset differs from the "
+                    "native engine's")
+    require(counts == want and tags_ok,
+            f"setbwt: symbol counts {counts} against {want}, tags once: "
+            f"{tags_ok}")
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -2362,6 +2625,17 @@ def phase_cli_index(genome, fm_host, card) -> dict:
           f"stages: {out['prefix']['stages']}; .fmi.npz, .ref.npz, "
           f".qgroup.npz, .bwt (LZ4 frames) and .pac equal to the in-process "
           f"builds; card {card}", flush=True)
+    secs, log = run_cli([p("h.fa"), p("hb"), "--no-qgram", "--bwt-blockwise",
+                         "--bwt-lz4", *CLI_GPU_ARGS], "index")
+    with open(p("h.bwt"), "rb") as f, open(p("hb.bwt"), "rb") as g:
+        same = f.read() == g.read()
+    out["blockwise"] = dict(seconds=secs, stages=index_stages(log))
+    print(f"[cli] index {len(small)} bp --bwt-blockwise --bwt-lz4 "
+          f"--no-qgram: {secs:.2f} s end to end; stages: "
+          f"{out['blockwise']['stages']}; .bwt bytes "
+          f"{'equal to' if same else 'DIFFERENT from'} the --fmi --bwt "
+          f"run's; card {card}", flush=True)
+    require(same, "cli index --bwt-blockwise: .bwt differs from --fmi --bwt")
 
     sb = head(read_batch(small, SEED + 2100)[0])
     write_fastq(p("q.fq"), sb.names, sb.codes, sb.quals)
@@ -2388,6 +2662,52 @@ def phase_cli_index(genome, fm_host, card) -> dict:
     require(n_ok >= 0.95 * N_CMP, f"cli qgroup: {n_ok} of {N_CMP} mapped")
     out["qgroup_map"] = dict(records=len(recs), mapped=n_ok, cuda_s=g_s,
                              cpu_s=c_s)
+    tmp.cleanup()
+    return out
+
+
+N_CLI_SETBWT = 65536
+SETBWT_OUTPUTS = ("npz", "txt", "lz4")
+
+
+def phase_cli_setbwt(card) -> dict:
+    """The ``setbwt`` app in this process: N_CLI_SETBWT reads of SETBWT_L
+    bases with ``--incremental N_CLI_SETBWT --method device --txt --lz4``
+    on cuda and on cpu; identical .setbwt.npz, .txt and .lz4 files."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    reads = setbwt_reads(N_CLI_SETBWT, SEED + 3200)
+    fq = f"{tmp.name}/s.fq"
+    chars = np.frombuffer(b"ACGT", np.uint8)[reads]
+    with open(fq, "wb") as f:
+        for i, r in enumerate(chars):
+            f.write(b"@s%d\n%s\n+\n%s\n" % (i, r.tobytes(),
+                                                b"I" * SETBWT_L))
+    out = {}
+    for run, dev_args in (("card", list(CLI_GPU_ARGS)),
+                          ("host", ["--device", "cpu"])):
+        secs, _ = run_cli([fq, f"{tmp.name}/{run}", "--incremental",
+                           str(N_CLI_SETBWT), "--method", "device", "--txt",
+                           "--lz4", *dev_args], "setbwt")
+        out[f"{run}_s"] = secs
+    differ = []
+    for ext in SETBWT_OUTPUTS:
+        with open(f"{tmp.name}/card.setbwt.{ext}", "rb") as f, \
+                open(f"{tmp.name}/host.setbwt.{ext}", "rb") as g:
+            if f.read() != g.read():
+                differ.append(ext)
+    z = np.load(f"{tmp.name}/card.setbwt.npz")
+    n_dollar = int((z["bwt"] == 0).sum())
+    print(f"[cli] setbwt {N_CLI_SETBWT} reads of {SETBWT_L} bp "
+          f"--incremental {N_CLI_SETBWT} --method device --txt --lz4: cuda "
+          f"{out['card_s']:.2f} s, cpu {out['host_s']:.2f} s; "
+          f"{len(z['bwt'])} symbols, {n_dollar} '$'; "
+          f".setbwt.{'/.'.join(SETBWT_OUTPUTS)} "
+          f"{'differ in ' + str(differ) if differ else 'equal'} on cuda and "
+          f"on cpu; card {card}", flush=True)
+    require(not differ and n_dollar == N_CLI_SETBWT,
+            f"cli setbwt: outputs {differ} differ between cuda and cpu")
     tmp.cleanup()
     return out
 
@@ -2573,8 +2893,11 @@ def main() -> int:
     rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
     print(f"[index] repeat-planted genome ({N_REPEATS} x {REPEAT_LEN} bp) "
           f"in {time.time() - t0:.2f} s", flush=True)
-    index_device = phase_index_device(rep_genome, card)
+    index_device, rep_bwt = phase_index_device(rep_genome, card)
     index_device["uniform"] = fm_build["device"]
+    blockwise = phase_blockwise(genome, fm_gpu, rep_genome, rep_bwt, card)
+    del rep_bwt
+    setbwt = phase_setbwt(card)
     rand_stats, rand_launches = phase_randomized(
         genome, ref, gpu_index, fm_gpu, fm_cpu, params, card)
 
@@ -2603,6 +2926,7 @@ def main() -> int:
     gcups_launches, gcups = phase_gcups(card)
     cli_stats = phase_cli(genome, gpu_mapper, card)
     cli_stats["index"] = phase_cli_index(genome, fm_cpu, card)
+    cli_stats["setbwt"] = phase_cli_setbwt(card)
 
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
@@ -2715,6 +3039,7 @@ def main() -> int:
                       "paired_all": pa_stats, "gcups": gcups,
                       "fmi": fm_stats, "paired_fmi": pfm_stats,
                       "index_device": index_device,
+                      "blockwise": blockwise, "setbwt": setbwt,
                       "randomized": rand_stats,
                       "cli": cli_stats, "card": card}))
     print(card)

@@ -10,18 +10,18 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="nvbio_tpu_torch",
         description="PyTorch/CUDA port of nvbio_tpu (indexing, read "
-                    "mapping)",
+                    "mapping, read-set BWTs)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    from nvbio_tpu_torch.apps import index_app, map_app
+    from nvbio_tpu_torch.apps import index_app, map_app, setbwt_app
 
-    apps = {"index": index_app, "map": map_app}
+    apps = {"index": index_app, "map": map_app, "setbwt": setbwt_app}
     for app in apps.values():
         app.add_parser(sub)
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in apps:
+    if argv and hasattr(apps.get(argv[0]), "reject_not_ported"):
         apps[argv[0]].reject_not_ported(argv)
     args = parser.parse_args(argv)
     try:

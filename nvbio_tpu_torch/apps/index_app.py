@@ -2,7 +2,8 @@
 
     python -m nvbio_tpu_torch index ref.fa prefix [--fmi] [--no-qgram]
         [-q Q] [--sa-interval K] [--sa-backend auto|host|device]
-        [--qgroup Q] [--pac] [--bwt] [--bwt-lz4] [--device cpu]
+        [--qgroup Q] [--pac] [--bwt] [--bwt-lz4] [--bwt-blockwise]
+        [--device cpu]
 
 Port of ``nvbio_tpu/apps/index_app.py`` (nvBWT + nvSSA): writes, next to
 the prefix, the same artifacts as ``python -m nvbio_tpu index``:
@@ -11,15 +12,16 @@ the prefix, the same artifacts as ``python -m nvbio_tpu index``:
   <prefix>.qgroup.npz  Q-Group index (with --qgroup Q)
   <prefix>.pac/.ann/.amb  BWA-compatible packed reference (with --pac)
   <prefix>.fmi.npz     FM index (with --fmi)
-  <prefix>.bwt         nvBWT BWT (with --fmi --bwt; LZ4 frames with
-                       --bwt-lz4)
+  <prefix>.bwt         nvBWT BWT (with --fmi --bwt, or --bwt-blockwise;
+                       LZ4 frames with --bwt-lz4)
 The FM index is built on the card (``index.device_sa``: the suffix sort
 and every table) with ``--sa-backend device``, or with ``auto`` on a cuda
-device for genomes of 2^22 bases or more; else by host SA-IS. The app runs
-on cuda unless ``--device cpu`` is given (``--sa-backend device`` then
-sorts on the CPU) and raises where there is no card. It logs each stage's
-seconds. ``--bwt-blockwise`` (the blockwise sorter for texts past the int32
-FM index) is not ported yet and stops by name.
+device for genomes of 2^22 bases or more; else by host SA-IS.
+``--bwt-blockwise`` sorts the BWT block by block on the app's device
+(``index.blockwise``: int64 positions, texts past the int32 FM index, up
+to 2^32 - 17 bases). The app runs on cuda unless ``--device cpu`` is given
+(the device sorts then run on the CPU) and raises where there is no card.
+It logs each stage's seconds. Every flag of ``nvbio_tpu index`` is taken.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ from __future__ import annotations
 import time
 
 import numpy as np
-
-# flags of `nvbio_tpu index` whose paths are not ported yet
-NOT_PORTED = ("--bwt-blockwise",)
 
 
 def add_parser(sub):
@@ -57,19 +56,12 @@ def add_parser(sub):
                    help="with --fmi: also write the nvBWT-format .bwt file")
     p.add_argument("--bwt-lz4", action="store_true",
                    help="compress .bwt outputs with the native LZ4 codec")
+    p.add_argument("--bwt-blockwise", action="store_true",
+                   help="write the nvBWT .bwt via the blockwise device "
+                        "suffix sorter (texts past the int32 FM index)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(func=run)
     return p
-
-
-def reject_not_ported(argv: list[str]) -> None:
-    """Raise SystemExit naming the first flag of ``nvbio_tpu index`` in
-    ``argv`` whose path is not ported yet."""
-    for tok in argv:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            raise SystemExit(f"nvbio_tpu_torch index: {flag} is not yet "
-                             f"ported (blockwise BWT construction)")
 
 
 def _timed(stages: dict, name: str, t0: float) -> float:
@@ -117,12 +109,36 @@ def run(args):
         t = _timed(stages, "pac", t)
         log_info(f"wrote {args.prefix}.pac/.ann/.amb (BWA-compatible)")
 
+    if args.bwt_blockwise:
+        t = _build_blockwise(args, ref, dev, stages, t)
+
     if args.fmi:
         t = _build_fmi(args, ref, dev, stages, t)
     log_stats("stages: " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in stages.items()))
     return 0
+
+
+def _build_blockwise(args, ref, dev, stages: dict, t: float) -> float:
+    from nvbio_tpu_torch.index.blockwise import blockwise_bwt
+    from nvbio_tpu_torch.io.pac import save_bwt
+    from nvbio_tpu_torch.utils.console import log_info, log_stats
+
+    bwt, primary, st = blockwise_bwt(np.asarray(ref.codes), device=dev)
+    stages.update({f"bw_{k}": st[k] for k in (
+        "counting_s", "upload_s", "extract_s", "sb_sort_s", "block_sort_s",
+        "deepen_s", "emit_fetch_s", "superblocks", "blocks",
+        "deepen_rounds")})
+    t = time.perf_counter()
+    save_bwt(bwt, primary, args.prefix + ".bwt",
+             compress="lz4" if args.bwt_lz4 else None)
+    t = _timed(stages, "bw_save", t)
+    log_stats(f"blockwise {dev.type} BWT built in {st['total_s']:.2f}s "
+              f"({st['blocks']} blocks / {st['superblocks']} superblocks, "
+              f"primary={primary})")
+    log_info(f"wrote {args.prefix}.bwt (nvBWT format)")
+    return t
 
 
 def _build_fmi(args, ref, dev, stages: dict, t: float) -> float:

@@ -93,8 +93,21 @@ def _group_starts(sorted_keys: torch.Tensor, rows: torch.Tensor):
     """(group-start row of each sorted entry, tied mask) for sorted keys:
     a group is a run of equal keys, its start the ``rows`` value of its
     first entry; tied = member of a group of two or more."""
-    new = torch.ones_like(sorted_keys, dtype=torch.bool)
-    new[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return _run_starts(_runs(sorted_keys), rows)
+
+
+def _runs(*sorted_keys: torch.Tensor) -> torch.Tensor:
+    """True at the first entry of each run of equal key tuples."""
+    new = torch.zeros_like(sorted_keys[0], dtype=torch.bool)
+    new[:1] = True
+    for k in sorted_keys:
+        new[1:] |= k[1:] != k[:-1]
+    return new
+
+
+def _run_starts(new: torch.Tensor, rows: torch.Tensor):
+    """``_group_starts`` of runs marked by ``new`` (True at each run's
+    first entry)."""
     first = rows[torch.nonzero(new).squeeze(1)]
     start = first[torch.cumsum(new, dim=0) - 1]
     run_end = torch.ones_like(new)

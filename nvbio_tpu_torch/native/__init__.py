@@ -1,10 +1,11 @@
 """Native (C++) host helpers, built on demand with g++ and loaded by ctypes.
 
-A copy of the q-gram, BGZF, SA-IS and LZ4 parts of ``nvbio_tpu.native``:
-``qgram.cpp`` is the same counting-sort table construction, ``bgzf.cpp``
-the same multithreaded BGZF block compressor (linked with zlib),
-``sais.cpp`` the same SA-IS suffix sorter and ``lz4.cpp`` the same LZ4
-block codec (the ``.bwt`` LZ4 frames), each compiled at first use into
+A copy of ``nvbio_tpu.native``: ``qgram.cpp`` is the same counting-sort
+table construction, ``bgzf.cpp`` the same multithreaded BGZF block
+compressor (linked with zlib), ``sais.cpp`` the same SA-IS suffix sorter
+(byte and integer alphabets), ``lz4.cpp`` the same LZ4 block codec (the
+``.bwt`` LZ4 frames) and ``bwte.cpp`` the same BWTE engine (BCR block BWTs
+and rank-walk merges of read sets), each compiled at first use into
 ``nvbio_tpu_torch/native/build/`` (gitignored, content-hash staleness).
 """
 
@@ -74,6 +75,11 @@ def get_sais() -> ctypes.CDLL:
     fn64.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
+    fi = lib.nvbio_tpu_sais_i32
+    fi.restype = ctypes.c_int
+    fi.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ]
     return lib
 
 
@@ -90,6 +96,23 @@ def sais_u8(codes, K: int = 4):
         codes.ctypes.data, np.int32(n), np.int32(K), sa.ctypes.data)
     if rc != 0:
         raise RuntimeError(f"sais failed: {rc}")
+    return sa
+
+
+def sais_i32(codes, K: int):
+    """Integer-alphabet SA-IS: suffix array int32[n+1] of an int32 text in
+    [0, K) (+ implicit sentinel). Serves multi-string BCR texts with
+    distinct per-string sentinels (K = n_strings + 4)."""
+    lib = get_sais()
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    n = len(codes)
+    if n >= 2**31 - 2:
+        raise ValueError("sais_i32 is 32-bit-indexed; shard the text")
+    sa = np.empty(n + 1, dtype=np.int32)
+    rc = lib.nvbio_tpu_sais_i32(
+        codes.ctypes.data, np.int32(n), np.int32(K), sa.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"sais_i32 failed: {rc}")
     return sa
 
 
@@ -113,12 +136,6 @@ def get_qgram() -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    mp = lib.nvbio_tpu_qgram_midpos
-    mp.restype = None
-    mp.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-        ctypes.c_void_p,
     ]
     return lib
 
@@ -144,20 +161,6 @@ def qgram_build(codes, q: int, n_flags=None):
     if written < 0:
         raise RuntimeError(f"qgram_build failed: {written}")
     return offsets, positions[:written]
-
-
-def qgram_midpos(offsets, positions, sentinel: int):
-    """mid_pos[key] = middle entry of bucket ``key`` (sentinel if empty)."""
-    lib = get_qgram()
-    offsets = np.ascontiguousarray(offsets, dtype=np.uint32)
-    positions = np.ascontiguousarray(positions, dtype=np.uint32)
-    nb = len(offsets) - 1
-    mid = np.empty(nb, dtype=np.uint32)
-    lib.nvbio_tpu_qgram_midpos(
-        offsets.ctypes.data, positions.ctypes.data, ctypes.c_int64(nb),
-        ctypes.c_uint32(sentinel), mid.ctypes.data,
-    )
-    return mid
 
 
 def get_bgzf() -> ctypes.CDLL:
@@ -228,3 +231,66 @@ def lz4_decompress(comp, raw_len: int) -> np.ndarray:
     if m != raw_len:
         raise ValueError(f"lz4 decompression failed ({m} != {raw_len})")
     return dst[:raw_len]
+
+
+def get_bwte() -> ctypes.CDLL:
+    """Native BWTE engine (``bwte.cpp``): BCR block BWTs and merges."""
+    lib = load("nvbio_torch_bwte", ["bwte.cpp"])
+    fn = lib.nvbio_tpu_bcr_block
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    mg = lib.nvbio_tpu_bwte_merge
+    mg.restype = ctypes.c_int
+    mg.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return lib
+
+
+def bwte_available() -> bool:
+    """Whether the native BWTE engine builds and loads here."""
+    try:
+        get_bwte()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True
+
+
+def bcr_block_bwt(reads):
+    """Multi-string BWT of a uniform-length read matrix (uint8[m, L] of
+    0..3) by native BCR column rounds: uint8[m*(L+1)] over {0:'$',1..4}."""
+    lib = get_bwte()
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    m, L = reads.shape
+    out = np.empty(m * (L + 1), dtype=np.uint8)
+    rc = lib.nvbio_tpu_bcr_block(
+        reads.ctypes.data, ctypes.c_int64(m), ctypes.c_int64(L),
+        out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"bcr_block failed: {rc}")
+    return out
+
+
+def bwte_merge(M, S_prev: int, reads, B):
+    """Merge a block (reads uint8[m, L] and its block BWT ``B``) into the
+    accumulated multi-string BWT ``M`` of ``S_prev`` strings: dual LF rank
+    walks and one interleave pass. Requires len(M) + len(B) < 2^32."""
+    lib = get_bwte()
+    M = np.ascontiguousarray(M, dtype=np.uint8)
+    B = np.ascontiguousarray(B, dtype=np.uint8)
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    m, L = reads.shape
+    if len(B) != m * (L + 1):
+        raise ValueError(f"block BWT of {len(B)} symbols for {m} reads of "
+                         f"{L}")
+    out = np.empty(len(M) + len(B), dtype=np.uint8)
+    rc = lib.nvbio_tpu_bwte_merge(
+        M.ctypes.data, ctypes.c_int64(len(M)), ctypes.c_int64(S_prev),
+        reads.ctypes.data, ctypes.c_int64(m), ctypes.c_int64(L),
+        B.ctypes.data, out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"bwte_merge failed: {rc}")
+    return out

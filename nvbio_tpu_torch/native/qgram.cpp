@@ -92,15 +92,4 @@ int64_t nvbio_tpu_qgram_build(const uint8_t* codes, int64_t n, int32_t q,
   return written;
 }
 
-// Middle-position table for 1-mismatch seeding: mid_pos[key] = the middle
-// entry of bucket `key`, or `sentinel` for empty buckets. One HBM gather
-// per mutated key replaces the (lo, hi, locate) triple on the device.
-void nvbio_tpu_qgram_midpos(const uint32_t* offsets, const uint32_t* positions,
-                            int64_t nb, uint32_t sentinel, uint32_t* mid) {
-  for (int64_t b = 0; b < nb; ++b) {
-    const uint32_t lo = offsets[b], hi = offsets[b + 1];
-    mid[b] = (hi > lo) ? positions[lo + ((hi - lo) >> 1)] : sentinel;
-  }
-}
-
 }  // extern "C"

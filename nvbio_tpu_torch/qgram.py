@@ -4,12 +4,13 @@ Port of the parts of ``nvbio_tpu.qgram`` the mapper and the ``index`` app
 use. The direct-address ``QGramIndex``: bucket offsets of size 4^q + 1 and
 a position table sorted by (q-gram, position), so a seed lookup is two
 gathers; built on the host by the native counting sort
-(``nvbio_tpu_torch.native``). The two-level ``QGroupIndex`` (the
-reference's ``qgram/qgroup.h:81-200``): a presence bitvector over the 4^q
-keys, its popcount prefix, slot starts and positions; built on the host by
-numpy, as in the JAX package. Both move to the device with ``.to``, and
-``save``/``load`` read and write the JAX package's ``.qgram.npz`` and
-``.qgroup.npz``.
+(``nvbio_tpu_torch.native``), or by the blocked numpy builder
+``build_qgram_index_large`` (multi-Gbp texts in bounded memory). The
+two-level ``QGroupIndex`` (the reference's ``qgram/qgroup.h:81-200``): a
+presence bitvector over the 4^q keys, its popcount prefix, slot starts and
+positions; built on the host by numpy, as in the JAX package. Both move
+to the device with ``.to``, and ``save``/``load`` read and write the JAX
+package's ``.qgram.npz`` and ``.qgroup.npz``.
 
 Tables are int32 tensors for texts below 2^31 symbols (int64 above); every
 gathered position is widened to int64 before any arithmetic, so no
@@ -22,6 +23,7 @@ in the port; the JAX package marks them with the index dtype's max, and
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 
 import numpy as np
 import torch
@@ -57,8 +59,9 @@ class QGramIndex:
         if mid_pos is not None:
             mp = np.asarray(mid_pos)
             sent = np.iinfo(mp.dtype).max
-            mid = tensor(np.where(mp == sent, -1, mp).astype(
-                np.int64 if mp.dtype == np.uint32 else mp.dtype))
+            # widen before mapping the sentinel: -1 does not fit a uint32
+            dt = np.int64 if mp.dtype == np.uint32 else mp.dtype
+            mid = tensor(np.where(mp == sent, -1, mp.astype(dt)).astype(dt))
         return cls(int(q), tensor(offsets), tensor(positions), int(n), mid)
 
     @classmethod
@@ -93,8 +96,9 @@ def position_dtype(n: int):
 
 def build_qgram_index(codes: np.ndarray, q: int = 12,
                       n_flags: np.ndarray | None = None) -> QGramIndex:
-    """Host construction (native counting sort), host tensors, ``mid_pos``
-    attached.
+    """Host construction (native counting sort; where the toolchain does
+    not build, the numpy ``build_qgram_index_large``, as the JAX package
+    falls back), host tensors, ``mid_pos`` attached.
 
     ``n_flags`` marks ambiguous genome bases: q-grams overlapping one are
     excluded, as in ``nvbio_tpu.qgram.build_qgram_index``."""
@@ -102,14 +106,99 @@ def build_qgram_index(codes: np.ndarray, q: int = 12,
 
     if q < 1 or q > 15:
         raise ValueError("q must be in [1, 15] for int32 keys")
-    offs, pos = native.qgram_build(
-        codes, q, None if n_flags is None else np.asarray(n_flags, np.uint8))
+    try:
+        offs, pos = native.qgram_build(
+            codes, q,
+            None if n_flags is None else np.asarray(n_flags, np.uint8))
+    except (OSError, subprocess.CalledProcessError):
+        return build_qgram_index_large(codes, q, n_flags=n_flags)
     dt = position_dtype(len(codes))
-    mid = native.qgram_midpos(offs, pos, int(np.iinfo(dt).max))
-    mid = mid if dt == np.uint32 else mid.astype(dt)
     if dt != np.uint32:
         offs, pos = offs.astype(dt), pos.astype(dt)
-    return QGramIndex.from_arrays(q, len(codes), offs, pos, mid)
+    return _with_midpos(q, len(codes), offs, pos)
+
+
+def _with_midpos(q: int, n: int, offsets: np.ndarray,
+                 positions: np.ndarray) -> QGramIndex:
+    """The index of (offsets, positions) in ``position_dtype(n)``, with
+    ``mid_pos`` (the middle entry of each bucket, the native builder's
+    rule; the dtype's max marks an empty bucket, as the JAX package
+    holds it)."""
+    dt = offsets.dtype
+    cnt = offsets[1:].astype(np.int64) - offsets[:-1]
+    mid = np.full(len(cnt), np.iinfo(dt).max, dt)
+    full = np.flatnonzero(cnt > 0)
+    mid[full] = positions[offsets[full].astype(np.int64) + cnt[full] // 2]
+    return QGramIndex.from_arrays(q, n, offsets, positions, mid)
+
+
+def _window_has_n(n_flags: np.ndarray, q: int) -> np.ndarray:
+    """bad[i] = any(n_flags[i : i + q]) for i in [0, len - q + 1)."""
+    npos = len(n_flags) - q + 1
+    cs = np.zeros(len(n_flags) + 1, np.int64)
+    np.cumsum(n_flags.astype(np.int64), out=cs[1:])
+    return (cs[q:q + npos] - cs[:npos]) > 0
+
+
+def build_qgram_index_large(codes: np.ndarray, q: int = 12,
+                            chunk: int = 1 << 27,
+                            n_flags: np.ndarray | None = None,
+                            verbose: bool = False) -> QGramIndex:
+    """Blocked counting-sort builder for multi-Gbp texts (numpy), as
+    ``nvbio_tpu.qgram.build_qgram_index_large``: (1) per-chunk bucket
+    histograms -> global bucket bases, (2) per-chunk stable argsort and a
+    vectorized scatter into the final position table. Peak extra memory is
+    O(chunk + 4^q) instead of O(n) int64 sort state. Tables in
+    ``position_dtype(n)`` (uint32 from 2^31 symbols), host tensors,
+    ``mid_pos`` attached."""
+    n = len(codes)
+    npos = max(n - q + 1, 0)
+    dt = position_dtype(n)
+    n_buckets = 1 << (2 * q)
+    n_chunks = (npos + chunk - 1) // chunk
+    if n_flags is not None:
+        n_flags = np.asarray(n_flags, bool)[:n]
+
+    def chunk_keys(c):
+        s, e = c * chunk, min((c + 1) * chunk, npos)
+        k = qgram_keys(codes[s:e + q - 1], q)
+        if n_flags is not None:
+            keep = ~_window_has_n(n_flags[s:e + q - 1], q)
+            return k[keep], np.flatnonzero(keep) + s
+        return k, None
+
+    # pass 1: global bucket histogram (keys recomputed per chunk: cheaper
+    # than holding 8n bytes of int64 keys)
+    totals = np.zeros(n_buckets, np.int64)
+    for c in range(n_chunks):
+        totals += np.bincount(chunk_keys(c)[0], minlength=n_buckets)
+        if verbose:
+            print(f"  qgram pass1 chunk {c + 1}/{n_chunks}", flush=True)
+    bucket_starts = np.zeros(n_buckets + 1, np.int64)
+    np.cumsum(totals, out=bucket_starts[1:])
+
+    # pass 2: per chunk, stable argsort and a scatter at each bucket's
+    # running cursor (chunks go in position order, so a bucket's positions
+    # land sorted)
+    positions = np.empty(int(bucket_starts[-1]), dt)
+    cur = bucket_starts[:-1].copy()
+    for c in range(n_chunks):
+        k64, pos_of = chunk_keys(c)
+        k = k64.astype(np.uint32)
+        order = np.argsort(k, kind="stable")
+        sk = k[order]
+        # within-bucket rank of each sorted element
+        run_start = np.zeros(len(sk), np.int64)
+        new_run = np.flatnonzero(sk[1:] != sk[:-1]) + 1
+        run_start[new_run] = new_run
+        np.maximum.accumulate(run_start, out=run_start)
+        within = np.arange(len(sk), dtype=np.int64) - run_start
+        src = (order + c * chunk) if pos_of is None else pos_of[order]
+        positions[cur[sk] + within] = src.astype(dt)
+        cur += np.bincount(k, minlength=n_buckets)
+        if verbose:
+            print(f"  qgram pass2 chunk {c + 1}/{n_chunks}", flush=True)
+    return _with_midpos(q, n, bucket_starts.astype(dt), positions)
 
 
 def seed_keys_from_batch(seeds: torch.Tensor, q: int) -> torch.Tensor:

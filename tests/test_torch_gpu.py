@@ -1,7 +1,8 @@
 """On a CUDA card: the port's kernels against their plain versions and the
 mappers (single-end, paired-end, local, the full-matrix mate traceback,
-all-mapping, FM-index seeding, randomized hit selection), the FM search
-and the FM index built on the card against the same on cpu. Imports no
+all-mapping, FM-index seeding, randomized hit selection), the FM search,
+the FM index, the blockwise BWT and the BWTE engine built on the card
+against the same on cpu. Imports no
 JAX, so it also runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
@@ -968,3 +969,84 @@ def test_randomized_selection_on_cuda_equals_cpu():
     cpu = ReadMapper.build(ref, prm, device="cpu", index=gpu.index.to("cpu"))
     assert [r.line() for r in map_pair_batch(gpu, b1, b2)] == \
         [r.line() for r in map_pair_batch(cpu, b1, b2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 100003, 2_000_000])
+def test_blockwise_bwt_on_cuda_equals_cpu(n):
+    """``blockwise_bwt`` on the card against the same call on the CPU and
+    the host SA-IS BWT, through several superblocks and blocks, on a text
+    with planted repeats (deepening, then the host paths)."""
+    dev = _card()
+    from nvbio_tpu_torch.fmi.index import bwt_from_sa
+    from nvbio_tpu_torch.index.blockwise import blockwise_bwt
+    from nvbio_tpu_torch.index.sa import suffix_array
+
+    rng = np.random.default_rng(n)
+    text = rng.integers(0, 4, size=n, dtype=np.uint8)
+    for _ in range(min(20, n // 2000)):
+        s, d = rng.integers(0, n - 1000, 2)
+        text[d:d + 1000] = text[s:s + 1000]
+    knobs = dict(chunk=max(16, n // 3), sb_cap=max(64, n // 3),
+                 blk=max(32, n // 16))
+    want, wprim = bwt_from_sa(text, suffix_array(text))
+    for kw in ({}, {"host_tie_cap": 0}, {"host_tie_cap": 0,
+                                          "max_deepen": 2}):
+        got, prim, st = blockwise_bwt(text, device=dev, **knobs, **kw)
+        cpu, cprim, cst = blockwise_bwt(text, device="cpu", **knobs, **kw)
+        assert prim == cprim == wprim
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(cpu, want)
+        for k in ("superblocks", "blocks", "sb_sizes", "deepen_rounds",
+                  "host_tie_small", "host_tie_fallbacks"):
+            assert st[k] == cst[k], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_sa", ["device", "host"])
+def test_bwte_device_on_cuda_equals_cpu(block_sa):
+    """``BwteDevice`` on the card against the same engine on the CPU and
+    the host BCR oracle: blocks of uniform reads, some duplicated, and a
+    block of identical reads."""
+    dev = _card()
+    from nvbio_tpu_torch.index.bwte_device import BwteDevice
+    from nvbio_tpu_torch.index.setbwt import mse_bwt
+
+    rng = np.random.default_rng(11)
+    reads = rng.integers(0, 4, size=(3000, 60), dtype=np.uint8)
+    reads[::50] = reads[1::50]
+    reads[2000:2100] = reads[0]
+    out = []
+    for d in (dev, "cpu"):
+        eng = BwteDevice(capacity=reads.size + len(reads), n_strings=3000,
+                         device=d)
+        for i in range(0, 3000, 700):
+            eng.add_block(reads[i:i + 700], block_sa=block_sa)
+        assert eng.M.device.type == torch.device(d).type
+        out.append(eng.finalize())
+    want, wtags = mse_bwt(reads)
+    for bwt, tags in out:
+        np.testing.assert_array_equal(bwt, want)
+        np.testing.assert_array_equal(tags, wtags)
+
+
+@pytest.mark.gpu
+def test_setbwt_device_method_on_cuda(tmp_path):
+    """``setbwt --incremental --method device`` on the card writes the
+    files of the same run on the CPU."""
+    _card()
+    from nvbio_tpu_torch.__main__ import main
+
+    rng = np.random.default_rng(12)
+    reads = rng.integers(0, 4, size=(2000, 75))
+    with open(tmp_path / "r.fq", "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{''.join('ACGT'[c] for c in r)}\n+\n"
+                    f"{'I' * 75}\n")
+    for name, extra in (("card", []), ("host", ["--device", "cpu"])):
+        assert main(["setbwt", str(tmp_path / "r.fq"), str(tmp_path / name),
+                     "--incremental", "600", "--method", "device", "--txt",
+                     "--lz4", *extra]) == 0
+    for ext in ("npz", "txt", "lz4"):
+        assert (tmp_path / f"card.setbwt.{ext}").read_bytes() == \
+            (tmp_path / f"host.setbwt.{ext}").read_bytes(), ext

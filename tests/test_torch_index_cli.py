@@ -210,18 +210,28 @@ def test_each_package_maps_each_prefix_alike(work, pre, seeding):
         assert _records(other) == want
 
 
-def test_index_stops_by_name_and_without_a_card(tmp_path):
+def test_index_stops_by_name_and_without_a_card(work, tmp_path):
+    """``--bwt-blockwise`` (once refused by name) writes the ``.bwt`` bytes
+    of ``nvbio_tpu index --fmi --bwt [--bwt-lz4]`` (the BWT is unique),
+    plain and LZ4; without ``--device cpu`` and without a card the app
+    stops with a message and writes nothing."""
     from nvbio_tpu_torch.__main__ import main
 
-    with pytest.raises(SystemExit, match="--bwt-blockwise is not yet ported"):
-        main(["index", "ref.fa", str(tmp_path / "x"), "--fmi",
-              "--bwt-blockwise"])
+    d, _, _ = work
+    for name, lz4 in (("jq", ["--bwt-lz4"]), ("jh", [])):
+        pre = tmp_path / f"b{name}"
+        assert main(["index", str(d / "ref.fa"), str(pre), "--no-qgram",
+                     "--bwt-blockwise", *lz4, "--device", "cpu"]) == 0
+        assert (tmp_path / f"b{name}.bwt").read_bytes() == \
+            (d / f"{name}.bwt").read_bytes(), name
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     (tmp_path / "ref.fa").write_text(">c\nACGTACGTTT\n")
     for argv in (["index", str(tmp_path / "ref.fa"), str(tmp_path / "x")],
                  ["index", str(tmp_path / "ref.fa"), str(tmp_path / "x"),
-                  "--sa-backend", "host", "--fmi"]):
+                  "--sa-backend", "host", "--fmi"],
+                 ["index", str(tmp_path / "ref.fa"), str(tmp_path / "x"),
+                  "--no-qgram", "--bwt-blockwise"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(argv)
     assert not list(tmp_path.glob("x.*"))
