@@ -5,9 +5,9 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi);
   2. build: every CUDA kernel compiled by nvcc for sm_90a, and K1, K2, K3
-     and K5 once more at band 21 (max_dist 10, outside the precompiled
-     bands) — one nvcc per library, all in parallel — build seconds and
-     ptxas registers;
+     and K5 once more at band 21 (max_dist 10) and at band 33 (mem's
+     max_dist 16), outside the precompiled bands — one nvcc per library,
+     all in parallel — build seconds and ptxas registers;
   3. kernels: each kernel against its plain torch version on the card, at
      its path's shapes, bit for bit on every output (integer DPs: no
      tolerance), timed with CUDA events (median of 7 single calls, and
@@ -141,6 +141,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
      run's); then the setbwt app on 65536 reads of 100 bp with
      --incremental 65536 --method device --txt --lz4 on cuda and on cpu,
      identical files;
+ 12b. mem: the MemMapper at the app's defaults (batch 1024, max_read_len
+     256, -k 19, -T 30, max_dist 16: band 33, built at first use) on the
+     100 Mbp genome, the reversed genome's FM index built on the card:
+     8 batches of 1024 reads of 150 bp (1% substitutions, a third ending
+     in 20 random bases); K2-LOCAL launched exactly once a batch and no
+     other kernel; sensitivity (primary within max_dist of the truth on
+     the right strand) >= 0.95, tailed reads soft-clipped >= 0.8; reads/s,
+     host formatting's share of the wall, the SMEM stage alone (ms,
+     device ops, share of the batch's device busy), peak memory; K2-LOCAL
+     at this shape (4096 lanes, M = 256, W = 33) bit for bit against its
+     plain version, with its bound and registers (the kernel entry
+     banded_traceback_mem); secondaries per read on the repeat-planted
+     genome (> 0, with XA); GPU = CPU SAM records of 256 reads on the
+     first 8 Mbp (the cpu index by host SA-IS);
+ 12c. correct: the three Lighter passes on the card over 1.38 M reads of
+     100 bp (a seeded 4.6 Mbp genome at 30x, 1% substitutions), batches of
+     4096, k = 17, with the app's 2^24-bit filters and with 2^27-bit ones:
+     seconds a pass, reads/s, both filters' occupancy, substituted bases
+     before and after (fewer after required with 2^27 bits) and newly
+     broken, device ops of one correct batch; the app on 20 k reads over
+     50 kbp on cuda and on cpu: identical FASTQ bytes;
+ 12d. sort: the single-end records of phase 4 (131072) coordinate-sorted
+     SAM to SAM in one run and in 8 spilled runs with the k-way merge, on
+     cuda and on cpu: records/s, the device sorts' ms, identical files,
+     (ref, pos) order with unmapped records last;
+ 12e. cli: mem (1024 reads on a FASTA of the first 8 Mbp, to BAM; one
+     K2-LOCAL launch, sensitivity >= 0.95), sort of that BAM on cuda and
+     on cpu (equal, ordered), extract --rc (the reverse complements),
+     aln-diff --json of the BAM against itself (every record agrees) and
+     serve on a thread over a .ref.npz/.fmi.npz prefix (PING, LIST, GET;
+     FMClient.get's FMIndex equal to the .fmi.npz's);
  13. profile: one batch's dispatch of each mapping path under
      torch.profiler — device busy share and the largest device-time
      consumers; the peak device memory of one single-end and one local
@@ -1081,10 +1112,11 @@ def read_batch(genome, seed):
 
 
 def phase_main_path(genome, ref, index, params, card, label="main",
-                    n_batches=N_BATCHES, seed=SEED + 100):
+                    n_batches=N_BATCHES, seed=SEED + 100, records=None):
     """``n_batches`` batches of B single-end reads through dispatch +
     format_batch: launch counts (K1 x2 with the reseed pass, K2 x1 a
-    batch) and sensitivity."""
+    batch) and sensitivity. The SAM records are appended to ``records``
+    where it is given."""
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 
     t0 = time.time()
@@ -1107,6 +1139,8 @@ def phase_main_path(genome, ref, index, params, card, label="main",
             if bool(rec.flag & 0x10) == rc and \
                     abs(rec.pos - 1 - s) <= 2 * params.max_dist:
                 n_ok += 1
+    if records is not None:
+        records.extend(r for recs in out for r in recs)
     k1_launches = launches["banded_score_cands"]
     k2_launches = launches["banded_traceback"]
     sens = n_ok / n_reads
@@ -2712,6 +2746,574 @@ def phase_cli_setbwt(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [mem], [correct], [sort] and the [cli] runs of mem, correct, sort, extract,
+# aln-diff and serve
+# ---------------------------------------------------------------------------
+
+MEM_B, MEM_L, MEM_RL = 1024, 256, 150   # the app's batch and max_read_len
+MEM_TAIL = 20                # a third of the reads end in 20 random bases
+N_MEM_BATCHES = 8
+N_MEM_CMP = 256              # GPU = CPU reads, on the genome's first 8 Mbp
+CORRECT_GENOME = 4_600_000   # E. coli K-12's size
+CORRECT_COV, CORRECT_RL = 30, 100
+CORRECT_BATCH, CORRECT_BITS, CORRECT_K = 4096, 1 << 24, 17  # app defaults
+CORRECT_BITS_SIZED = 1 << 27   # ~29 filter bits a genome k-mer
+CORRECT_CMP_GENOME, N_CORRECT_CMP = 50_000, 20_000
+SORT_RUN = 16384             # 131072 records: 8 spilled runs and the merge
+MEM_W = 33                   # MemParams().band: 2 * max_dist 16 + 1
+
+
+def mem_batch(genome, seed, n):
+    """n reads of MEM_RL bases (1% substitutions, sample_reads) padded to
+    MEM_L; every third ends in MEM_TAIL random bases. Returns (batch,
+    starts, is_rc, tailed)."""
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.utils.simgenome import sample_reads
+
+    reads, starts, is_rc = sample_reads(genome, n, MEM_RL, seed=seed,
+                                        subst_rate=0.01)
+    rng = np.random.default_rng(seed + 1)
+    tailed = np.arange(n) % 3 == 0
+    reads[tailed, MEM_RL - MEM_TAIL:] = rng.integers(
+        0, 4, (int(tailed.sum()), MEM_TAIL))
+    codes = np.zeros((n, MEM_L), np.uint8)
+    codes[:, :MEM_RL] = reads
+    quals = np.zeros((n, MEM_L), np.uint8)
+    quals[:, :MEM_RL] = rng.integers(20, 41, (n, MEM_RL))
+    names = [f"m{seed}_{i}" for i in range(n)]
+    return (ReadBatch(names, codes, quals, np.full(n, MEM_RL, np.int32)),
+            starts, is_rc, tailed)
+
+
+def mem_truth(start, rc, tailed) -> int:
+    """The first aligned base of a read's primary: a reverse read's tail is
+    its genome-left end, clipped."""
+    return int(start) + (MEM_TAIL if tailed and rc else 0)
+
+
+def mem_placed(rec, start, rc, tailed, max_dist) -> bool:
+    return (not rec.flag & 0x4 and bool(rec.flag & 0x10) == bool(rc)
+            and abs(rec.pos - 1 - mem_truth(start, rc, tailed)) <= max_dist)
+
+
+def phase_mem(genome, rep_genome, card, regs):
+    """[mem]: the MemMapper (app defaults: batch 1024, max_read_len 256, -k
+    19, -T 30, max_dist 16) on the 100 Mbp genome, the reversed genome's FM
+    index built on the card: N_MEM_BATCHES batches of 150-base reads, a
+    third tailed; K2-LOCAL launched exactly once a batch and nothing else;
+    sensitivity >= 0.95, tailed reads soft-clipped >= 0.8; the SMEM stage
+    alone (ms, device ops, share of the batch's device busy); host
+    formatting's share of the wall; secondaries per read on the
+    repeat-planted copy (> 0); GPU = CPU on 256 reads of the first 8 Mbp;
+    and K2-LOCAL at this path's shape against its plain version, bit for
+    bit (the kernel entry)."""
+    from nvbio_tpu_torch.align import kernels as K
+    from nvbio_tpu_torch.fmi.mem import find_smems_batch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.mem import MemMapper, MemParams
+    from nvbio_tpu_torch.mem.pipeline import (
+        both_strands,
+        extension_inputs,
+        kept_chains,
+    )
+
+    P = MemParams()
+    W = P.band
+
+    def ref_of(codes, name):
+        return Reference([name], np.array([0, len(codes)], np.int64), codes,
+                         np.zeros(0, np.uint32))
+
+    t0 = time.time()
+    mapper = MemMapper.build(ref_of(genome, "sim100M"), P, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    batches = [mem_batch(genome, SEED + 2000 + i, MEM_B)
+               for i in range(N_MEM_BATCHES)]
+    out, t_dev, t_fmt, wall, launches = run_batches(
+        mapper.dispatch, mapper.format_batch, [(b,) for b, *_ in batches])
+    require_launches("mem", launches, {"banded_traceback": 1},
+                     N_MEM_BATCHES)
+    n = ok = tailed_n = clipped = 0
+    for recs, (_, starts, is_rc, tailed) in zip(out, batches):
+        prim = [r for r in recs if not r.flag & 0x100]
+        require(len(prim) == MEM_B, f"mem: {len(prim)} primaries for "
+                                    f"{MEM_B} reads")
+        for rec, s, rc, tl in zip(prim, starts, is_rc, tailed):
+            n += 1
+            ok += mem_placed(rec, s, rc, tl, P.max_dist)
+            if tl:
+                tailed_n += 1
+                clipped += "S" in rec.cigar
+    sens, clip = ok / n, clipped / tailed_n
+    fmt_share = sum(t_fmt) / wall
+    print(f"[mem] reversed genome's FM index on the card in {build_s:.2f} s;"
+          f" {n} reads of {MEM_RL} bp in {wall:.3f} s = {n / wall:.1f} "
+          f"reads/s; per batch dispatch+sync s: "
+          f"{', '.join(f'{x:.3f}' for x in t_dev)}; format s: "
+          f"{', '.join(f'{x:.3f}' for x in t_fmt)} (host formatting "
+          f"{100 * fmt_share:.1f}% of the wall); sensitivity {sens:.5f}; "
+          f"tailed reads soft-clipped {clip:.5f}; launches "
+          f"banded_traceback={launches['banded_traceback']} "
+          f"({launches['banded_traceback'] / N_MEM_BATCHES:.0f} a batch); "
+          f"card {card}", flush=True)
+    require(sens >= 0.95, f"mem sensitivity {sens:.4f} < 0.95")
+    require(clip >= 0.8, f"mem soft-clipped share {clip:.4f} < 0.8")
+    stats = dict(reads=n, seconds=wall, reads_per_s=n / wall,
+                 sensitivity=sens, clipped=clip, dispatch_s=sum(t_dev),
+                 format_s=sum(t_fmt), format_share=fmt_share,
+                 index_build_s=build_s,
+                 k2_per_batch=launches["banded_traceback"] / N_MEM_BATCHES)
+
+    # the SMEM stage of one batch alone, and the whole batch profiled
+    b0 = batches[0][0]
+    reads = torch.from_numpy(b0.codes.astype(np.int32)).cuda()
+    lens = torch.from_numpy(b0.lengths).cuda()
+    _, reads2, lens2 = both_strands(reads, lens)
+
+    def smem_stage():
+        return find_smems_batch(mapper.fmi_rev, reads2, lens2,
+                                P.min_seed_len, P.max_smems,
+                                P.hits_per_smem)
+
+    stats["profile"] = phase_profile("mem", lambda: mapper.dispatch(b0))
+    ms = cuda_ms(smem_stage, reps=3)
+    ops, busy = device_ops(smem_stage)
+    share = (None if stats["profile"] is None
+             else busy / stats["profile"]["device_busy_ms"])
+    print(f"[mem] SMEM stage of one batch (2 x {MEM_B} rows of {MEM_L}): "
+          f"{ms:.3f} ms, {ops} device ops, device busy {busy:.3f} ms"
+          + ("" if share is None else
+             f" = {100 * share:.1f}% of the batch's device busy")
+          + f"; card {card}", flush=True)
+    stats["smem_stage"] = dict(ms=ms, device_ops=ops, device_busy_ms=busy,
+                               share_of_batch_busy=share)
+    stats["peak_bytes"] = peak_memory("mem", lambda: mapper.dispatch(b0))
+
+    # K2-LOCAL at this path's shape: the batch's own extension lanes
+    ch = kept_chains(mapper.fmi_rev, reads2, lens2, P)
+    reads_f, lens_f, win, wlens, _ = extension_inputs(
+        mapper.genome_words, mapper.n_genome, reads2, lens2, ch, P)
+    args = (reads_f, lens_f, win, wlens, P.scoring, W)
+    res = check_kernel("banded_traceback_mem", K.banded_traceback,
+                       K.banded_traceback_plain, args, plain_reps=2,
+                       local=True)
+    nb = reads_f.shape[0]
+    group = K.k2_group(nb, torch.cuda.get_device_properties(0)
+                       .multi_processor_count, W)
+    inst = f"banded_traceback_kernel<{W},{group},1>"
+    cells = int(lens_f.long().sum()) * W
+    steps = int(res["out"][3].long().sum())
+    TW, MAXS = MEM_L + W - 1, (MEM_L + W + 7) // 8 * 8
+    k2_ops = K2L_OPS_PER_CELL * cells + K2L_OPS_PER_STEP * steps
+    # patterns and the mismatch plane the wrapper fills, windows, lengths,
+    # the seven (B,) outputs and the op rows
+    k2_bytes = (2 * nb * MEM_L * 4 + nb * TW * 4 + 2 * nb * 4 + 7 * nb * 4
+                + nb * MAXS * 4)
+    bms, by = bound_of(k2_ops, k2_bytes)
+    r, spill = regs.get(inst, (None, None))
+    entry = dict(
+        name="banded_traceback_mem", route="cuda",
+        source="nvbio_tpu_torch/csrc/banded_traceback.cu",
+        replaces="nvbio_tpu/align/pallas_kernels.py:568",
+        equal=res["equal"], max_abs_err=res["max_abs_err"], ms=res["ms"],
+        ms_queued=res["ms_queued"], plain_ms=res["plain_ms"], bound_ms=bms,
+        bound_by=by, library_ms=None,
+        shape=f"K2-LOCAL (mem): B={nb} (2 strands x {MEM_B} reads x "
+              f"{P.max_chains} chains) M={MEM_L} reads of {MEM_RL} W={W} "
+              f"group={group}",
+        instantiation=inst, registers=r, spill_bytes=spill)
+    print(f"[kernels] {entry['shape']}: {cells} cells, "
+          f"{steps} walk steps, {k2_ops:.4g} ops {k2_bytes:.4g} B; bound "
+          f"{bms:.3f} ms ({by}); {inst} {r} registers, {spill} B spill; "
+          f"card {card}", flush=True)
+    del res["out"], args, reads_f, win
+    stats["kernel_cells"], stats["kernel_walk_steps"] = cells, steps
+
+    # secondaries on the repeat-planted copy (its own index)
+    rep = MemMapper.build(ref_of(rep_genome, "sim100M_rep"), P,
+                          device="cuda")
+    rb = mem_batch(rep_genome, SEED + 2050, MEM_B)[0]
+    recs = rep.map_batch(rb)
+    n_sec = sum(bool(r.flag & 0x100) for r in recs)
+    n_xa = sum("XA" in (r.tags or {}) for r in recs)
+    print(f"[mem] repeat-planted genome: {MEM_B} reads, {n_sec} secondary "
+          f"records ({n_sec / MEM_B:.4f} a read), {n_xa} primaries with XA",
+          flush=True)
+    require(n_sec > 0 and n_xa > 0, "mem: no secondary record on the "
+                                    "repeat-planted genome")
+    stats["secondaries_per_read"] = n_sec / MEM_B
+    del rep
+
+    # GPU = CPU on the first 8 Mbp (host SA-IS builds the cpu index)
+    small = genome[:CLI_CMP_GENOME]
+    sb = mem_batch(small, SEED + 2100, N_MEM_CMP)[0]
+    gpu_small = MemMapper.build(ref_of(small, "sim8M"), P, device="cuda")
+    t0 = time.time()
+    cpu_small = MemMapper.build(ref_of(small, "sim8M"), P, device="cpu")
+    print(f"[mem] cpu index of {CLI_CMP_GENOME} bp (host SA-IS) in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    phase_gpu_equals_cpu("mem", lambda: gpu_small.map_batch(sb),
+                         lambda: cpu_small.map_batch(sb))
+    return stats, launches, entry
+
+
+def bound_of(ops, nbytes) -> tuple[float, str]:
+    """The larger of ``ops`` integer instructions over the card's issue
+    ceiling and ``nbytes`` over HBM, in ms, and which one it is."""
+    t_ops, t_bytes = ops / issue_per_s(), nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def correct_reads_set(n_genome, cov, seed):
+    """Reads of CORRECT_RL bases at ``cov``x over a seeded genome, half
+    reverse-complemented: (truth, reads with ~1% substitutions), uint8."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n_genome, dtype=np.uint8)
+    n = n_genome * cov // CORRECT_RL
+    starts = rng.integers(0, n_genome - CORRECT_RL, n)
+    truth = g[starts[:, None] + np.arange(CORRECT_RL)]
+    rc = rng.random(n) < 0.5
+    truth[rc] = 3 - truth[rc, ::-1]
+    reads = truth.copy()
+    flat = reads.reshape(-1)
+    k = int(rng.binomial(flat.size, 0.01))
+    idx = rng.integers(0, flat.size, k)
+    flat[idx] = (flat[idx] + rng.integers(1, 4, k).astype(np.uint8)) % 4
+    return truth, reads
+
+
+def correct_passes(reads, truth, bits, card) -> dict:
+    """The three Lighter passes on the card over ``reads`` in batches of
+    CORRECT_BATCH with two ``bits``-bit filters: seconds a pass, reads/s,
+    both filters' occupancy, substituted bases before and after and bases
+    newly broken, and the device ops of one correct batch."""
+    from nvbio_tpu_torch.lighter import (
+        LighterParams,
+        correct_reads,
+        mark_trusted,
+        sample_kmers,
+    )
+
+    n = len(reads)
+    params = LighterParams(k=CORRECT_K, bloom_bits_a=bits, bloom_bits_b=bits)
+    padded = np.zeros((n, params.max_read_len), np.uint8)
+    padded[:, :CORRECT_RL] = reads
+
+    def batches():
+        for i in range(0, n, CORRECT_BATCH):
+            r = torch.from_numpy(padded[i:i + CORRECT_BATCH].astype(
+                np.int32)).cuda()
+            yield i, r, torch.full((r.shape[0],), CORRECT_RL,
+                                   dtype=torch.int32, device="cuda")
+
+    secs = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bfa = torch.zeros(bits, dtype=torch.uint8, device="cuda")
+    for i, r, ln in batches():
+        bfa = sample_kmers(bfa, r, ln, i, params)
+    torch.cuda.synchronize()
+    secs["sample"] = time.time() - t0
+    t0 = time.time()
+    bfb = torch.zeros(bits, dtype=torch.uint8, device="cuda")
+    for i, r, ln in batches():
+        bfb = mark_trusted(bfa, bfb, r, ln, params)
+    torch.cuda.synchronize()
+    secs["trust"] = time.time() - t0
+    t0 = time.time()
+    corrected = np.empty_like(reads)
+    for i, r, ln in batches():
+        c, _ = correct_reads(bfb, r, ln, params)
+        corrected[i:i + len(c)] = c[:, :CORRECT_RL].cpu().numpy()
+    secs["correct"] = time.time() - t0
+    total = sum(secs.values())
+    occ_a = float(bfa.float().mean())
+    occ_b = float(bfb.float().mean())
+    before = int((reads != truth).sum())
+    after = int((corrected != truth).sum())
+    broken = int(((reads == truth) & (corrected != truth)).sum())
+    _, r0, l0 = next(batches())
+    ops, busy = device_ops(lambda: correct_reads(bfb, r0, l0, params))
+    print(f"[correct] 2^{bits.bit_length() - 1}-bit filters: passes: sample "
+          f"{secs['sample']:.3f} s, trust {secs['trust']:.3f} s, correct "
+          f"{secs['correct']:.3f} s = {total:.3f} s, {n / total:.1f} "
+          f"reads/s; filter occupancy A {occ_a:.5f}, B {occ_b:.5f}; "
+          f"substituted bases {before} before, {after} after "
+          f"({100 * (1 - after / before):.2f}% fewer), {broken} newly "
+          f"broken; one correct batch of {CORRECT_BATCH}: {ops} device ops, "
+          f"device busy {busy:.3f} ms; card {card}", flush=True)
+    return dict(bloom_bits=bits, reads=n, pass_s=secs, seconds=total,
+                reads_per_s=n / total, occupancy_a=occ_a,
+                occupancy_b=occ_b, subst_before=before, subst_after=after,
+                newly_broken=broken, correct_batch_ops=ops,
+                correct_batch_busy_ms=busy)
+
+
+def phase_correct(card):
+    """[correct]: the three Lighter passes (sample, trust, correct) on the
+    card over 1.38 M reads of 100 bp (a seeded 4.6 Mbp genome at 30x, 1%
+    substitutions) in batches of 4096, k = 17, with the app's default
+    2^24-bit filters (reported: they saturate at this genome size, and the
+    algorithm then adds substitutions, as the JAX package's does,
+    tests/test_torch_correct.py::test_filter_size_decides_the_outcome) and
+    with CORRECT_BITS_SIZED-bit filters sized for the genome (fewer
+    substituted bases after than before required); then the app
+    (``correct``) on 20 k reads over 50 kbp on cuda and on cpu: identical
+    FASTQ bytes."""
+    import tempfile
+
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    t0 = time.time()
+    truth, reads = correct_reads_set(CORRECT_GENOME, CORRECT_COV, SEED + 3000)
+    print(f"[correct] {len(reads)} reads of {CORRECT_RL} bp over "
+          f"{CORRECT_GENOME} bp made in {time.time() - t0:.2f} s", flush=True)
+    stats = dict(default=correct_passes(reads, truth, CORRECT_BITS, card),
+                 sized=correct_passes(reads, truth, CORRECT_BITS_SIZED,
+                                      card))
+    sized = stats["sized"]
+    require(sized["subst_after"] < sized["subst_before"],
+            f"correct: {sized['subst_after']} substituted bases after "
+            f"correction with 2^27-bit filters, {sized['subst_before']} "
+            f"before")
+
+    # GPU = CPU through the app: the corrected FASTQ's bytes
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    _, small = correct_reads_set(CORRECT_CMP_GENOME, 40, SEED + 3100)
+    small = small[:N_CORRECT_CMP]
+    quals = np.random.default_rng(SEED + 3101).integers(
+        2, 41, small.shape).astype(np.uint8)
+    write_fastq(f"{d}/c.fq", [f"c{i}" for i in range(len(small))], small,
+                quals)
+    out = {}
+    for run, dev_args in (("card", list(CLI_GPU_ARGS)),
+                          ("host", ["--device", "cpu"])):
+        s, _ = run_cli([f"{d}/c.fq", "-o", f"{d}/c_{run}.fq", "--bloom-bits",
+                        str(CORRECT_BITS), *dev_args], "correct")
+        with open(f"{d}/c_{run}.fq", "rb") as f:
+            out[run] = (f.read(), s)
+    same = out["card"][0] == out["host"][0]
+    changed = sum(a != b for a, b in zip(
+        out["card"][0].split(b"\n")[1::4],
+        [r.tobytes() for r in np.frombuffer(b"ACGT", np.uint8)[small]]))
+    print(f"[gpu=cpu] correct (the app): {len(small)} reads over "
+          f"{CORRECT_CMP_GENOME} bp, corrected FASTQ {len(out['card'][0])} "
+          f"bytes, identical {same}; {changed} reads changed; cuda "
+          f"{out['card'][1]:.2f} s, cpu {out['host'][1]:.2f} s", flush=True)
+    require(same, "correct: the FASTQ differs between cuda and cpu")
+    require(changed > 0, "correct: the app corrected no read")
+    stats["cli"] = dict(cuda_s=out["card"][1], cpu_s=out["host"][1],
+                        reads_changed=changed)
+    tmp.cleanup()
+    return stats
+
+
+def sorted_keys_ok(recs, names) -> bool:
+    """(ref, pos) non-decreasing over SAM column lists, unmapped records
+    (and RNAMEs outside ``names``) last."""
+    rank = {nm: i for i, nm in enumerate(names)}
+    keys = [(0x7FFFFFFF, 0) if int(r[1]) & 4 or r[2] not in rank
+            else (rank[r[2]], int(r[3])) for r in recs]
+    return keys == sorted(keys)
+
+
+def phase_sort(records, card):
+    """[sort]: the [main] path's single-end records coordinate-sorted from
+    SAM to SAM on cuda, in one run and with run_size SORT_RUN (spilled
+    runs and the k-way merge), each again on cpu: records/s, the device
+    sorts' ms, identical files, (ref, pos) order with unmapped last."""
+    import tempfile
+
+    from nvbio_tpu_torch.io.bamsort import sort_alignments
+    from nvbio_tpu_torch.io.output import open_alignment_output
+    from nvbio_tpu_torch.io.sam import read_sam
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    t0 = time.time()
+    with open_alignment_output(f"{d}/in.sam", ["sim100M"],
+                               [GENOME_LEN]) as w:
+        for r in records:
+            w.write(r)
+    n = len(records)
+    print(f"[sort] {n} records written as SAM in {time.time() - t0:.2f} s",
+          flush=True)
+    stats = {}
+    for run_size in (max(n, 262_144), SORT_RUN):
+        files, st = {}, {}
+        for run, dev in (("card", "cuda"), ("host", "cpu")):
+            st[run] = {}
+            t0 = time.time()
+            got = sort_alignments(f"{d}/in.sam", f"{d}/{run}.sam", run_size,
+                                  tmp_dir=d, device=dev, stats=st[run])
+            st[run]["seconds"] = time.time() - t0
+            require(got == n, f"sort: {got} records of {n}")
+            with open(f"{d}/{run}.sam", "rb") as f:
+                files[run] = f.read()
+        _, recs = read_sam(f"{d}/card.sam")
+        ordered = sorted_keys_ok(recs, ["sim100M"])
+        s = st["card"]
+        print(f"[sort] run_size {run_size}: {s['runs']} runs; cuda "
+              f"{s['seconds']:.3f} s = {n / s['seconds']:.1f} records/s, "
+              f"device sorts {1e3 * s['sort_s']:.3f} ms; cpu "
+              f"{st['host']['seconds']:.3f} s (its sorts "
+              f"{1e3 * st['host']['sort_s']:.3f} ms); same order cuda and "
+              f"cpu {files['card'] == files['host']}; (ref, pos) order "
+              f"{ordered}; card {card}", flush=True)
+        require(files["card"] == files["host"],
+                f"sort run_size {run_size}: cuda and cpu orders differ")
+        require(ordered and len(recs) == n,
+                f"sort run_size {run_size}: records out of order")
+        require(s["runs"] == -(-n // run_size),
+                f"sort: {s['runs']} runs at run_size {run_size}")
+        stats[str(run_size)] = dict(runs=s["runs"], seconds=s["seconds"],
+                                    records_per_s=n / s["seconds"],
+                                    device_sort_ms=1e3 * s["sort_s"],
+                                    cpu_seconds=st["host"]["seconds"])
+    tmp.cleanup()
+    return stats
+
+
+def phase_cli_apps(genome, card) -> dict:
+    """The new commands through the app's main on the card, on the genome's
+    first CLI_CMP_GENOME bases: ``mem`` (a FASTA of them, 1024 reads with
+    the truth in each name, to BAM: one K2-LOCAL launch, sensitivity >=
+    0.95), ``sort`` of that BAM on cuda and on cpu (equal records, sorted),
+    ``extract --rc`` of the FASTQ (every line the read's reverse
+    complement), ``aln-diff --json`` of the BAM against itself (every
+    record matches) and ``serve`` on a thread over a .ref.npz/.fmi.npz
+    prefix (PING, LIST, GET; FMClient.get's FMIndex equal to the
+    .fmi.npz's)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from nvbio_tpu_torch.__main__ import main as app_main
+    from nvbio_tpu_torch.apps import server_app
+    from nvbio_tpu_torch.fmi.index import FMIndex
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+    from nvbio_tpu_torch.io.bam import read_bam
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.io.server import FMClient
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+
+    def p(name):
+        return f"{d}/{name}"
+
+    out = {}
+    small = genome[:CLI_CMP_GENOME]
+    write_fasta_codes(p("m.fa"), "sim8M", small)
+    b, starts, is_rc, tailed = mem_batch(small, SEED + 2200, N_CMP)
+    names = [f"m{j}_{mem_truth(s, rc, tl)}_{int(rc)}" for j, (s, rc, tl) in
+             enumerate(zip(starts.tolist(), is_rc.tolist(),
+                           tailed.tolist()))]
+    write_fastq(p("m.fq"), names, b.codes[:, :MEM_RL], b.quals[:, :MEM_RL])
+
+    reset_launches()
+    secs, _ = run_cli([p("m.fa"), p("m.fq"), "-o", p("m.bam"),
+                       *CLI_GPU_ARGS], "mem")
+    got = read_launches()
+    require(got == {k: int(k == "banded_traceback") for k in got},
+            f"cli mem: launches {got}, expected one K2-LOCAL")
+    _, recs = read_bam(p("m.bam"))
+    prim = [r for r in recs if not int(r[1]) & 0x100]
+    ok = sum(not int(r[1]) & 4 and bool(int(r[1]) & 0x10) == bool(
+        int(r[0].split("_")[2])) and abs(int(r[3]) - 1 - int(
+            r[0].split("_")[1])) <= 16 for r in prim)
+    sens = ok / len(prim)
+    print(f"[cli] mem: {N_CMP} reads of {MEM_RL} bp on {CLI_CMP_GENOME} bp "
+          f"to BAM in {secs:.2f} s (FASTA parse and the card's index "
+          f"build included); {len(recs)} records, sensitivity {sens:.5f}; "
+          f"card {card}", flush=True)
+    require(len(prim) == N_CMP and sens >= 0.95,
+            f"cli mem: {len(prim)} primaries, sensitivity {sens:.4f}")
+    out["mem"] = dict(seconds=secs, records=len(recs), sensitivity=sens)
+
+    sorted_recs = {}
+    for run, dev_args in (("card", list(CLI_GPU_ARGS)),
+                          ("host", ["--device", "cpu"])):
+        s, _ = run_cli([p("m.bam"), p(f"s_{run}.bam"), *dev_args], "sort")
+        sorted_recs[run] = (read_bam(p(f"s_{run}.bam"))[1], s)
+    (sg, sg_s), (sc, sc_s) = sorted_recs["card"], sorted_recs["host"]
+    print(f"[cli] sort of the BAM: {len(sg)} records, cuda {sg_s:.2f} s, "
+          f"cpu {sc_s:.2f} s, equal {sg == sc}", flush=True)
+    require(sg == sc and len(sg) == len(recs)
+            and sorted_keys_ok(sg, ["sim8M"]),
+            "cli sort: records differ between cuda and cpu or out of order")
+    out["sort"] = dict(cuda_s=sg_s, cpu_s=sc_s)
+
+    s, _ = run_cli([p("m.fq"), "-o", p("m_rc.txt"), "--rc"], "extract")
+    with open(p("m_rc.txt")) as f:
+        lines = f.read().splitlines()
+    want = ["".join("TGCA"[c] for c in row[::-1])
+            for row in b.codes[:, :MEM_RL]]
+    print(f"[cli] extract --rc: {len(lines)} lines in {s:.2f} s, equal to "
+          f"the reverse complements {lines == want}", flush=True)
+    require(lines == want, "cli extract --rc: lines differ")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s, _ = run_cli([p("m.bam"), p("m.bam"), "--json"], "aln-diff")
+    diff = json.loads(buf.getvalue())
+    agree = all(diff[k] == diff["both_mapped"] for k in
+                ("same_pos", "same_strand", "same_cigar", "same_mapq"))
+    print(f"[cli] aln-diff --json of the mem BAM against itself in "
+          f"{s:.2f} s: {diff['n_common']} common, {diff['both_mapped']} "
+          f"both mapped, all agree {agree}", flush=True)
+    require(agree and diff["n_common"] == N_CMP
+            and diff["only_left"] == diff["only_right"] == 0,
+            f"cli aln-diff: {diff}")
+
+    # serve: a .ref.npz + .fmi.npz prefix, the app's server on a thread
+    Reference(["sim8M"], np.array([0, len(small)], np.int64), small).save(
+        p("hs.ref.npz"))
+    build_fmindex_device(small, device="cuda").save(p("hs.fmi.npz"))
+    short = tempfile.mkdtemp(prefix="nvbt")
+    sock = os.path.join(short, "fm.sock")
+    if len(sock) > 100:   # AF_UNIX paths end at 108 bytes
+        sock = os.path.relpath(sock)
+    th = threading.Thread(target=app_main, daemon=True, args=(
+        ["serve", p("hs"), "--dir", p("hs.shared"), "--socket", sock],))
+    t0 = time.time()
+    th.start()
+    while server_app.current is None or not os.path.exists(sock):
+        require(th.is_alive() and time.time() - t0 < 120,
+                "cli serve: the server did not start")
+        time.sleep(0.05)
+    try:
+        client = FMClient(sock, p("hs.shared"))
+        pong, listed = client.ping(), client.list()
+        meta = json.loads(client._request("GET fmindex"))
+        got = client.get("fmindex", FMIndex)
+        want = FMIndex.load(p("hs.fmi.npz"))
+        same = all(
+            torch.equal(getattr(got, f), v) if isinstance(v, torch.Tensor)
+            else getattr(got, f) == v for f, v in vars(want).items())
+    finally:
+        server_app.current.stop()
+        th.join(timeout=30)
+        shutil.rmtree(short, ignore_errors=True)
+    print(f"[cli] serve: up in {time.time() - t0:.2f} s; PING {pong}, LIST "
+          f"{listed}, GET fmindex {sorted(meta['fields'])}; FMClient.get "
+          f"FMIndex equal to the .fmi.npz load {same}", flush=True)
+    require(pong and listed == ["fmindex", "reference"] and same
+            and meta["type"] == "FMIndex" and not th.is_alive(),
+            "cli serve: the server's answers or index differ")
+    out["serve_s"] = time.time() - t0
+    tmp.cleanup()
+    return out
+
+
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
     left out, their device time is their kernels'."""
@@ -2818,15 +3420,15 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"[card] {card}", flush=True)
 
-    # the precompiled libraries and those of band W2, one nvcc each, all
-    # in parallel
+    # the precompiled libraries and those of bands W2 and MEM_W (mem's
+    # band), one nvcc each, all in parallel
     t0 = time.time()
-    info = K.build(bands=(W2,))
+    info = K.build(bands=(W2, MEM_W))
     for name, d in info.items():
         print(f"[build] {name}: {d['seconds']:.1f} s; "
               f"{' | '.join(ptxas_summary(d['ptxas']))}", flush=True)
-    print(f"[build] all kernels and the band-{W2} libraries in "
-          f"{time.time() - t0:.1f} s", flush=True)
+    print(f"[build] all kernels and the band-{W2} and band-{MEM_W} "
+          f"libraries in {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -2855,8 +3457,9 @@ def main() -> int:
     index = build_qgram_index(genome, params.qgram_q)
     print(f"[index] q-gram q={params.qgram_q} over {GENOME_LEN} bp on the "
           f"host in {time.time() - t0:.2f} s", flush=True)
+    se_records = []
     gpu_mapper, batch0, se_launches, stats = phase_main_path(
-        genome, ref, index, params, card)
+        genome, ref, index, params, card, records=se_records)
     gpu_index = gpu_mapper.index
     pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card)
 
@@ -2928,6 +3531,16 @@ def main() -> int:
     cli_stats["index"] = phase_cli_index(genome, fm_cpu, card)
     cli_stats["setbwt"] = phase_cli_setbwt(card)
 
+    # mem (SMEM seeding, chaining, one K2-LOCAL launch a batch), error
+    # correction, coordinate sorting and the new commands
+    mem_stats, mem_launches, mem_kernel = phase_mem(genome, rep_genome, card,
+                                                    regs)
+    kernels.append(mem_kernel)
+    correct_stats = phase_correct(card)
+    sort_stats = phase_sort(se_records, card)
+    del se_records
+    cli_stats["apps"] = phase_cli_apps(genome, card)
+
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
             "local": local_launches, "paired_full": pf_launches,
@@ -2935,7 +3548,7 @@ def main() -> int:
             "paired_all": pa_launches, "gcups": gcups_launches,
             "single_end_w21": se21_launches, "paired_150": pe150_launches,
             "fmi": fm_launches, "paired_fmi": pfm_launches,
-            **rand_launches}
+            "mem": mem_launches, **rand_launches}
     # each entry's path, its batches there and its wrapper
     own = {"banded_score_cands": ("single_end", N_BATCHES),
            "banded_score_cands_local": ("local", N_BATCHES_LOCAL),
@@ -2947,10 +3560,11 @@ def main() -> int:
            "banded_traceback_wide_local": ("paired_full_local", 1),
            "regtile_score_blocked": ("gcups", 2),
            "banded_score_cands_w21": ("single_end_w21", 1),
-           "banded_traceback_w21": ("single_end_w21", 1)}
+           "banded_traceback_w21": ("single_end_w21", 1),
+           "banded_traceback_mem": ("mem", N_MEM_BATCHES)}
     for k in kernels:
         path, n_batches = own[k["name"]]
-        wrapper = re.sub(r"_local$|_w\d+$", "", k["name"])
+        wrapper = re.sub(r"_local$|_w\d+$|_mem$", "", k["name"])
         k["launches"] = runs[path][wrapper]
         k["launches_per_batch"] = runs[path][wrapper] / n_batches
         k["launches_by_path"] = {p: c[wrapper] for p, c in runs.items()}
@@ -3040,7 +3654,8 @@ def main() -> int:
                       "fmi": fm_stats, "paired_fmi": pfm_stats,
                       "index_device": index_device,
                       "blockwise": blockwise, "setbwt": setbwt,
-                      "randomized": rand_stats,
+                      "randomized": rand_stats, "mem": mem_stats,
+                      "correct": correct_stats, "sort": sort_stats,
                       "cli": cli_stats, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,28 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="nvbio_tpu_torch",
         description="PyTorch/CUDA port of nvbio_tpu (indexing, read "
-                    "mapping, read-set BWTs)",
+                    "mapping, MEM alignment, read-set BWTs, error "
+                    "correction, SAM/BAM sorting and diffing, read "
+                    "extraction, index serving)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    from nvbio_tpu_torch.apps import index_app, map_app, setbwt_app
+    from nvbio_tpu_torch.apps import (
+        aln_diff_app,
+        correct_app,
+        extract_app,
+        index_app,
+        map_app,
+        mem_app,
+        server_app,
+        setbwt_app,
+        sort_app,
+    )
 
-    apps = {"index": index_app, "map": map_app, "setbwt": setbwt_app}
+    apps = {"index": index_app, "map": map_app, "mem": mem_app,
+            "aln-diff": aln_diff_app, "correct": correct_app,
+            "extract": extract_app, "serve": server_app,
+            "setbwt": setbwt_app, "sort": sort_app}
     for app in apps.values():
         app.add_parser(sub)
 
