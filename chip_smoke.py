@@ -133,12 +133,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      process on cuda: the 100 Mbp genome as a FASTA with --fmi --no-qgram
      (the suffix sort on the card; .ref.npz and .fmi.npz equal to the
      in-process builds, stage seconds from its log), its first 8 Mbp with
-     --fmi --bwt --bwt-lz4 --pac --qgroup 16 --no-qgram (.fmi.npz,
-     .ref.npz, .qgroup.npz, .bwt and .pac equal to the in-process
-     builds), map from that prefix (Q-Group seeding, q = 16) of 1024
-     reads on cuda and on cpu, identical records, and the 8 Mbp FASTA
-     with --bwt-blockwise --bwt-lz4 (.bwt bytes equal to the --fmi --bwt
-     run's); then the setbwt app on 65536 reads of 100 bp with
+     --fmi --bwt --bwt-lz4 --pac --no-qgram (.fmi.npz, .ref.npz, .bwt and
+     .pac equal to the in-process builds), the 8 Mbp FASTA with
+     --bwt-blockwise --bwt-lz4 (.bwt bytes equal to the --fmi --bwt
+     run's), its first 1 Mbp with --qgroup 16 --no-qgram (.qgroup.npz and
+     .ref.npz equal to the in-process builds) and map from that prefix
+     (Q-Group seeding, q = 16) of 1024 reads on cuda and on cpu,
+     identical records; then the setbwt app on 65536 reads of 100 bp with
      --incremental 65536 --method device --txt --lz4 on cuda and on cpu,
      identical files;
  12b. mem: the MemMapper at the app's defaults (batch 1024, max_read_len
@@ -180,6 +181,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      mapped on cuda and on cpu must give identical SAM records (those of
      the two --all paths including secondaries; the FM paths' cpu index
      has no k-mer table).
+ 12f. assemble: a seeded 100 kbp contig and a second haplotype of it with
+     a SNP about every 400 bp; 100-base reads at 30x, half from each
+     haplotype (1% substitutions, Phred 20-40) mapped by the map app on
+     cuda, coordinate-sorted by the sort app, then ``assemble --regions
+     256 --region-size 200 --support`` on cuda and on cpu: identical FASTA
+     bytes; rows, nodes, edges, cyclic regions, haplotypes, the seconds of
+     each stage (load, graph, k-best, support) and the k-mer scan's ms on
+     the card; of the SNPs at least k = 15 bases inside a region, >= 90%
+     with both the reference and the variant haplotype emitted;
+ 12g. fm-library: on the 100 Mbp FM index, search_1mm over 1024 seeds of
+     22 bases, search_1mm_hybrid and search_kmm (k = 2, 32 states) over
+     8192, extend_backward and extend_forward of the 8192 seeds with the
+     reversed genome's index built on the card (each equal to a plain
+     backward search on its side), a SuffixTrie of the first 256 kbp at
+     depth 10, a QGramSetIndex of 65536 reads (q = 15, stride 5) and a
+     protein FM index of 4 Mi residues (8192 queries of 9; 64 against a
+     numpy scan); ms and device ops of each; every result equal on cuda
+     and on cpu (a subset of the seeds on the cpu index);
 Prints one JSON line of kernels before the card's line and the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 nvbio_tpu.
@@ -2555,6 +2574,9 @@ def phase_cli(genome, mapper, card):
 # ---------------------------------------------------------------------------
 
 QGROUP_Q = 16
+# the --qgroup 16 leg's genome: its 4^16-key planes cost the same at any
+# size, the sort, the .npz compression and the in-process check less
+CLI_QGROUP_GENOME = 1_000_000
 
 
 def write_fasta_codes(path, name, codes, width=100):
@@ -2592,10 +2614,12 @@ def phase_cli_index(genome, fm_host, card) -> dict:
     FASTA with ``--fmi`` (its .ref.npz and .fmi.npz equal to the
     in-process builds; the suffix sort on the card, as ``auto`` picks for
     2^22 bases or more on cuda; the q-gram table left out); its first
-    CLI_CMP_GENOME bases with ``--fmi --bwt --bwt-lz4 --pac --qgroup 16
-    --no-qgram`` (every artifact checked against the in-process builds),
-    then ``map`` from that prefix (Q-Group seeding, q = 16) on cuda and on
-    cpu: identical records."""
+    CLI_CMP_GENOME bases with ``--fmi --bwt --bwt-lz4 --pac --no-qgram``
+    (every artifact checked against the in-process builds) and with
+    ``--bwt-blockwise``; its first CLI_QGROUP_GENOME bases with ``--qgroup
+    16 --no-qgram`` (.qgroup.npz and .ref.npz checked), then ``map`` from
+    that prefix (Q-Group seeding, q = 16) on cuda and on cpu: identical
+    records."""
     import tempfile
 
     from nvbio_tpu_torch import packed
@@ -2633,17 +2657,11 @@ def phase_cli_index(genome, fm_host, card) -> dict:
     small = genome[:CLI_CMP_GENOME]
     write_fasta_codes(p("h.fa"), "sim8M", small)
     secs, log = run_cli([p("h.fa"), p("h"), "--fmi", "--bwt", "--bwt-lz4",
-                         "--pac", "--qgroup", str(QGROUP_Q), "--no-qgram",
-                         *CLI_GPU_ARGS], "index")
+                         "--pac", "--no-qgram", *CLI_GPU_ARGS], "index")
     t0 = time.time()
     fm = build_fmindex_device(small, device="cuda").arrays()
     npz_equal(p("h.fmi.npz"), fm, "index 8M")
     npz_equal(p("h.ref.npz"), ref_arrays(small, "sim8M"), "index 8M")
-    qg = build_qgroup_index(small, QGROUP_Q)
-    npz_equal(p("h.qgroup.npz"), dict(
-        q=np.asarray(QGROUP_Q), I=qg.I.numpy().view(np.uint32),
-        S=qg.S.numpy(), SS=qg.SS.numpy(), P=qg.P.numpy(),
-        n=np.asarray(len(small))), "index 8M")
     bwt, primary, _ = load_bwt(p("h.bwt"))
     require(primary == int(fm["primary"]) and np.array_equal(
         bwt, packed.unpack(fm["bwt_words"], len(small), 2)),
@@ -2655,10 +2673,10 @@ def phase_cli_index(genome, fm_host, card) -> dict:
     out["prefix"] = dict(seconds=secs, stages=index_stages(log),
                          check_s=time.time() - t0)
     print(f"[cli] index {len(small)} bp --fmi --bwt --bwt-lz4 --pac "
-          f"--qgroup {QGROUP_Q} --no-qgram: {secs:.2f} s end to end; "
-          f"stages: {out['prefix']['stages']}; .fmi.npz, .ref.npz, "
-          f".qgroup.npz, .bwt (LZ4 frames) and .pac equal to the in-process "
-          f"builds; card {card}", flush=True)
+          f"--no-qgram: {secs:.2f} s end to end; stages: "
+          f"{out['prefix']['stages']}; .fmi.npz, .ref.npz, .bwt (LZ4 "
+          f"frames) and .pac equal to the in-process builds; card {card}",
+          flush=True)
     secs, log = run_cli([p("h.fa"), p("hb"), "--no-qgram", "--bwt-blockwise",
                          "--bwt-lz4", *CLI_GPU_ARGS], "index")
     with open(p("h.bwt"), "rb") as f, open(p("hb.bwt"), "rb") as g:
@@ -2671,13 +2689,33 @@ def phase_cli_index(genome, fm_host, card) -> dict:
           f"run's; card {card}", flush=True)
     require(same, "cli index --bwt-blockwise: .bwt differs from --fmi --bwt")
 
-    sb = head(read_batch(small, SEED + 2100)[0])
+    qsmall = genome[:CLI_QGROUP_GENOME]
+    write_fasta_codes(p("k.fa"), "sim1M", qsmall)
+    secs, log = run_cli([p("k.fa"), p("k"), "--qgroup", str(QGROUP_Q),
+                         "--no-qgram", *CLI_GPU_ARGS], "index")
+    t0 = time.time()
+    npz_equal(p("k.ref.npz"), ref_arrays(qsmall, "sim1M"), "index 1M")
+    qg = build_qgroup_index(qsmall, QGROUP_Q)
+    npz_equal(p("k.qgroup.npz"), dict(
+        q=np.asarray(QGROUP_Q), I=qg.I.numpy().view(np.uint32),
+        S=qg.S.numpy(), SS=qg.SS.numpy(), P=qg.P.numpy(),
+        n=np.asarray(len(qsmall))), "index 1M")
+    del qg
+    out["qgroup"] = dict(seconds=secs, stages=index_stages(log),
+                         check_s=time.time() - t0)
+    print(f"[cli] index {len(qsmall)} bp --qgroup {QGROUP_Q} --no-qgram: "
+          f"{secs:.2f} s end to end; stages: {out['qgroup']['stages']}; "
+          f".qgroup.npz and .ref.npz equal to the in-process builds "
+          f"(checked in {out['qgroup']['check_s']:.2f} s); card {card}",
+          flush=True)
+
+    sb = head(read_batch(qsmall, SEED + 2100)[0])
     write_fastq(p("q.fq"), sb.names, sb.codes, sb.quals)
     sam = {}
     for run, dev_args in (("card", list(CLI_GPU_ARGS)),
                           ("host", ["--device", "cpu"])):
         reset_launches()
-        secs, log = run_cli([p("h"), p("q.fq"), "-o", p(f"q_{run}.sam"),
+        secs, log = run_cli([p("k"), p("q.fq"), "-o", p(f"q_{run}.sam"),
                              *CLI_FLAGS, "--batch", str(N_CMP), *dev_args])
         if run == "card":
             cli_launches("cli qgroup", read_launches(),
@@ -3314,6 +3352,406 @@ def phase_cli_apps(genome, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [assemble]: a micro-assembly batch through map, sort and assemble; and
+# [fm-library]: the FM library's searches, the suffix trie, the q-gram set
+# index and the protein FM index on the card against the same on the host
+# ---------------------------------------------------------------------------
+
+ASM_GENOME = 100_000         # one contig
+ASM_SNP_EVERY = 400          # a SNP about every 400 bp on the second haplotype
+ASM_COVERAGE = 30            # 100-base reads, half from each haplotype
+ASM_REGIONS = 256            # a HaplotypeCaller-style batch of 200-bp regions
+ASM_REGION_SIZE = 200
+ASM_K = 15                   # the app's default -k
+ASM_RECOVERED = 0.9          # SNPs whose region emits both haplotypes
+
+
+def asm_dataset(seed):
+    """(reference, second haplotype, SNP positions, reads, quals, names):
+    the second haplotype carries a SNP about every ASM_SNP_EVERY bases;
+    reads of L bases at ASM_COVERAGE x, half from each haplotype, with 1%
+    substitutions, half reverse-complemented, Phred 20-40."""
+    from nvbio_tpu_torch.utils.simgenome import sample_reads
+
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, ASM_GENOME, dtype=np.uint8)
+    grid = np.arange(ASM_SNP_EVERY // 2, ASM_GENOME - ASM_SNP_EVERY // 2,
+                     ASM_SNP_EVERY)
+    snps = grid + rng.integers(-150, 150, len(grid))
+    alt = ref.copy()
+    alt[snps] = (ref[snps] + rng.integers(1, 4, len(snps))) % 4
+    half = ASM_GENOME * ASM_COVERAGE // L // 2
+    reads = np.concatenate([sample_reads(h, half, L, seed=seed + i)[0]
+                            for i, h in enumerate((ref, alt))])
+    quals = rng.integers(20, 41, reads.shape).astype(np.uint8)
+    names = [f"a{i}" for i in range(len(reads))]
+    return ref, alt, snps, reads.astype(np.uint8), quals, names
+
+
+def fasta_haplotypes(path) -> dict:
+    """{region: [haplotype strings]} of an ``assemble`` FASTA."""
+    out: dict = {}
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for head_line, seq in zip(lines[::2], lines[1::2]):
+        r = int(re.match(r">region(\d+)_", head_line).group(1))
+        out.setdefault(r, []).append(seq)
+    return out
+
+
+def snp_recovery(ref, alt, snps, haps) -> tuple[int, int]:
+    """(SNPs at least ASM_K bases inside a region's ends, of them those
+    whose region emitted both the reference haplotype and the variant one:
+    the reference with every such SNP of the region substituted)."""
+    from nvbio_tpu_torch.alphabet import codes_to_string
+
+    counted = recovered = 0
+    for r in range(ASM_REGIONS):
+        lo, hi = r * ASM_REGION_SIZE, (r + 1) * ASM_REGION_SIZE
+        inner = snps[(snps >= lo + ASM_K) & (snps < hi - ASM_K)]
+        if not len(inner):
+            continue
+        var = ref[lo:hi].copy()
+        var[inner - lo] = alt[inner]
+        got = set(haps.get(r, []))
+        ok = codes_to_string(ref[lo:hi]) in got and \
+            codes_to_string(var) in got
+        counted += len(inner)
+        recovered += len(inner) * ok
+    return counted, recovered
+
+
+def phase_assemble(card) -> dict:
+    """A user's micro-assembly batch through the three commands in this
+    process: ``map`` (cuda) of ~30 k reads of a two-haplotype 100 kbp
+    contig to SAM, ``sort`` (cuda), then ``assemble --regions 256
+    --region-size 200 --support`` on cuda and on cpu: equal FASTA bytes;
+    reads, rows, nodes, edges, cyclic regions and haplotypes; the seconds of
+    each of the app's stages (timed around its calls in the cuda run) and
+    the k-mer scan's ms on the card; SNPs at least k bases inside a region
+    recovered as both haplotypes >= ASM_RECOVERED."""
+    import tempfile
+
+    from nvbio_tpu_torch import assembly
+    from nvbio_tpu_torch.assembly import graph as agraph
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+
+    def p(name):
+        return f"{tmp.name}/{name}"
+
+    ref, alt, snps, reads, quals, names = asm_dataset(SEED + 3100)
+    write_fasta_codes(p("asm.fa"), "asm100k", ref)
+    write_fastq(p("asm.fq"), names, reads, quals)
+    out = dict(reads=len(reads), snps=len(snps))
+    out["map_s"], _ = run_cli([p("asm.fa"), p("asm.fq"), "-o", p("m.sam"),
+                               "--batch", str(B), "--max-read-len", str(L),
+                               *CLI_GPU_ARGS])
+    with open(p("m.sam")) as f:
+        recs = [ln.split("\t", 3) for ln in f if not ln.startswith("@")]
+    out["mapped"] = sum(not int(r[1]) & 4 for r in recs) / len(recs)
+    out["sort_s"], _ = run_cli([p("m.sam"), p("s.sam"), *CLI_GPU_ARGS],
+                               "sort")
+    args = [p("asm.fa"), p("s.sam"), "--regions", str(ASM_REGIONS),
+            "--region-size", str(ASM_REGION_SIZE), "-k", str(ASM_K),
+            "--support"]
+
+    # the cuda run, each stage timed around the app's own call
+    stages, kept = {}, {}
+    real = {n: getattr(assembly, n) for n in (
+        "load_active_regions", "build_debruijn_graph", "k_best_haplotypes",
+        "haplotype_support")}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.time()
+            res = real[name](*a, **kw)
+            stages[name] = time.time() - t0
+            kept[name] = res
+            return res
+        return call
+
+    for n in real:
+        setattr(assembly, n, timed(n))
+    try:
+        out["card_s"], _ = run_cli([*args, "-o", p("h_card.fa"),
+                                    *CLI_GPU_ARGS], "assemble")
+    finally:
+        for n, fn in real.items():
+            setattr(assembly, n, fn)
+    out["host_s"], _ = run_cli([*args, "-o", p("h_host.fa"), "--device",
+                                "cpu"], "assemble")
+    with open(p("h_card.fa"), "rb") as f, open(p("h_host.fa"), "rb") as g:
+        card_fa, host_fa = f.read(), g.read()
+    _, codes, lengths, rid, is_ref, q = kept["load_active_regions"]
+    graph = kept["build_debruijn_graph"]
+    haps = fasta_haplotypes(p("h_card.fa"))
+    counted, recovered = snp_recovery(ref, alt, snps, haps)
+    q = np.where(is_ref[:, None], np.uint8(0xFF), q)
+    out["scan_ms"] = cuda_ms(lambda: agraph._kmer_scan(
+        codes, lengths, q, ASM_K, 6, "cuda"), reps=5)
+    out["scan_ops"], out["scan_busy_ms"] = device_ops(
+        lambda: agraph._kmer_scan(codes, lengths, q, ASM_K, 6, "cuda"))
+    n_assigned = sum(int((s.best_hap >= 0).sum())
+                     for s in kept["haplotype_support"] if s is not None)
+    out.update(rows=len(codes), nodes=graph.n_nodes, edges=graph.n_edges,
+               cyclic=int(graph.cycle_flags.sum()),
+               haplotypes=sum(len(h) for h in haps.values()),
+               assigned=n_assigned, snps_counted=counted,
+               snps_recovered=recovered,
+               recovery=recovered / max(counted, 1),
+               stages_s=stages, equal=card_fa == host_fa)
+    out["phase_s"] = time.time() - t_phase
+    print(f"[assemble] {len(reads)} reads ({100 * out['mapped']:.2f}% "
+          f"mapped, map {out['map_s']:.2f} s, sort {out['sort_s']:.2f} s); "
+          f"{ASM_REGIONS} regions of {ASM_REGION_SIZE} bp: {len(codes)} rows, "
+          f"{graph.n_nodes} nodes, {graph.n_edges} edges, {out['cyclic']} "
+          f"cyclic, {out['haplotypes']} haplotypes, {n_assigned} reads "
+          f"assigned; k-mer scan {out['scan_ms']:.3f} ms on the card "
+          f"({out['scan_ops']} device ops, busy {out['scan_busy_ms']:.3f} "
+          f"ms); stages (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; the app {out['card_s']:.2f} s on cuda, {out['host_s']:.2f} s "
+          f"on cpu, FASTA {'equal' if out['equal'] else 'DIFFERENT'}; SNPs "
+          f">= {ASM_K} bases inside a region: {recovered} of {counted} "
+          f"recovered as both haplotypes ({out['recovery']:.4f}); phase "
+          f"{out['phase_s']:.1f} s; card {card}", flush=True)
+    require(out["mapped"] >= 0.95, f"assemble: {out['mapped']} mapped")
+    require(out["equal"], "assemble: FASTA bytes differ between cuda and cpu")
+    require(out["recovery"] >= ASM_RECOVERED and counted > 0,
+            f"assemble: {recovered} of {counted} SNPs recovered")
+    tmp.cleanup()
+    return out
+
+
+N_MM_SEEDS = 1024            # search_1mm: L * 3 + 1 searches a seed
+N_LIB_SEEDS = 8192
+LIB_SEED_L = 22
+N_LIB_CMP = 256              # of them also searched on the host index
+KMM_K, KMM_STATES = 2, 32
+TRIE_TEXT = 256 * 1024       # the suffix trie's text: the genome's start
+TRIE_DEPTH = 10
+N_SET_READS = 65536          # QGramSetIndex over reads of L bases
+SET_Q, SET_STRIDE = 15, 5
+PROT_N = 4 << 20             # protein residues: a multiple of 32
+N_PROT_QUERIES = 8192
+PROT_L = 9
+N_PROT_SCAN = 64             # queries also counted by a numpy scan
+
+
+def same_intervals(lo, hi, want) -> bool:
+    """Equal where ``want``'s interval is nonempty, empty alike: an empty
+    pattern's bounds are not defined (the card's index has the k-mer
+    table, whose empty intervals are (0, 0); an extension steps on past an
+    empty one)."""
+    lo, hi = lo.cpu(), hi.cpu()
+    wlo, whi = (w.cpu() for w in want)
+    ne = whi > wlo
+    return bool(torch.equal(hi > lo, ne) and torch.equal(lo[ne], wlo[ne])
+                and torch.equal(hi[ne], whi[ne]))
+
+
+def phase_fm_library(genome, fm_cpu, fm_gpu, card) -> dict:
+    """The FM library on the card against the host: search_1mm over
+    N_MM_SEEDS seeds of 22 bases, search_1mm_hybrid and search_kmm (k = 2,
+    32 states) over N_LIB_SEEDS on the 100 Mbp index (the first N_LIB_CMP
+    also on the cpu index: equal); extend_backward / extend_forward of the
+    same seeds symbol by symbol with the reversed genome's index built on
+    the card, each equal to a plain backward search on its side; a
+    SuffixTrie of the genome's first 256 kbp at depth 10 on cuda and cpu
+    (equal arrays and walks); a QGramSetIndex of 65536 reads at q = 15,
+    stride 5 (range and locate equal); a protein FM index of 4 Mi residues
+    (counts of 8192 queries of 9 equal, and equal to a numpy scan for 64).
+    ms a call (CUDA events) and device ops of each."""
+    from nvbio_tpu_torch import qgram, trie
+    from nvbio_tpu_torch.fmi import bidir, protein
+    from nvbio_tpu_torch.fmi import search as S
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+
+    t_phase = time.time()
+    rng = np.random.default_rng(SEED + 3300)
+    starts = rng.integers(0, len(genome) - LIB_SEED_L, N_LIB_SEEDS)
+    seeds = genome[starts[:, None] + np.arange(LIB_SEED_L)].astype(np.int64)
+    for n_mm, rows in ((1, slice(0, None, 3)), (2, slice(1, None, 3))):
+        cols = rng.integers(0, LIB_SEED_L, (len(seeds[rows]), n_mm))
+        sub = seeds[rows]
+        np.put_along_axis(sub, cols, (np.take_along_axis(sub, cols, 1)
+                                      + rng.integers(1, 4, cols.shape)) % 4,
+                          1)
+        seeds[rows] = sub
+    q = torch.from_numpy(seeds)
+    ql = torch.full((N_LIB_SEEDS,), LIB_SEED_L, dtype=torch.int64)
+    qg, qlg = q.cuda(), ql.cuda()
+    qc, qlc = q[:N_LIB_CMP], ql[:N_LIB_CMP]
+    out = {}
+
+    def timed(name, fn, n, **extra):
+        ms = cuda_ms(fn, reps=5)
+        ops, busy = device_ops(fn)
+        out[name] = dict(n=n, ms=ms, device_ops=ops, device_busy_ms=busy,
+                         **extra)
+        print(f"[fm-library] {name} ({n}): {ms:.3f} ms a call, {ops} device "
+              f"ops, device busy {busy:.3f} ms"
+              + "".join(f", {k} {v}" for k, v in extra.items())
+              + f"; card {card}", flush=True)
+
+    m = N_MM_SEEDS
+    got = S.search_1mm(fm_gpu, qg[:m], qlg[:m])
+    want = S.search_1mm(fm_cpu, qc, qlc)
+    c = N_LIB_CMP
+    require(same_intervals(got[0][:c], got[1][:c], want[:2])
+            and same_intervals(got[2][:c], got[3][:c], want[2:4])
+            and torch.equal(got[4][:c].cpu(), want[4]),
+            "fm-library: search_1mm differs between cuda and cpu")
+    timed("search_1mm", lambda: S.search_1mm(fm_gpu, qg[:m], qlg[:m]), m,
+          nonempty_branches=int((got[3] > got[2]).sum()))
+
+    A = (LIB_SEED_L + 1) // 2
+    got = S.search_1mm_hybrid(fm_gpu, qg, qlg, A)
+    want = S.search_1mm_hybrid(fm_cpu, qc, qlc, A)
+    require(all(torch.equal(a[:c].cpu(), b) for a, b in zip(got, want)),
+            "fm-library: search_1mm_hybrid differs between cuda and cpu")
+    timed("search_1mm_hybrid", lambda: S.search_1mm_hybrid(fm_gpu, qg, qlg,
+                                                           A), N_LIB_SEEDS,
+          nonempty_branches=int((got[3] > got[2]).sum()))
+
+    want_exact = S.backward_search_core(fm_gpu.without_ftab(), qg, qlg)
+    got = S.search_kmm(fm_gpu, qg, qlg, KMM_K, KMM_STATES)
+    want = S.search_kmm(fm_cpu, qc, qlc, KMM_K, KMM_STATES)
+    require(all(torch.equal(a[:c].cpu(), b) for a, b in zip(got, want)),
+            "fm-library: search_kmm differs between cuda and cpu")
+    # the beam is mismatch-sorted: an exact seed's exact interval is slot 0
+    exact = slice(2, None, 3)
+    require(bool(got[3][exact, 0].all()) and not got[2][exact, 0].any()
+            and torch.equal(got[0][exact, 0], want_exact[0][exact])
+            and torch.equal(got[1][exact, 0], want_exact[1][exact]),
+            "fm-library: search_kmm lost an exact seed's interval")
+    found = [int(got[3][rows].any(dim=1).sum()) for rows in
+             (slice(0, None, 3), slice(1, None, 3), exact)]
+    timed("search_kmm", lambda: S.search_kmm(fm_gpu, qg, qlg, KMM_K,
+                                             KMM_STATES), N_LIB_SEEDS,
+          found_1mm_2mm_exact=found,
+          full_beams=int(got[3].all(dim=1).sum()))
+
+    t0 = time.time()
+    rev = build_fmindex_device(genome[::-1].copy(), device="cuda")
+    torch.cuda.synchronize()
+    out["reverse_index_s"] = time.time() - t0
+    fwd = fm_gpu.without_ftab()
+    want_f = S.backward_search_core(fwd, qg, qlg)
+    want_r = S.backward_search_core(rev, qg.flip(1), qlg)
+
+    def grow(f, r, qq, backward):
+        iv = bidir.init_interval(f, (qq.shape[0],))
+        order = range(LIB_SEED_L - 1, -1, -1) if backward else \
+            range(LIB_SEED_L)
+        ext = bidir.extend_backward if backward else bidir.extend_forward
+        for j in order:
+            iv = ext(f, r, *iv, qq[:, j])
+        return iv
+
+    rev_cpu = rev.to("cpu")
+    for name, backward in (("extend_backward", True),
+                           ("extend_forward", False)):
+        iv = grow(fm_gpu, rev, qg, backward)
+        require(same_intervals(iv[0], iv[1], want_f)
+                and same_intervals(iv[2], iv[3], want_r),
+                f"fm-library: {name} differs from backward search")
+        host = grow(fm_cpu, rev_cpu, qc, backward)
+        require(all(torch.equal(a[:c].cpu(), b) for a, b in zip(iv, host)),
+                f"fm-library: {name} differs between cuda and cpu")
+        timed(name, lambda b=backward: grow(fm_gpu, rev, qg, b), N_LIB_SEEDS,
+              steps=LIB_SEED_L)
+    del rev, rev_cpu
+
+    text = genome[:TRIE_TEXT]
+    t0 = time.time()
+    tg = trie.SuffixTrie.build(text, max_depth=TRIE_DEPTH, device="cuda")
+    t_card = time.time() - t0
+    t0 = time.time()
+    tc = trie.SuffixTrie.build(text, max_depth=TRIE_DEPTH, device="cpu")
+    t_host = time.time() - t0
+    same = all(np.array_equal(getattr(tg, f.name), getattr(tc, f.name))
+               for f in dataclasses.fields(tg))
+    wq = torch.from_numpy(seeds[:, :TRIE_DEPTH + 2].copy())
+    wl = torch.full((N_LIB_SEEDS,), TRIE_DEPTH + 2)
+    walk_g = tg.walk(wq.cuda(), wl.cuda())
+    walk_c = tc.walk(wq, wl)
+    same_walk = all(torch.equal(a.cpu(), b) for a, b in zip(walk_g, walk_c))
+    out["suffix_trie"] = dict(text=TRIE_TEXT, depth=TRIE_DEPTH,
+                              nodes=len(tg.count), card_s=t_card,
+                              host_s=t_host, equal=same and same_walk)
+    print(f"[fm-library] SuffixTrie of {TRIE_TEXT} bp at depth {TRIE_DEPTH}: "
+          f"{len(tg.count)} nodes, built in {t_card:.2f} s (cuda) and "
+          f"{t_host:.2f} s (cpu), arrays and {N_LIB_SEEDS} walks "
+          f"{'equal' if same and same_walk else 'DIFFERENT'}", flush=True)
+    require(same and same_walk, "fm-library: SuffixTrie differs")
+
+    sreads, _, _ = read_batch(genome, SEED + 3400)
+    sr = np.concatenate([sreads.codes, read_batch(genome, SEED + 3401)[
+        0].codes])[:N_SET_READS]
+    sr[::97, 40] = 4                                   # N windows
+    t0 = time.time()
+    si = qgram.build_qgram_set_index(sr, np.full(len(sr), L), SET_Q,
+                                     SET_STRIDE)
+    t_build = time.time() - t0
+    sig = si.to("cuda")
+    keys = qgram.seed_keys_from_batch(torch.from_numpy(
+        sr[:, 5:5 + SET_Q].astype(np.int32)), SET_Q)
+    keys[1::2] = torch.from_numpy(rng.integers(0, 4 ** SET_Q,
+                                               len(keys) // 2))
+    kg = keys.cuda()
+    rg = qgram.set_index_range(sig, kg)
+    rc = qgram.set_index_range(si, keys)
+    lg = qgram.set_index_locate(sig, rg[0])
+    lc = qgram.set_index_locate(si, rc[0])
+    require(all(torch.equal(a.cpu(), b) for a, b in zip((*rg, *lg),
+                                                         (*rc, *lc))),
+            "fm-library: QGramSetIndex range or locate differs")
+    hits = int((rc[1] > rc[0]).sum())
+    require(bool((lc[1][::2][rc[1][::2] > rc[0][::2]] % SET_STRIDE
+                  == 0).all()), "fm-library: located q-grams off the stride")
+    timed("set_index_range", lambda: qgram.set_index_range(sig, kg),
+          len(keys), hits=hits, build_s=round(t_build, 3),
+          qgrams=int(si.qgrams.shape[0]), max_probe=si.max_probe)
+    timed("set_index_locate", lambda: qgram.set_index_locate(sig, rg[0]),
+          len(keys))
+
+    ptext = rng.integers(0, 24, PROT_N, dtype=np.uint8)
+    t0 = time.time()
+    pf = protein.build_protein_fmindex(ptext)
+    t_pbuild = time.time() - t0
+    pg = pf.to("cuda")
+    pq = ptext[rng.integers(0, PROT_N - PROT_L, N_PROT_QUERIES)[:, None]
+               + np.arange(PROT_L)]
+    pq[1::2] = rng.integers(0, 24, (N_PROT_QUERIES // 2, PROT_L))
+    pqt = torch.from_numpy(pq.astype(np.int64))
+    pl = torch.full((N_PROT_QUERIES,), PROT_L)
+    cnt_g = protein.protein_count(pg, pqt.cuda(), pl.cuda()).cpu()
+    cnt_c = protein.protein_count(pf, pqt, pl)
+    w24 = 24 ** np.arange(PROT_L - 1, -1, -1, dtype=np.int64)
+    win = np.lib.stride_tricks.sliding_window_view(ptext, PROT_L)
+    all_keys = np.sort(win.astype(np.int64) @ w24)
+    qk = pq[:N_PROT_SCAN].astype(np.int64) @ w24
+    scan = (np.searchsorted(all_keys, qk, side="right")
+            - np.searchsorted(all_keys, qk))
+    require(torch.equal(cnt_g, cnt_c)
+            and np.array_equal(cnt_c[:N_PROT_SCAN].numpy(), scan),
+            "fm-library: protein counts differ (cuda, cpu, numpy scan)")
+    timed("protein_count", lambda: protein.protein_count(
+        pg, pqt.cuda(), pl.cuda()), N_PROT_QUERIES,
+          residues=PROT_N, build_s=round(t_pbuild, 3),
+          found=int((cnt_c > 0).sum()))
+    out["phase_s"] = time.time() - t_phase
+    print(f"[fm-library] every result equal on cuda and cpu; reversed index "
+          f"on the card {out['reverse_index_s']:.2f} s; phase "
+          f"{out['phase_s']:.1f} s; card {card}", flush=True)
+    return out
+
+
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
     left out, their device time is their kernels'."""
@@ -3540,6 +3978,9 @@ def main() -> int:
     sort_stats = phase_sort(se_records, card)
     del se_records
     cli_stats["apps"] = phase_cli_apps(genome, card)
+    # the micro-assembly batch and the FM library (no kernel of the repo)
+    asm_stats = phase_assemble(card)
+    fmlib_stats = phase_fm_library(genome, fm_cpu, fm_gpu, card)
 
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
@@ -3656,7 +4097,8 @@ def main() -> int:
                       "blockwise": blockwise, "setbwt": setbwt,
                       "randomized": rand_stats, "mem": mem_stats,
                       "correct": correct_stats, "sort": sort_stats,
-                      "cli": cli_stats, "card": card}))
+                      "cli": cli_stats, "assemble": asm_stats,
+                      "fm_library": fmlib_stats, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,13 @@ def main(argv=None):
         description="PyTorch/CUDA port of nvbio_tpu (indexing, read "
                     "mapping, MEM alignment, read-set BWTs, error "
                     "correction, SAM/BAM sorting and diffing, read "
-                    "extraction, index serving)",
+                    "extraction, index serving, local assembly)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
     from nvbio_tpu_torch.apps import (
         aln_diff_app,
+        assemble_app,
         correct_app,
         extract_app,
         index_app,
@@ -29,9 +30,9 @@ def main(argv=None):
     )
 
     apps = {"index": index_app, "map": map_app, "mem": mem_app,
-            "aln-diff": aln_diff_app, "correct": correct_app,
-            "extract": extract_app, "serve": server_app,
-            "setbwt": setbwt_app, "sort": sort_app}
+            "aln-diff": aln_diff_app, "assemble": assemble_app,
+            "correct": correct_app, "extract": extract_app,
+            "serve": server_app, "setbwt": setbwt_app, "sort": sort_app}
     for app in apps.values():
         app.add_parser(sub)
 

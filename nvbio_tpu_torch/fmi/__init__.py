@@ -1,1 +1,3 @@
-"""FM-index: rank dictionary, index container and batched search."""
+"""FM-index: rank dictionary, index container, batched search (exact,
+1- and k-mismatch), bidirectional extension, SMEMs and the protein
+(wavelet-tree) FM index."""

@@ -1,9 +1,12 @@
 """Batched FM-index search: backward search, sampled-SA locate, interval
 splits and the hybrid 1-mismatch search of the reseed pass.
 
-Port of the parts of ``nvbio_tpu.fmi.search`` the map path calls
+Port of ``nvbio_tpu.fmi.search``: the parts the map path calls
 (``step_backward`` :53, ``backward_search_core`` :59, ``locate_core``
-:116, ``search_1mm_hybrid_topk`` :302, ``extend_backward_all`` :402). The
+:116, ``search_1mm_hybrid_topk`` :302, ``extend_backward_all`` :402) and
+the library searches (``search_1mm`` :189, ``search_1mm_hybrid`` :216,
+``search_kmm_core`` :420 with ``priority.py``'s beam, ``search_kmm``
+:485; ``backward_search`` and ``locate_batch`` are the plain calls). The
 JAX package's scans become Python loops of a fixed trip count over tensor
 ops on the index's device: no loop reads a value back to the host, so on
 CUDA a whole search is enqueued without a stall. Every gather index is
@@ -181,3 +184,153 @@ def search_1mm_hybrid_topk(fmi, queries, qlens, n_approx: int, K: int = 8):
     empty = ~cok | (chi <= clo)
     return (exact_lo, exact_hi, torch.where(empty, 0, clo),
             torch.where(empty, 0, chi))
+
+
+def backward_search(fmi, queries, qlens):
+    """``backward_search_core`` on tensors (or numpy arrays) moved to the
+    index's device."""
+    dev = fmi.device
+    return backward_search_core(fmi, torch.as_tensor(queries, device=dev),
+                                torch.as_tensor(qlens, device=dev))
+
+
+def locate_batch(fmi, rows):
+    return locate_core(fmi, torch.as_tensor(rows, device=fmi.device))
+
+
+def search_1mm(fmi, queries, qlens):
+    """Exact + all 1-mismatch SA ranges, dense enumeration: every position
+    j of every query substituted by (q[j] + d) % 4, d = 1..3, each mutated
+    query backward-searched in full (L·3 + 1 searches a query).
+
+    Returns (exact_lo, exact_hi, mm_lo (B,L,3), mm_hi (B,L,3), mm_sym
+    (B,L,3)); positions past a query's length give (0, 0)."""
+    dev = fmi.device
+    queries = torch.as_tensor(queries, device=dev).to(torch.int64)
+    qlens = torch.as_tensor(qlens, device=dev).to(torch.int64)
+    B, L = queries.shape
+    deltas = torch.arange(1, 4, dtype=torch.int64, device=dev)
+    eye = torch.eye(L, dtype=torch.int64, device=dev)
+    mutated = (queries[:, None, None, :]
+               + eye[None, :, None, :] * deltas[None, None, :, None]) % 4
+    pos = torch.arange(L, device=dev)
+    mm_sym = mutated[:, pos, :, pos].permute(1, 0, 2)          # (B, L, 3)
+    lo, hi = backward_search_core(fmi, mutated.reshape(B * L * 3, L),
+                                  qlens.repeat_interleave(L * 3))
+    exact_lo, exact_hi = backward_search_core(fmi, queries, qlens)
+    pvalid = (pos[None, :] < qlens[:, None])[..., None]
+    mm_lo = torch.where(pvalid, lo.reshape(B, L, 3), 0)
+    mm_hi = torch.where(pvalid, hi.reshape(B, L, 3), 0)
+    return exact_lo, exact_hi, mm_lo, mm_hi, mm_sym
+
+
+def search_1mm_hybrid(fmi, queries, qlens, n_approx: int):
+    """Approx-hybrid 1-mismatch seeding (the reference's map_approx scheme,
+    ``mapping.h:66-73``): 0 mismatches in the seed's right part, at most 1
+    in its left ``n_approx`` positions. One exact backward pass records
+    the interval before every step; a mutation at position j resumes from
+    the state after qlen-1-j steps with the substituted symbol (one
+    ``step_backward`` a delta), then walks the j remaining original
+    symbols.
+
+    Returns (exact_lo, exact_hi, mm_lo, mm_hi, mm_sym), mm_* of shape
+    (B, n_approx, 3) for mutation positions 0..n_approx-1 from the left."""
+    dev = fmi.device
+    queries = torch.as_tensor(queries, device=dev).to(torch.int64)
+    qlens = torch.as_tensor(qlens, device=dev).to(torch.int64)
+    B, L = queries.shape
+    A = min(n_approx, L)
+    lo = torch.zeros((B,), dtype=torch.int64, device=dev)
+    hi = torch.full((B,), fmi.n + 1, dtype=torch.int64, device=dev)
+    st_lo, st_hi = [], []
+    for s in range(L):
+        st_lo.append(lo)
+        st_hi.append(hi)
+        j = (qlens - 1 - s).clamp(0, L - 1)
+        c = torch.gather(queries, 1, j[:, None])[:, 0]
+        active = (s < qlens) & (hi > lo)
+        nlo, nhi = step_backward(fmi, c, torch.where(active, lo, 0),
+                                 torch.where(active, hi, 0))
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+    exact_lo, exact_hi = lo, hi
+
+    jpos = torch.arange(A, dtype=torch.int64, device=dev)
+    t = (qlens[:, None] - 1 - jpos[None, :]).clamp(0, L - 1)      # (B, A)
+    blo = torch.gather(torch.stack(st_lo, dim=1), 1, t)
+    bhi = torch.gather(torch.stack(st_hi, dim=1), 1, t)
+    base_sym = torch.gather(queries, 1, jpos.clamp(max=L - 1)[None, :]
+                            .expand(B, A))
+    deltas = torch.arange(1, 4, dtype=torch.int64, device=dev)
+    mm_sym = (base_sym[:, :, None] + deltas) % 4                   # (B, A, 3)
+    mlo, mhi = step_backward(fmi, mm_sym, blo[:, :, None].expand(B, A, 3),
+                             bhi[:, :, None].expand(B, A, 3))
+    # continuation: walk the j remaining original symbols (j-1-u at step u)
+    for u in range(A - 1):
+        c = torch.gather(queries, 1, (jpos - 1 - u).clamp(0, L - 1)[None, :]
+                         .expand(B, A))
+        active = (u < jpos[None, :, None]) & (mhi > mlo)
+        nlo, nhi = step_backward(fmi, c[:, :, None].expand(B, A, 3),
+                                 torch.where(active, mlo, 0),
+                                 torch.where(active, mhi, 0))
+        mlo = torch.where(active, nlo, mlo)
+        mhi = torch.where(active, nhi, mhi)
+    pvalid = jpos[None, :, None] < qlens[:, None, None]
+    return (exact_lo, exact_hi, torch.where(pvalid, mlo, 0),
+            torch.where(pvalid, mhi, 0), mm_sym)
+
+
+def search_kmm_core(fmi, queries, qlens, k: int, max_states: int = 32):
+    """Approximate backward search with up to ``k`` mismatches.
+
+    A beam of ``max_states`` live (lo, hi, n_mismatch) states per query
+    advances in lockstep over suffix positions; each step branches every
+    state through all 4 symbols (``extend_backward_all``), charges a
+    mismatch for non-query symbols, and pushes the whole 4-way expansion
+    into a ``max_states``-slot ``BatchPriorityQueue`` keyed by -mismatches
+    (a stable sort: ties go to the queue's empty slots first, then to the
+    expansion's column order, as in the JAX package). Distinct mismatch
+    sets can reach the same SA range; callers that count occurrences
+    should dedup on (lo, hi).
+
+    Returns (lo, hi, n_mis, valid), each (B, max_states), mismatch-sorted."""
+    from nvbio_tpu_torch.priority import NEG_INF as QNEG
+    from nvbio_tpu_torch.priority import BatchPriorityQueue
+
+    dev = fmi.device
+    queries = torch.as_tensor(queries, device=dev).to(torch.int64)
+    qlens = torch.as_tensor(qlens, device=dev).to(torch.int64)
+    B, L = queries.shape
+    S = max_states
+    slot = torch.arange(S, dtype=torch.int64, device=dev)
+    lo = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    hi = torch.where(slot == 0, fmi.n + 1, 0).expand(B, S)
+    nm = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    valid = (slot == 0).expand(B, S)
+    flat_idx = torch.arange(S * 4, dtype=torch.int32,
+                            device=dev).expand(B, S * 4)
+    sym = torch.arange(4, dtype=torch.int64, device=dev)
+    for s in range(L):
+        j = (qlens - 1 - s).clamp(0, L - 1)
+        c = torch.gather(queries, 1, j[:, None])[:, 0]
+        lo4, hi4 = extend_backward_all(fmi, lo, hi)              # (B, S, 4)
+        nm4 = nm[:, :, None] + (sym[None, None, :] != c[:, None, None])
+        valid4 = valid[:, :, None] & (hi4 > lo4) & (nm4 <= k)
+        q = BatchPriorityQueue.make(B, S, xp=torch, device=dev).push(
+            (-nm4).reshape(B, S * 4), flat_idx,
+            mask=valid4.reshape(B, S * 4))
+        order = q.values.to(torch.int64)
+
+        def pick(x4):
+            return torch.gather(x4.reshape(B, S * 4), 1, order)
+
+        active = (s < qlens)[:, None]
+        lo = torch.where(active, pick(lo4), lo)
+        hi = torch.where(active, pick(hi4), hi)
+        nm = torch.where(active, pick(nm4), nm)
+        valid = torch.where(active, q.keys > QNEG, valid)
+    return lo, hi, nm, valid
+
+
+def search_kmm(fmi, queries, qlens, k: int, max_states: int = 32):
+    return search_kmm_core(fmi, queries, qlens, k, max_states)

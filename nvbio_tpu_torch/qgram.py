@@ -10,7 +10,12 @@ two-level ``QGroupIndex`` (the reference's ``qgram/qgroup.h:81-200``): a
 presence bitvector over the 4^q keys, its popcount prefix, slot starts and
 positions; built on the host by numpy, as in the JAX package. Both move
 to the device with ``.to``, and ``save``/``load`` read and write the JAX
-package's ``.qgram.npz`` and ``.qgroup.npz``.
+package's ``.qgram.npz`` and ``.qgroup.npz``. ``qgram_count`` is the
+batch hit count of a ``QGramIndex``. The string-set index
+``QGramSetIndex`` (``nvbio_tpu.qgram`` :517-639, the reference's
+``QGramSetIndexDevice``) holds the q-grams of a set of strings as a sorted
+unique-key list, slots and (string, pos) coordinates: built on the host,
+queried by a LUT plus ``max_probe`` fixed halvings as tensor ops.
 
 Tables are int32 tensors for texts below 2^31 symbols (int64 above); every
 gathered position is widened to int64 before any arithmetic, so no
@@ -390,3 +395,141 @@ def index_locate(index, lo: torch.Tensor, slot: torch.Tensor):
     if isinstance(index, QGroupIndex):
         return qgroup_locate(index, lo, slot)
     return qgram_locate(index, lo, slot)
+
+
+def qgram_count(index: QGramIndex, queries, qlens=None):
+    """Batch hit counting (the QGramFilter 'rank' pass): queries (B, L>=q),
+    tensors or numpy arrays, counted on the index's device (int64)."""
+    q = torch.as_tensor(queries, device=index.offsets.device)
+    lo, hi = qgram_range(index, seed_keys_from_batch(q, index.q))
+    return hi - lo
+
+
+# ---------------------------------------------------------------------------
+# String-set q-gram index: q-grams of a STRING SET (e.g. the reads), kept as
+# a sorted unique-key list + slots + (string, pos) coordinates. Memory is
+# O(#qgrams) and a query is a LUT over the leading symbols plus a
+# fixed-iteration in-bucket binary search (the reference's lut +
+# lower_bound, qgram.h:558-580).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QGramSetIndex:
+    q: int
+    qgrams: torch.Tensor     # (U,) int32 sorted unique q-gram keys (q <= 15)
+    slots: torch.Tensor      # (U + 1,) int32: coords of key u in slots[u:u+1]
+    coord_str: torch.Tensor  # (N,) int32 string ids, (key, string, pos) order
+    coord_pos: torch.Tensor  # (N,) int32 in-string positions
+    qlut: int                # leading symbols resolved by the LUT
+    lut: torch.Tensor        # (4^qlut + 1,) int32 bounds into qgrams
+    max_probe: int           # halvings covering the widest LUT bin
+
+    def to(self, device) -> "QGramSetIndex":
+        return dataclasses.replace(
+            self, qgrams=self.qgrams.to(device), slots=self.slots.to(device),
+            coord_str=self.coord_str.to(device),
+            coord_pos=self.coord_pos.to(device), lut=self.lut.to(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.lut.device
+
+
+def build_qgram_set_index(seqs: np.ndarray, lens: np.ndarray, q: int,
+                          stride: int = 1, qlut: int = 8) -> QGramSetIndex:
+    """Host build over a padded (B, Lmax) code matrix + lengths (host
+    tensors; ``.to(device)`` moves the index).
+
+    ``stride`` extracts q-grams at every ``stride``-th in-string position;
+    windows containing N codes (> 3) are excluded."""
+    if q < 1 or q > 15:
+        raise ValueError("q must be in [1, 15] for int32 keys")
+    seqs = np.asarray(seqs)
+    lens = np.asarray(lens)
+    B, Lm = seqs.shape
+    npos = Lm - q + 1
+    if npos <= 0:
+        raise ValueError("strings shorter than q")
+    qlut = min(qlut, q)
+    keys = np.zeros((B, npos), np.int64)
+    bad = np.zeros((B, npos), bool)
+    for j in range(q):
+        col = seqs[:, j:j + npos].astype(np.int64)
+        bad |= col > 3
+        keys = (keys << 2) | np.minimum(col, 3)
+    in_len = (np.arange(npos, dtype=np.int64)[None, :] + q) <= lens[:, None]
+    valid = ~bad & in_len
+    if stride > 1:
+        keep = np.zeros(npos, bool)
+        keep[::stride] = True
+        valid &= keep[None, :]
+    sid, spos = np.nonzero(valid)
+    kflat = keys[sid, spos].astype(np.int64)
+    order = np.argsort(kflat, kind="stable")  # stable: coords stay
+    kflat = kflat[order]                      # (key, string, pos)-sorted
+    coord_str = sid[order].astype(np.int32)
+    coord_pos = spos[order].astype(np.int32)
+    if len(kflat):
+        new = np.concatenate([[True], kflat[1:] != kflat[:-1]])
+        qgrams = kflat[new].astype(np.int32)
+        slots = np.concatenate(
+            [np.flatnonzero(new), [len(kflat)]]).astype(np.int32)
+    else:
+        qgrams = np.zeros(0, np.int32)
+        slots = np.zeros(1, np.int32)
+    shift = 2 * (q - qlut)
+    lut = np.searchsorted(
+        qgrams >> shift, np.arange((1 << (2 * qlut)) + 1),
+        side="left").astype(np.int32)
+    widest = int((lut[1:] - lut[:-1]).max()) if len(qgrams) else 1
+    max_probe = max(1, int(np.ceil(np.log2(max(widest, 1) + 1))))
+    return QGramSetIndex(
+        q=q, qgrams=torch.from_numpy(qgrams),
+        slots=torch.from_numpy(slots),
+        coord_str=torch.from_numpy(coord_str),
+        coord_pos=torch.from_numpy(coord_pos), qlut=qlut,
+        lut=torch.from_numpy(lut), max_probe=max_probe)
+
+
+def set_index_range(index: QGramSetIndex, keys):
+    """(lo, hi) coordinate ranges (int64) for a batch of q-gram keys, on
+    the index's device: LUT bounds + ``max_probe`` halvings of a
+    lower_bound (a static loop of dense gathers, every gather clamped into
+    its table)."""
+    q, qlut = index.q, index.qlut
+    dev = index.device
+    keys = torch.as_tensor(keys, device=dev).to(torch.int32).to(torch.int64)
+    U = index.qgrams.shape[0]
+    if U == 0:
+        z = torch.zeros_like(keys)
+        return z, z
+    g_lut = (keys >> (2 * (q - qlut))) & ((1 << (2 * qlut)) - 1)
+    lut = index.lut.to(torch.int64)
+    lo_b, hi_b = lut[g_lut], lut[g_lut + 1]
+    lo, hi = lo_b, hi_b
+    for _ in range(index.max_probe):
+        mid = (lo + hi) // 2
+        v = index.qgrams[mid.clamp(0, U - 1)].to(torch.int64)
+        go_right = v < keys
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    i = lo.clamp(0, U - 1)
+    found = (lo < hi_b) & (index.qgrams[i].to(torch.int64) == keys)
+    rlo = torch.where(found, index.slots[i].to(torch.int64), 0)
+    rhi = torch.where(found, index.slots[i + 1].to(torch.int64), 0)
+    return rlo, rhi
+
+
+def set_index_locate(index: QGramSetIndex, slot):
+    """(string_id, pos) coordinate of occurrence ``slot`` (the reference's
+    uint2 coord, qgram.h:491), int64 on the index's device."""
+    s = torch.as_tensor(slot, device=index.device).to(torch.int64)
+    n = index.coord_pos.shape[0]
+    if n == 0:
+        # the JAX package's take from an empty table fills INT32_MIN
+        fill = torch.full_like(s, -(2**31))
+        return fill, fill
+    s = s.clamp(0, n - 1)
+    return (index.coord_str[s].to(torch.int64),
+            index.coord_pos[s].to(torch.int64))

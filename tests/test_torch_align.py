@@ -22,6 +22,10 @@ from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import words_to_tensor
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SCORINGS = {
     "sw": (0, -6, -8, -3, -8, -3),   # bowtie2 end-to-end (seq F, te >= to)
     "ed": (0, -1, -1, -1, -1, -1),   # --mode ed

@@ -31,6 +31,10 @@ from nvbio_tpu_torch.io.reference import Reference as TReference
 from nvbio_tpu_torch.utils.simgenome import sample_pairs
 from tests.jax_kernel_path import kernel_path
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 L = 80
 PARAMS = dict(max_read_len=L, seed_len=16, seed_stride=10, hits_per_seed=4,
               max_dist=5, maxins=400)

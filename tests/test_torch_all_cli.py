@@ -3,9 +3,14 @@
 repeat genome of ``tests/test_torch_all.py``."""
 
 import pytest
+import torch
 
 from tests.test_torch_all import L, all_dataset
 from tests.test_torch_paired import _run
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 COMMON = ["--max-read-len", str(L), "--seed-len", "16", "--seed-stride",
           "10", "--batch", "40", "--max-dist", "5", "--all"]

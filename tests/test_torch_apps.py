@@ -29,6 +29,10 @@ import torch
 from nvbio_tpu.__main__ import main as jmain
 from nvbio_tpu_torch.__main__ import main as tmain
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 REFS = (("chr1", 5000), ("chr2", 3000))
 
 

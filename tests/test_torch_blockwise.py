@@ -17,10 +17,15 @@ default knobs (169 M-row planes, minutes on a CPU).
 
 import numpy as np
 import pytest
+import torch
 
 from nvbio_tpu.fmi.index import bwt_from_sa
 from nvbio_tpu.index.sa import suffix_array
 from nvbio_tpu_torch.index.blockwise import blockwise_bwt
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 DECOMPOSITION = ("superblocks", "blocks", "sb_sizes", "primary",
                  "deepen_rounds", "host_tie_small", "host_tie_fallbacks")

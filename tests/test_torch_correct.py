@@ -19,6 +19,10 @@ from nvbio_tpu.alphabet import Alphabet, codes_to_string
 from nvbio_tpu_torch import bloom as tbloom
 from nvbio_tpu_torch import lighter as tlighter
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 jbloom = importlib.import_module("nvbio_tpu.bloom")
 jlighter = importlib.import_module("nvbio_tpu.lighter")
 

@@ -19,6 +19,10 @@ from nvbio_tpu_torch.fmi.index import build_fmindex, fmindex_from_bwt
 from nvbio_tpu_torch.index import device_sa as tdsa
 from nvbio_tpu_torch.index.sa import suffix_array
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 FIELDS = ("bwt_words", "occ", "count", "ssa_marks", "ssa_cum", "ssa_vals")
 
 

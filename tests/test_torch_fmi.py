@@ -19,6 +19,10 @@ from nvbio_tpu_torch.fmi import rank as trank
 from nvbio_tpu_torch.fmi import search as tsearch
 from nvbio_tpu_torch.index.sa import suffix_array as t_suffix_array
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 # ``nvbio_tpu.fmi`` re-exports functions named like its modules
 jidx = importlib.import_module("nvbio_tpu.fmi.index")
 jrank = importlib.import_module("nvbio_tpu.fmi.rank")

@@ -8,7 +8,13 @@ import os
 import subprocess
 import sys
 
+import torch
+
 from tests.test_torch_pipeline import _dataset as se_dataset
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 80

@@ -11,6 +11,7 @@ from concurrent.futures import ThreadPoolExecutor
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from nvbio_tpu.alphabet import Alphabet
 from nvbio_tpu.bowtie import paired as jpaired
@@ -29,6 +30,10 @@ from tests.jax_kernel_path import kernel_path
 from tests.test_torch_all import all_dataset
 from tests.test_torch_paired import pair_dataset
 from tests.test_torch_pipeline import _dataset as se_dataset
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 L = 80
 PARAMS = dict(max_read_len=L, seed_len=16, seed_stride=10, hits_per_seed=4,

@@ -34,6 +34,10 @@ from nvbio_tpu_torch.io.reference import Reference as TReference
 from tests.jax_kernel_path import kernel_path
 from tests.test_torch_paired import L, _params, pair_dataset
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SEMI = (0, -3, -5, -1, -5, -1)      # tests/test_align.py's full-matrix case
 LOCAL = (2, -6, -8, -3, -8, -3)     # bowtie2 --local
 TB_FIELDS = ("score", "ops", "n_ops", "pattern_start", "pattern_end",

@@ -1050,3 +1050,93 @@ def test_setbwt_device_method_on_cuda(tmp_path):
     for ext in ("npz", "txt", "lz4"):
         assert (tmp_path / f"card.setbwt.{ext}").read_bytes() == \
             (tmp_path / f"host.setbwt.{ext}").read_bytes(), ext
+
+
+@pytest.mark.gpu
+def test_assembly_graph_on_cuda_equals_cpu():
+    """The k-mer scan on the card: the same graph and haplotypes."""
+    import dataclasses
+
+    from nvbio_tpu_torch.assembly import (build_debruijn_graph,
+                                          haplotype_support,
+                                          k_best_haplotypes)
+
+    dev = _card()
+    rng = np.random.default_rng(31)
+    ref = rng.integers(0, 4, 400, dtype=np.uint8)
+    alt = ref.copy()
+    alt[200] = (alt[200] + 1) % 4
+    rows = [ref] + [(alt if i % 2 else ref)[s:s + 80]
+                    for i, s in enumerate(rng.integers(100, 300, 60))]
+    codes = np.full((len(rows), 400), 4, np.uint8)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+    codes[5, 10] = 4
+    lengths = np.array([len(r) for r in rows], np.int32)
+    rid = np.zeros(len(rows), np.int32)
+    is_ref = np.arange(len(rows)) == 0
+    quals = rng.integers(20, 41, codes.shape).astype(np.uint8)
+    quals[7, 30:40] = 3                    # low qualities gate a few k-mers
+    g = [build_debruijn_graph(codes, lengths, rid, is_ref, quals, k=k,
+                              device=d)
+         for d in (dev, "cpu") for k in (15, 25)]
+    for a, b in ((g[0], g[2]), (g[1], g[3])):
+        for f in dataclasses.fields(a):
+            np.testing.assert_array_equal(getattr(a, f.name),
+                                          getattr(b, f.name))
+    haps = k_best_haplotypes(g[0])
+    assert len(haps[0]) >= 2
+    s = haplotype_support(haps, codes, lengths, rid, is_ref)
+    assert int(s[0].support.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_fm_library_on_cuda_equals_cpu():
+    """search_1mm, the hybrid and k-mismatch searches, bidirectional
+    extension, the suffix trie, the q-gram set index and the protein FM
+    index (n a multiple of 32) on the card against the same on cpu."""
+    import dataclasses
+
+    from nvbio_tpu_torch import qgram, trie
+    from nvbio_tpu_torch.fmi import bidir, protein, search
+    from nvbio_tpu_torch.fmi.index import build_fmindex
+
+    dev = _card()
+    rng = np.random.default_rng(32)
+    text = rng.integers(0, 4, 20000, dtype=np.uint8)
+    f_cpu, r_cpu = build_fmindex(text), build_fmindex(text[::-1].copy())
+    f_gpu, r_gpu = f_cpu.to(dev), r_cpu.to(dev)
+    q = np.stack([text[p:p + 16] for p in rng.integers(0, 19900, 256)])
+    q[::2, 3] = (q[::2, 3] + 1) % 4
+    ql = np.full(256, 16, np.int32)
+    for fn in (lambda f: search.search_1mm(f, q, ql),
+               lambda f: search.search_1mm_hybrid(f, q, ql, 8),
+               lambda f: search.search_kmm(f, q, ql, 2, 8)):
+        for a, b in zip(fn(f_gpu), fn(f_cpu)):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    c = torch.from_numpy(rng.integers(0, 4, 256))
+    ga = bidir.extend_forward(f_gpu, r_gpu, *bidir.init_interval(f_gpu,
+                                                                 (256,)),
+                              c.to(dev))
+    ca = bidir.extend_forward(f_cpu, r_cpu, *bidir.init_interval(f_cpu,
+                                                                 (256,)), c)
+    for a, b in zip(ga, ca):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    t = [trie.SuffixTrie.build(text[:3000], max_depth=8, device=d)
+         for d in (dev, "cpu")]
+    for fld in dataclasses.fields(t[0]):
+        np.testing.assert_array_equal(getattr(t[0], fld.name),
+                                      getattr(t[1], fld.name))
+    si = qgram.build_qgram_set_index(q.astype(np.uint8), ql, 11, 2)
+    keys = torch.from_numpy(np.asarray(si.qgrams)[::3].copy())
+    for a, b in zip(qgram.set_index_range(si.to(dev), keys.to(dev)),
+                    qgram.set_index_range(si, keys)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    prot = rng.integers(0, 24, 4096, dtype=np.uint8)
+    pf = protein.build_protein_fmindex(prot)
+    pq = np.stack([prot[p:p + 6] for p in rng.integers(0, 4000, 128)])
+    pl = np.full(128, 6)
+    got = protein.protein_count(pf.to(dev), pq, pl).cpu().numpy()
+    np.testing.assert_array_equal(got, protein.protein_count(pf, pq,
+                                                             pl).numpy())
+    assert (got >= 1).all()

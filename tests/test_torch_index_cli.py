@@ -22,6 +22,10 @@ from nvbio_tpu.alphabet import codes_to_string
 from nvbio_tpu.io.pac import load_bwt as j_load_bwt
 from tests.test_torch_pipeline import _run
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 L = 80
 INDEX_FLAGS = {
     "q": ["--no-qgram", "--qgroup", "16", "--fmi", "--sa-backend", "device",

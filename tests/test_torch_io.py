@@ -27,6 +27,10 @@ from nvbio_tpu_torch.io.sam import SamRecord, TypedTag
 from nvbio_tpu_torch.native import bgzf_available
 from nvbio_tpu_torch.utils.stats import AlignmentStats
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 
 def _stream():
     """1.5 MB: incompressible and compressible halves across many blocks

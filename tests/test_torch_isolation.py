@@ -18,6 +18,10 @@ from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 from nvbio_tpu_torch.device import resolve_device
 from nvbio_tpu_torch.io.reference import Reference
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _PROBE = r"""

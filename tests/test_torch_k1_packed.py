@@ -16,6 +16,10 @@ from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import pack, words_to_tensor
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 NEG16 = K.K1_NEG16
 
 

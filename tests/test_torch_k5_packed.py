@@ -22,6 +22,10 @@ from nvbio_tpu_torch.align.types import GotohScoring
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.tools.k5_operands import L_BENCH, bench_operands
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 M16, M32 = 0xFFFF, 0xFFFFFFFF
 BIAS2, NEG2 = 0x80008000, 0x40004000   # 0 and NEG16 in both biased halves
 

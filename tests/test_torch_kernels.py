@@ -19,6 +19,10 @@ from nvbio_tpu.align.types import GotohScoring as JScoring
 from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SCORINGS = {
     "sw": (0, -6, -8, -3, -8, -3),      # bowtie2 end-to-end
     "local": (2, -6, -8, -3, -8, -3),   # bowtie2 --local

@@ -21,6 +21,10 @@ from nvbio_tpu_torch.qgram import (
     build_qgram_index_large,
 )
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 L = 80
 
 

@@ -5,6 +5,7 @@ result fields and SAM records."""
 
 import numpy as np
 import pytest
+import torch
 
 from nvbio_tpu.alphabet import Alphabet, codes_to_string
 from nvbio_tpu.bowtie.params import MapParams as JMapParams
@@ -16,6 +17,10 @@ from nvbio_tpu_torch.bowtie.pipeline import ReadMapper as TReadMapper
 from nvbio_tpu_torch.io.fastq import batch_from_records as t_batch
 from nvbio_tpu_torch.io.reference import Reference as TReference
 from tests.jax_kernel_path import kernel_path
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 L = 80
 PARAMS = dict(max_read_len=L, seed_len=16, seed_stride=10, hits_per_seed=4,

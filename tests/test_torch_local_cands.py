@@ -29,6 +29,10 @@ from nvbio_tpu_torch.align.types import GotohScoring
 from nvbio_tpu_torch.packed import pack, words_to_tensor
 from tests.test_torch_k1_packed import i8, w16
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 NEG16 = K.K1_NEG16
 LOCAL = (2, -6, -8, -3, -8, -3)       # bowtie2 --local
 LAZY = (2, -2, -5, -1, -2, -4)        # te < to: the lazy F

@@ -17,6 +17,7 @@ import re
 import struct
 
 import pytest
+import torch
 
 from nvbio_tpu.io.pac import save_reference_pac
 from nvbio_tpu.io.reference import Reference as JReference
@@ -24,6 +25,10 @@ from nvbio_tpu_torch.io.bam import read_bam
 from nvbio_tpu_torch.io.bgzf import BgzfReader
 from tests.test_torch_paired import L, _run, pair_dataset
 from tests.test_torch_pipeline import _dataset
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 COMMON = ["--max-read-len", str(L), "--seed-len", "16", "--seed-stride",
           "10", "--max-dist", "5"]

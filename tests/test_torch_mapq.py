@@ -12,6 +12,10 @@ from nvbio_tpu_torch.bowtie import mapq as tmapq
 from nvbio_tpu_torch.bowtie import pipeline as tpipe
 from nvbio_tpu_torch.bowtie.params import MapParams as TMapParams
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("max_score", [0, 7])
 def test_mapq_v2_grid(max_score):

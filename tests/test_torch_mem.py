@@ -34,6 +34,10 @@ from nvbio_tpu_torch.mem import chain as tchain
 from nvbio_tpu_torch.mem import pipeline as tpipe
 from tests.jax_kernel_path import kernel_path
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 # ``nvbio_tpu.fmi`` and ``nvbio_tpu.mem`` re-export names of their modules
 jidx = importlib.import_module("nvbio_tpu.fmi.index")
 jmem = importlib.import_module("nvbio_tpu.fmi.mem")

@@ -6,12 +6,17 @@ full-matrix mate traceback it selects)."""
 import dataclasses
 
 import pytest
+import torch
 
 from nvbio_tpu.bowtie.params import MapParams as JMapParams
 from nvbio_tpu.utils import options as jopt
 from nvbio_tpu_torch.bowtie.params import MapParams as TMapParams
 from nvbio_tpu_torch.utils import options as topt
 from tests.test_torch_paired import L, _run, pair_dataset
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 OPTION_FILE = """\
 # bowtie2-style overrides, one per line

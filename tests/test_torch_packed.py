@@ -8,6 +8,10 @@ import torch
 from nvbio_tpu import packed as jpacked
 from nvbio_tpu_torch import packed as tpacked
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 
 def test_pack_unpack_identical(rng):
     for n in (1, 15, 16, 17, 1000):

@@ -16,6 +16,7 @@ from concurrent.futures import ThreadPoolExecutor
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from nvbio_tpu.alphabet import Alphabet, codes_to_string
 from nvbio_tpu.bowtie import paired as jpaired
@@ -30,6 +31,10 @@ from nvbio_tpu_torch.io.fastq import batch_from_records as t_batch
 from nvbio_tpu_torch.io.reference import Reference as TReference
 from nvbio_tpu_torch.utils.simgenome import sample_pairs
 from tests.jax_kernel_path import kernel_path
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 80

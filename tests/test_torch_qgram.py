@@ -17,6 +17,10 @@ from nvbio_tpu_torch import qgram as tq
 from nvbio_tpu_torch.bowtie.params import MapParams as TMapParams
 from nvbio_tpu_torch.utils.simgenome import repeat_rich_genome
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 Q = 7
 NS, H = 12, 6
 

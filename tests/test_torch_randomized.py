@@ -11,6 +11,7 @@ bit-equal to ``jax.random`` (``tests/test_torch_threefry.py``)."""
 from concurrent.futures import ThreadPoolExecutor
 
 import pytest
+import torch
 
 from nvbio_tpu.bowtie.params import MapParams as JMapParams
 from nvbio_tpu.bowtie.pipeline import ReadMapper as JReadMapper
@@ -22,6 +23,10 @@ from nvbio_tpu_torch.io.reference import Reference as TReference
 from nvbio_tpu_torch.qgram import QGroupIndex, build_qgroup_index
 from tests.jax_kernel_path import kernel_path
 from tests.test_torch_fmi_pipeline import _fields_equal, _map
+
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
 
 L = 80
 PARAMS = dict(max_read_len=L, seed_len=16, seed_stride=10, hits_per_seed=4,

@@ -19,6 +19,10 @@ from nvbio_tpu.align.types import GotohScoring as JScoring
 from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align.types import GotohScoring
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SW = (0, -6, -8, -3, -8, -3)          # bowtie2 end-to-end
 LAZY = (1, -2, -5, -1, -2, -4)        # te < to: seq_f switches itself off
 FLAGS = list(itertools.product([False, True], repeat=3))

@@ -38,6 +38,10 @@ from nvbio_tpu_torch.packed import extract_window, pack, words_to_tensor
 from nvbio_tpu_torch.utils.simgenome import sample_pairs
 from tests.jax_kernel_path import kernel_path
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SW = (0, -6, -8, -3, -8, -3)       # bowtie2 end-to-end
 LOCAL = (2, -6, -8, -3, -8, -3)    # bowtie2 --local
 

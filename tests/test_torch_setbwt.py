@@ -15,6 +15,10 @@ from nvbio_tpu_torch import native
 from nvbio_tpu_torch.index import setbwt as T
 from tests.test_setbwt import _mse_oracle, brute_set_bwt
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 
 def _ragged(rng, m, lo, hi):
     return [rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)

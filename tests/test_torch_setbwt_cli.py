@@ -15,6 +15,10 @@ import torch
 
 from tests.test_torch_pipeline import _run
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 N_READS, L = 300, 48
 RUNS = {
     "whole": ["--txt", "--bgz", "--lz4"],

@@ -13,6 +13,10 @@ import torch
 from nvbio_tpu import sumtree as jsumtree
 from nvbio_tpu_torch import sumtree, threefry
 
+# the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
+# worker keeps torch's OpenMP pools from spinning against each other
+torch.set_num_threads(1)
+
 SEEDS = (0, 1, 0x5E1EC7, 2**32 - 1, 2**40 + 7)
 
 
