@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernels: each kernel against its plain torch version on the card, at
      its path's shapes, bit for bit on every output (integer DPs: no
      tolerance), timed with CUDA events (median of 7 single calls, and
-     per call of 10 queued back to back, median of 3), with its bound and
+     per call of 10 queued back to back, median of 3; the plain version
+     on its comparison call), with its bound and
      its instantiation's ptxas registers: K1 candidate scoring B=32768,
      C=24, L=100, W=31, 256 of the reads with penalties past the packed
      path's guard (rescored in int32), and its LOCAL instantiation (the
@@ -163,7 +164,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      before and after (fewer after required with 2^27 bits) and newly
      broken, device ops of one correct batch; the app on 20 k reads over
      50 kbp on cuda and on cpu: identical FASTQ bytes;
- 12d. sort: the single-end records of phase 4 (131072) coordinate-sorted
+ 12d. sort: the single-end records of phase 4's first two batches
+     (65536) coordinate-sorted
      SAM to SAM in one run and in 8 spilled runs with the k-way merge, on
      cuda and on cpu: records/s, the device sorts' ms, identical files,
      (ref, pos) order with unmapped records last;
@@ -199,6 +201,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      protein FM index of 4 Mi residues (8192 queries of 9; 64 against a
      numpy scan); ms and device ops of each; every result equal on cuda
      and on cpu (a subset of the seeds on the cpu index);
+ 12h. scan: extension="scan" (the aligner library's engine: the banded
+     scan scorer over the B*C extracted windows, the scan traceback and,
+     for mate rescue, the full-matrix wavefront over the 531-wide window),
+     one batch of 32768 of each of single-end, paired-end (5% seedless
+     mates), local, paired-full and --all (the repeat copy) on cuda through
+     the kernel route's phases and sensitivity limits, no kernel launched;
+     per batch the seconds, device ops and busy ms, peak device memory;
+     the reads whose records differ from the kernel route's on the same
+     batch (reported: the JAX package's two engines differ by design);
+     GPU = CPU SAM records on 1024 reads or pairs of each;
+ 12i. aligner: the aligner library on the card — ED, SW and Gotoh x
+     GLOBAL, SEMI_GLOBAL, LOCAL full-matrix over 32768 pairs of 100 x 531,
+     the banded Gotoh score (three types) and traceback (SEMI_GLOBAL,
+     LOCAL) at W = 31 over 32768 x (100, 130), the XLA Myers over 32768 x
+     (100, 531), Gotoh LOCAL + BLOSUM62 over 4096 pairs of 256 x 512
+     residues (gaps -5/-3): ms, device ops and busy ms, GCUPS (cells/s)
+     and cuda = cpu on 256 lanes of each call;
+Each phase's start (seconds since the script started) is printed as
+[time] and kept in the JSON line ("phase_starts").
 Prints one JSON line of kernels before the card's line and the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 nvbio_tpu.
@@ -297,6 +318,16 @@ B_K4_WIDE = 4096
 G_K5_2 = 1024                   # K5 at band 21
 
 
+T_START = time.time()
+STAMPS = {}     # phase name -> seconds since the script started
+
+
+def stamp(name: str) -> None:
+    """Record and print when the phase ``name`` starts."""
+    STAMPS[name] = round(time.time() - T_START, 1)
+    print(f"[time] {name} starts at {STAMPS[name]} s", flush=True)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
@@ -335,9 +366,11 @@ def ptxas_summary(log: str) -> list[str]:
             for e, (r, sp) in ptxas_entries(log).items()]
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median wall time of ``fn`` on the card, CUDA events, after a warm-up."""
-    fn()
+def cuda_ms(fn, reps: int = 7, warm: bool = True) -> float:
+    """Median wall time of ``fn`` on the card, CUDA events, after a warm-up
+    call (none with ``warm=False``: the caller has just run ``fn``)."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -472,7 +505,7 @@ def phase_kernels(genome, words, dev, rng, regs):
             k2g[g] = check_kernel(f"banded_traceback group={g}",
                                   K.banded_traceback,
                                   K.banded_traceback_plain, k2_args,
-                                  kernel_kw={"group": g}, plain_reps=1)
+                                  kernel_kw={"group": g})
             del k2g[g]["out"]
     # and at a batch too small to fill the card, under both group sizes:
     # where k2_group's choice of 4 lanes per read comes from
@@ -482,7 +515,7 @@ def phase_kernels(genome, words, dev, rng, regs):
     for g in K.K2_GROUPS:
         k2s[g] = check_kernel(f"banded_traceback B={B_SMALL} group={g}",
                               K.banded_traceback, K.banded_traceback_plain,
-                              small, kernel_kw={"group": g}, plain_reps=1)
+                              small, kernel_kw={"group": g})
         del k2s[g]["out"]
     n_ops_sum = int(k2["out"][3].long().sum())
     small_steps = int(k2["out"][3][:B_SMALL].long().sum())
@@ -508,8 +541,7 @@ def phase_kernels(genome, words, dev, rng, regs):
                        K.banded_score_plain, (*flat, lsc, W, flat_mm),
                        local=True)
     k2a = check_kernel("banded_traceback (--all shape)", K.banded_traceback,
-                       K.banded_traceback_plain, (*flat, sc, W, flat_mm),
-                       plain_reps=3)
+                       K.banded_traceback_plain, (*flat, sc, W, flat_mm))
     k2a_steps = int(k2a["out"][3].long().sum())
     del flat_pats, flat_mm, flat, k2a["out"]
     torch.cuda.empty_cache()
@@ -530,12 +562,12 @@ def phase_kernels(genome, words, dev, rng, regs):
     k3w_np = check_kernel("banded_score_windows (no plane)",
                           K.banded_score_windows,
                           K.banded_score_windows_plain,
-                          (*k3w_args[:7], None), plain_reps=1)
+                          (*k3w_args[:7], None))
     k3w_l = check_kernel("banded_score_windows local",
                          K.banded_score_windows,
                          K.banded_score_windows_plain,
                          (t(tailed), *k3w_args[1:5], lsc, W, t(tb_mm)),
-                         plain_reps=1, local=True)
+                         local=True)
     k3_rows = int(np.minimum(lens, L).sum())
     # K2-WIDE at the full-matrix traceback's band T+M = 230: each read's
     # window of T = L+W-1 left-padded by M never-match symbols, as
@@ -546,13 +578,13 @@ def phase_kernels(genome, words, dev, rng, regs):
     k2w = check_kernel("banded_traceback_wide", K.banded_traceback_wide,
                        K.banded_traceback_wide_plain,
                        (t(pats), t(lens), full_texts, full_tlens, sc, W_FULL,
-                        t(tb_mm)), plain_reps=3)
+                        t(tb_mm)))
     k2w_steps = int(k2w["out"][3].long().sum())
     k2wl = check_kernel("banded_traceback_wide_local",
                         K.banded_traceback_wide,
                         K.banded_traceback_wide_plain,
                         (t(tailed), t(lens), full_texts, full_tlens, lsc,
-                         W_FULL, t(tb_mm)), plain_reps=3, local=True)
+                         W_FULL, t(tb_mm)), local=True)
     k2wl_steps = int(k2wl["out"][3].long().sum())
     # K2-WIDE at a 512-base read's band T+M = 1054: its directions (276 KB
     # a read) take the global-scratch route
@@ -575,13 +607,13 @@ def phase_kernels(genome, words, dev, rng, regs):
             t(-rng.integers(2, 7, size=(nw, ml))))
     k2w512 = check_kernel(f"banded_traceback_wide W={wl} M={ml} (global "
                           f"route)", K.banded_traceback_wide,
-                          K.banded_traceback_wide_plain, w512, plain_reps=1)
+                          K.banded_traceback_wide_plain, w512)
     k2w512_steps = int(k2w512["out"][3].long().sum())
     del k2w512["out"]
     # K2-WIDE at K2's own shape: what K2 would cost if K2-WIDE replaced it
     k2w31 = check_kernel("banded_traceback_wide W=31 (K2's shape)",
                          K.banded_traceback_wide,
-                         K.banded_traceback_wide_plain, k2_args, plain_reps=3)
+                         K.banded_traceback_wide_plain, k2_args)
     del k2w31["out"]
     print(f"[kernels] K2-WIDE mean walk {k2w_steps / B:.2f} steps, "
           f"K2-WIDE-LOCAL {k2wl_steps / B:.2f}", flush=True)
@@ -592,7 +624,7 @@ def phase_kernels(genome, words, dev, rng, regs):
         ops5 = k5_operands(wk, G_K5, dev)
         k5[wk] = check_kernel(
             f"regtile_score_blocked W={wk}", K.regtile_score_blocked,
-            K.regtile_score_blocked_plain, ops5, plain_reps=3,
+            K.regtile_score_blocked_plain, ops5,
             **k5_bench_flags(sc, wk))
         k5[wk]["packed_share"] = k5_packed_share(K, ops5,
                                                  k5_bench_flags(sc, wk))
@@ -633,15 +665,14 @@ def phase_kernels(genome, words, dev, rng, regs):
                extract_window(words, t(wstart, torch.int64), RW),
                t(mtlens))
     k4 = check_kernel("myers_semiglobal", K.myers_semiglobal,
-                      K.myers_semiglobal_plain, k4_args, plain_reps=1)
+                      K.myers_semiglobal_plain, k4_args)
     # its packed entry, the mapping path's: the same mates and windows, the
     # text read from the packed genome
     k4w_args = (t(pats), t(mplens), words, t(wstart, torch.int64),
                 t(mtlens), RW)
     k4w = check_kernel("myers_semiglobal_windows",
                        K.myers_semiglobal_windows,
-                       K.myers_semiglobal_windows_plain, k4w_args,
-                       plain_reps=1)
+                       K.myers_semiglobal_windows_plain, k4w_args)
     k4_steps = int(np.minimum(mtlens, RW).sum())   # the loop's own length
     k4x = k4_widths(K, genome, words, rng, starts, k4_args, t)
     k4_found = float((k4["out"][0][128:] <= 3).float().mean())
@@ -914,12 +945,12 @@ def k4_widths(K, genome, words, rng, starts, k4_args, t):
         nw = (mw + 31) // 32
         out[(mw, "rows")] = (check_kernel(
             f"myers_semiglobal M={mw} B={nb}", K.myers_semiglobal,
-            K.myers_semiglobal_plain, args, plain_reps=0), steps,
+            K.myers_semiglobal_plain, args, time_plain=False), steps,
             f"myers_regs_kernel<{nw}>")
         out[(mw, "windows")] = (check_kernel(
             f"myers_semiglobal_windows M={mw} B={nb}",
             K.myers_semiglobal_windows, K.myers_semiglobal_windows_plain,
-            (args[0], args[1], words, wst, args[3], RW), plain_reps=0),
+            (args[0], args[1], words, wst, args[3], RW), time_plain=False),
             steps, f"myers_regs_windows_kernel<{nw}>")
     # 5 symbols: code 4 (N) now matches itself, in patterns and texts
     pats, plens, texts, tlens = (x[:nb].contiguous() for x in k4_args)
@@ -929,8 +960,8 @@ def k4_widths(K, genome, words, rng, starts, k4_args, t):
                         4, texts).to(torch.int32)
     out[("n5", "rows")] = (check_kernel(
         f"myers_semiglobal n_symbols=5 B={nb}", K.myers_semiglobal,
-        K.myers_semiglobal_plain, (pats, plens, texts, tlens), plain_reps=0,
-        n_symbols=5), int(tlens.clamp(max=RW).long().sum()),
+        K.myers_semiglobal_plain, (pats, plens, texts, tlens),
+        time_plain=False, n_symbols=5), int(tlens.clamp(max=RW).long().sum()),
         "myers_generic_kernel<0>")
     for v in out.values():
         del v[0]["out"]
@@ -958,26 +989,25 @@ def band_checks(K, genome, words, rng, dev, k1_args, true_w0, k2_args, t):
     k1 = check_kernel(f"banded_score_cands W={W2}", K.banded_score_cands,
                       K.banded_score_cands_plain,
                       (reads, rc, lens, w0_2, wl2, words, sc, W2, nch, mm,
-                       mm_rc), plain_reps=1)
+                       mm_rc))
     tw0 = t(np.minimum(true_w0 + shift, n - 1), torch.int64)
     texts = extract_window(words, tw0, TW2)
     tl = (n - tw0).clamp(max=TW2).to(torch.int32)
     pats, plens, mmv = k2_args[0], k2_args[1], k2_args[6]
     k2 = check_kernel(f"banded_traceback W={W2}", K.banded_traceback,
                       K.banded_traceback_plain,
-                      (pats, plens, texts, tl, sc, W2, mmv), plain_reps=1)
+                      (pats, plens, texts, tl, sc, W2, mmv))
     k2_steps = int(k2["out"][3].long().sum())
     del k1["out"], k2["out"]
     k3 = check_kernel(f"banded_score W={W2}", K.banded_score,
                       K.banded_score_plain,
-                      (pats, plens, texts, tl, sc, W2, mmv), plain_reps=1)
+                      (pats, plens, texts, tl, sc, W2, mmv))
     k3w = check_kernel(f"banded_score_windows W={W2}",
                        K.banded_score_windows, K.banded_score_windows_plain,
-                       (pats, plens, words, tw0, tl, sc, W2, mmv),
-                       plain_reps=1)
+                       (pats, plens, words, tw0, tl, sc, W2, mmv))
     k5 = check_kernel(f"regtile_score_blocked W={W2} G={G_K5_2}",
                       K.regtile_score_blocked, K.regtile_score_blocked_plain,
-                      k5_operands(W2, G_K5_2, dev), plain_reps=1,
+                      k5_operands(W2, G_K5_2, dev),
                       **k5_bench_flags(sc, W2))
     for r in (k3, k3w, k5):
         del r["out"]
@@ -1091,24 +1121,29 @@ def k5_bench_flags(scoring, wk: int) -> dict:
                 unroll=10 if wk == W else 4)
 
 
-def check_kernel(name, kernel, plain, args, plain_reps=5, kernel_kw=None,
+def check_kernel(name, kernel, plain, args, time_plain=True, kernel_kw=None,
                  **kw):
     """One kernel against its plain version on the same inputs (every
-    output bit for bit), then both timed (the plain version not at all
-    with ``plain_reps=0``: plain_ms None); fails the run on a difference.
-    ``kernel_kw`` goes to the kernel's wrapper only."""
+    output bit for bit), then both timed: the kernel by ``cuda_ms`` and
+    ``cuda_ms_queued``, the plain version on its comparison call, with CUDA
+    events (not at all with ``time_plain=False``: plain_ms None); fails
+    the run on a difference. ``kernel_kw`` goes to the kernel's wrapper
+    only."""
     kkw = {**kw, **(kernel_kw or {})}
     got = kernel(*args, **kkw)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     want = plain(*args, **kw)
+    b.record()
     torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b) if time_plain else None
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     err = max(int((a.long() - b.long()).abs().max()) for a, b in
               zip(got, want))
     del want
     ms = cuda_ms(lambda: kernel(*args, **kkw))
     ms_queued = cuda_ms_queued(lambda: kernel(*args, **kkw))
-    plain_ms = (cuda_ms(lambda: plain(*args, **kw), reps=plain_reps)
-                if plain_reps else None)
     print(f"[kernels] {name}: equal={equal} max_abs_err={err} ms={ms:.3f} "
           f"queued {ms_queued:.3f} plain_ms={plain_ms}", flush=True)
     require(equal, f"{name} differs from its plain version")
@@ -1130,12 +1165,16 @@ def read_batch(genome, seed):
     return batch, starts, is_rc
 
 
+SE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
+
+
 def phase_main_path(genome, ref, index, params, card, label="main",
-                    n_batches=N_BATCHES, seed=SEED + 100, records=None):
+                    n_batches=N_BATCHES, seed=SEED + 100, records=None,
+                    per_batch=SE_LAUNCHES):
     """``n_batches`` batches of B single-end reads through dispatch +
-    format_batch: launch counts (K1 x2 with the reseed pass, K2 x1 a
-    batch) and sensitivity. The SAM records are appended to ``records``
-    where it is given."""
+    format_batch: launch counts (``per_batch``: K1 x2 with the reseed pass,
+    K2 x1 a batch) and sensitivity. The SAM records are appended to
+    ``records`` where it is given."""
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 
     t0 = time.time()
@@ -1170,8 +1209,7 @@ def phase_main_path(genome, ref, index, params, card, label="main",
           f"{n_mapped / n_reads:.5f}; sensitivity {sens:.5f}; launches "
           f"banded_score_cands={k1_launches} banded_traceback={k2_launches}"
           f"; card {card}", flush=True)
-    require_launches(label, launches, {"banded_score_cands": 2,
-                                       "banded_traceback": 1}, n_batches)
+    require_launches(label, launches, per_batch, n_batches)
     require(sens >= 0.95, f"{label} sensitivity {sens:.4f} < 0.95")
     stats = dict(reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
                  mapped=n_mapped / n_reads, sensitivity=sens,
@@ -1280,10 +1318,12 @@ PE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 2,
 
 
 def phase_paired(genome, mapper, card, label="paired",
-                 n_batches=N_BATCHES_PE, rl=L, seed=SEED + 200):
+                 n_batches=N_BATCHES_PE, rl=L, seed=SEED + 200,
+                 per_batch=PE_LAUNCHES, records=None):
     """``n_batches`` batches of B FR pairs of rl bp (5% seedless mates 2)
-    through dispatch_pair_batch + format_pair_batch: launch counts,
-    per-mate sensitivity, proper share, seedless mates placed."""
+    through dispatch_pair_batch + format_pair_batch: launch counts
+    (``per_batch``), per-mate sensitivity, proper share, seedless mates
+    placed. The SAM records are appended to ``records`` where given."""
     from nvbio_tpu_torch.bowtie.paired import (
         dispatch_pair_batch,
         format_pair_batch,
@@ -1318,7 +1358,9 @@ def phase_paired(genome, mapper, card, label="paired",
           f"sensitivity {sens:.5f}; proper {proper:.5f}; seedless mates "
           f"placed {n_seedless_ok}/{n_seedless} = {rescued:.5f}; launches "
           f"{launches}; card {card}", flush=True)
-    require_launches(label, launches, PE_LAUNCHES, n_batches)
+    require_launches(label, launches, per_batch, n_batches)
+    if records is not None:
+        records.extend(r for recs in outs for r in recs)
     require(sens >= 0.95, f"{label} per-mate sensitivity {sens:.4f} < 0.95")
     require(proper >= 0.90, f"{label} proper-pair share {proper:.4f} < 0.90")
     require(rescued >= 0.90,
@@ -1330,10 +1372,16 @@ def phase_paired(genome, mapper, card, label="paired",
     return batches[0][0], launches, stats
 
 
-def phase_local(genome, mapper, card):
+def phase_local(genome, mapper, card, label="local",
+                n_batches=N_BATCHES_LOCAL, per_batch=SE_LAUNCHES,
+                records=None):
+    """``n_batches`` batches of B local reads (a third tailed) through
+    dispatch + format_batch: launch counts (``per_batch``), sensitivity,
+    tailed reads soft-clipped. The SAM records are appended to
+    ``records`` where given."""
     md = mapper.params.max_dist
     batches = [local_batch(genome, SEED + 300 + i)
-               for i in range(N_BATCHES_LOCAL)]
+               for i in range(n_batches)]
     outs, t_dev, t_fmt, wall, launches = run_batches(
         mapper.dispatch, mapper.format_batch,
         [(b,) for b, _, _, _ in batches])
@@ -1345,20 +1393,21 @@ def phase_local(genome, mapper, card):
             if tl:
                 n_tailed += 1
                 n_clipped += "S" in rec.cigar
-    n_reads = N_BATCHES_LOCAL * B
+    n_reads = n_batches * B
     sens = n_ok / n_reads
     clipped = n_clipped / n_tailed
-    print(f"[local] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
+    print(f"[{label}] {n_reads} reads in {wall:.3f} s = {n_reads / wall:.1f} "
           f"reads/s; per batch dispatch+sync s: "
           f"{', '.join(f'{x:.3f}' for x in t_dev)}; format_batch s: "
           f"{', '.join(f'{x:.3f}' for x in t_fmt)}; sensitivity "
           f"{sens:.5f}; tailed reads soft-clipped {clipped:.5f}; launches "
           f"{launches}; card {card}", flush=True)
-    require_launches("local", launches, {"banded_score_cands": 2,
-                                         "banded_traceback": 1},
-                     N_BATCHES_LOCAL)
-    require(sens >= 0.95, f"local sensitivity {sens:.4f} < 0.95")
-    require(clipped >= 0.8, f"tailed reads soft-clipped {clipped:.4f} < 0.8")
+    require_launches(label, launches, per_batch, n_batches)
+    require(sens >= 0.95, f"{label} sensitivity {sens:.4f} < 0.95")
+    require(clipped >= 0.8,
+            f"{label} tailed reads soft-clipped {clipped:.4f} < 0.8")
+    if records is not None:
+        records.extend(r for recs in outs for r in recs)
     stats = dict(reads=n_reads, seconds=wall, reads_per_s=n_reads / wall,
                  dispatch_s=sum(t_dev), format_s=sum(t_fmt),
                  sensitivity=sens, tailed_soft_clipped=clipped)
@@ -1369,10 +1418,12 @@ def cigar_query_len(cigar: str) -> int:
     return sum(int(n) for n, op in re.findall(r"(\d+)([MIS=X])", cigar))
 
 
-def phase_paired_full(genome, mapper, label, seed, per_batch, card):
+def phase_paired_full(genome, mapper, label, seed, per_batch, card,
+                      records=None):
     """One batch of the paired-end pairs with the full-matrix mate
     traceback (``pe_full_traceback=True``): launch counts, per-mate
-    sensitivity, proper share, and every mapped CIGAR spanning its SEQ."""
+    sensitivity, proper share, and every mapped CIGAR spanning its SEQ.
+    The SAM records are appended to ``records`` where given."""
     from nvbio_tpu_torch.bowtie.paired import (
         dispatch_pair_batch,
         format_pair_batch,
@@ -1406,6 +1457,8 @@ def phase_paired_full(genome, mapper, label, seed, per_batch, card):
     require(proper >= 0.90, f"{label} proper share {proper:.4f} < 0.90")
     require(n_span_bad == 0, f"{label}: {n_span_bad} CIGARs do not span "
                              f"their SEQ")
+    if records is not None:
+        records.extend(recs)
     return pair, launches, dict(pairs=B, seconds=wall, pairs_per_s=B / wall,
                                 dispatch_s=t_dev[0], format_s=t_fmt[0],
                                 sensitivity=sens, proper=proper)
@@ -1432,10 +1485,15 @@ def by_read(recs):
     return out
 
 
-def phase_all(genome, mapper, card):
+ALL_LAUNCHES = {"banded_score_cands": 1, "banded_traceback": 1}
+
+
+def phase_all(genome, mapper, card, label="all", per_batch=ALL_LAUNCHES,
+              records=None):
     """One batch of single-end reads of the repeat-planted genome through
     --all (map_batch_all): the primary of each read placed at its truth,
-    some record of each read at its truth, secondaries per read."""
+    some record of each read at its truth, secondaries per read. The SAM
+    records are appended to ``records`` where given."""
     batch, starts, is_rc = read_batch(genome, SEED + 400)
     md = mapper.params.max_dist
     outs, t_dev, t_fmt, wall, launches = run_batches(
@@ -1452,17 +1510,18 @@ def phase_all(genome, mapper, card):
         n_any += any(placed(r, s, rc, md) for r in rs)
         n_sec += len(rs) - 1
     sens, found = n_ok / B, n_any / B
-    print(f"[all] {B} reads in {wall:.3f} s = {B / wall:.1f} reads/s; "
+    print(f"[{label}] {B} reads in {wall:.3f} s = {B / wall:.1f} reads/s; "
           f"dispatch+sync {t_dev[0]:.3f} s, format {t_fmt[0]:.3f} s; "
           f"primaries placed {sens:.5f}; some record at the truth "
           f"{found:.5f}; {n_sec} secondary records ({n_sec / B:.4f} per "
           f"read); launches {launches}; card {card}", flush=True)
-    require_launches("all", launches, {"banded_score_cands": 1,
-                                       "banded_traceback": 1}, 1)
-    require(sens >= 0.95, f"--all primaries placed {sens:.4f} < 0.95")
-    require(found >= 0.95, f"--all truth among the records {found:.4f} "
+    require_launches(label, launches, per_batch, 1)
+    require(sens >= 0.95, f"{label} primaries placed {sens:.4f} < 0.95")
+    require(found >= 0.95, f"{label} truth among the records {found:.4f} "
                            f"< 0.95")
-    require(n_sec > 0, "--all wrote no secondary record on the repeats")
+    require(n_sec > 0, f"{label} wrote no secondary record on the repeats")
+    if records is not None:
+        records.extend(outs[0])
     return batch, launches, dict(reads=B, seconds=wall, reads_per_s=B / wall,
                                  dispatch_s=t_dev[0], format_s=t_fmt[0],
                                  sensitivity=sens, truth_found=found,
@@ -1860,7 +1919,10 @@ def phase_blockwise(genome, fm_gpu, rep_genome, rep_bwt, card) -> dict:
     t_gen = time.time() - t0
     bwt, primary, st = blockwise_build(text)
     t0 = time.time()
-    count = np.bincount(text, minlength=4).tolist()
+    # on the card: np.bincount widens 2.5 G symbols to int64 on the host
+    dev_text = torch.from_numpy(text).cuda()
+    count = [int((dev_text == c).sum()) for c in range(4)]
+    del dev_text
     t_count = time.time() - t0
     t0 = time.time()
     dev_bwt = torch.from_numpy(bwt).cuda()
@@ -2048,6 +2110,26 @@ def device_ops(fn) -> tuple[int, float]:
         torch.cuda.synchronize()
     rows = device_rows(prof)
     return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
+
+
+def torch_ops(fn):
+    """(result, torch ops) of one call of ``fn``: the ATen operator calls
+    it dispatches (each one or more kernel launches on the card), counted
+    by a dispatch mode. Cheaper than torch.profiler per op, which costs
+    about half a millisecond a kernel to record and sort (on an H100
+    machine, 55 s for one paired-end scan-route batch of 88363 kernels)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        res = fn()
+    return res, count.n
 
 
 def fm_active_lanes(index, q, ql, k: int) -> int:
@@ -2798,7 +2880,8 @@ CORRECT_COV, CORRECT_RL = 30, 100
 CORRECT_BATCH, CORRECT_BITS, CORRECT_K = 4096, 1 << 24, 17  # app defaults
 CORRECT_BITS_SIZED = 1 << 27   # ~29 filter bits a genome k-mer
 CORRECT_CMP_GENOME, N_CORRECT_CMP = 50_000, 20_000
-SORT_RUN = 16384             # 131072 records: 8 spilled runs and the merge
+N_SORT = 65536               # [sort]: the first two [main] batches' records
+SORT_RUN = 8192              # 8 spilled runs and the merge
 MEM_W = 33                   # MemParams().band: 2 * max_dist 16 + 1
 
 
@@ -2935,7 +3018,7 @@ def phase_mem(genome, rep_genome, card, regs):
         mapper.genome_words, mapper.n_genome, reads2, lens2, ch, P)
     args = (reads_f, lens_f, win, wlens, P.scoring, W)
     res = check_kernel("banded_traceback_mem", K.banded_traceback,
-                       K.banded_traceback_plain, args, plain_reps=2,
+                       K.banded_traceback_plain, args,
                        local=True)
     nb = reads_f.shape[0]
     group = K.k2_group(nb, torch.cuda.get_device_properties(0)
@@ -3752,6 +3835,231 @@ def phase_fm_library(genome, fm_cpu, fm_gpu, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The scan route (extension="scan": the aligner library's engine, no kernel)
+# and the aligner library at realistic sizes
+# ---------------------------------------------------------------------------
+
+N_SCAN_CMP = 1024            # GPU = CPU reads (pairs) of each scan path
+N_ALN = 32768                # library calls: pairs a call
+N_ALN_CMP = 256              # of them also run on the CPU
+ALN_TB = L + W - 1           # the banded calls' text: 130
+PROT_ALN_B, PROT_ALN_M, PROT_ALN_N = 4096, 256, 512
+PROT_GAP_OPEN, PROT_GAP_EXT = -5, -3   # examples/proteinsw's gaps
+
+
+def records_differ(a, b) -> int:
+    """Reads whose records differ between two record lists (grouped by read
+    name, so --all's differing record counts are one read each)."""
+    ga, gb = by_read(a), by_read(b)
+    return sum([r.line() for r in ga[n]] != [r.line() for r in gb.get(n, [])]
+               for n in ga)
+
+
+def phase_scan(genome, rep_genome, ref, rep_ref, index, rep_index, kernel,
+               params, local_params, card) -> dict:
+    """[scan]: one batch of B reads (pairs) of each of SE, PE (5% seedless
+    mates, rescued by the full-matrix wavefront over the maxins + band =
+    531 window), local, paired-full and --all (the repeat copy) with
+    extension="scan" on cuda, through the phases of the kernel route with
+    its sensitivity limits and no kernel launched; per batch the seconds,
+    torch ops (``torch_ops``) and peak device memory of one more dispatch;
+    the reads whose records differ from the kernel route's on the same
+    batch (``kernel``: the records of each path's first batch, the same
+    seed), reported only; GPU = CPU SAM records on the first N_SCAN_CMP
+    reads (pairs)."""
+    from nvbio_tpu_torch.bowtie.paired import (
+        dispatch_pair_batch,
+        map_pair_batch,
+    )
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+
+    def scan(prm):
+        return dataclasses.replace(prm, extension="scan")
+
+    def build(r, prm, idx, dev):
+        return ReadMapper.build(r, scan(prm), index=idx, device=dev)
+
+    cpu_index, cpu_rep = index.to("cpu"), rep_index.to("cpu")
+    full = dataclasses.replace(params, pe_full_traceback=True)
+    out = {}
+    for path in ("se", "pe", "local", "paired-full", "all"):
+        label = f"scan-{path}"
+        recs = []
+        t0 = time.time()
+        if path == "se":
+            gm, batch, _, stats = phase_main_path(
+                genome, ref, index, scan(params), card, label=label,
+                n_batches=1, records=recs, per_batch={})
+            cm = build(ref, params, cpu_index, "cpu")
+            inputs = (batch,)
+        elif path == "pe":
+            gm = build(ref, params, index, "cuda")
+            pair, _, stats = phase_paired(genome, gm, card, label=label,
+                                          n_batches=1, per_batch={},
+                                          records=recs)
+            cm = build(ref, params, cpu_index, "cpu")
+            inputs = tuple(pair)
+        elif path == "local":
+            gm = build(ref, local_params, index, "cuda")
+            batch, _, stats = phase_local(genome, gm, card, label=label,
+                                          n_batches=1, per_batch={},
+                                          records=recs)
+            cm = build(ref, local_params, cpu_index, "cpu")
+            inputs = (batch,)
+        elif path == "paired-full":
+            gm = build(ref, full, index, "cuda")
+            pair, _, stats = phase_paired_full(genome, gm, label, SEED + 600,
+                                               {}, card, records=recs)
+            cm = build(ref, full, cpu_index, "cpu")
+            inputs = tuple(pair)
+        else:
+            gm = build(rep_ref, params, rep_index, "cuda")
+            batch, _, stats = phase_all(rep_genome, gm, card, label=label,
+                                        per_batch={}, records=recs)
+            cm = build(rep_ref, params, cpu_rep, "cpu")
+            inputs = (batch,)
+        dispatch, mapped = {
+            "pe": (dispatch_pair_batch, map_pair_batch),
+            "paired-full": (dispatch_pair_batch, map_pair_batch),
+            "all": (ReadMapper.dispatch_all, ReadMapper.map_batch_all),
+        }.get(path, (ReadMapper.dispatch, ReadMapper.map_batch))
+        counts = []
+
+        def dispatch_counted():
+            res, n = torch_ops(lambda: dispatch(gm, *inputs))
+            counts.append(n)
+            return res
+        stats["peak_bytes"] = peak_memory(label, dispatch_counted)
+        ops = stats["torch_ops"] = counts[0]
+        n_diff = records_differ(recs, kernel[path])
+        stats["reads_differing_from_kernel_route"] = n_diff
+        small = tuple(head(b, N_SCAN_CMP) for b in inputs)
+        phase_gpu_equals_cpu(label, lambda: mapped(gm, *small),
+                             lambda: mapped(cm, *small),
+                             secondaries=path == "all")
+        stats["phase_s"] = time.time() - t0
+        print(f"[scan] {path}: dispatch+sync {stats['dispatch_s']:.3f} s, "
+              f"format {stats['format_s']:.3f} s a batch of {B}; "
+              f"{ops} torch ops; peak "
+              f"{stats['peak_bytes'] / 1e6:.1f} MB; {n_diff} of {B} reads "
+              f"(pairs) with records unlike the kernel route's; phase "
+              f"{stats['phase_s']:.1f} s; card {card}", flush=True)
+        out[path] = stats
+    return out
+
+
+def library_call(label, fn, lanes, cells, card, **fixed) -> dict:
+    """One aligner-library call on the card, ``fn(**lanes, **fixed)``
+    (``lanes``: the per-lane tensors by name): ms (one timed call after the
+    first), GCUPS (``cells`` / time), and the same call on the CPU over the
+    first N_ALN_CMP lanes, every output equal, its torch ops counted
+    (``torch_ops``; the op sequence does not depend on the lane count; a
+    full-matrix call counts 2 ops more on the card)."""
+    got = fn(**lanes, **fixed)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fn(**lanes, **fixed), reps=1, warm=False)
+    cpu_lanes = {k: v[:N_ALN_CMP].cpu() for k, v in lanes.items()}
+    cpu_fixed = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in fixed.items()}
+    want, ops = torch_ops(lambda: fn(**cpu_lanes, **cpu_fixed))
+    equal = all(torch.equal(g[:N_ALN_CMP].cpu(), w)
+                for g, w in zip(got, want))
+    gcups = cells / (ms * 1e-3) / 1e9
+    print(f"[aligner] {label}: {ms:.3f} ms, {ops} torch ops, {gcups:.3f} "
+          f"GCUPS ({cells} cells); cuda = cpu on {N_ALN_CMP} lanes: "
+          f"{equal}; card {card}", flush=True)
+    require(equal, f"[aligner] {label}: cuda and cpu differ")
+    return dict(ms=ms, torch_ops=ops, gcups=gcups, cells=cells)
+
+
+def phase_aligner(genome, card) -> dict:
+    """[aligner]: the aligner library on the card at realistic sizes —
+    ED, SW and Gotoh x GLOBAL, SEMI_GLOBAL, LOCAL full-matrix over N_ALN
+    pairs of L x RW (reads against their mate-rescue-sized windows), the
+    banded Gotoh score (three types) and traceback (SEMI_GLOBAL, LOCAL)
+    at W over N_ALN x (L, L + W - 1), the XLA Myers over N_ALN x (L, RW),
+    Gotoh LOCAL + BLOSUM62 over PROT_ALN_B pairs of PROT_ALN_M x
+    PROT_ALN_N residues (proteinsw's gaps); each via ``library_call``."""
+    from nvbio_tpu_torch.align import (
+        GLOBAL,
+        LOCAL,
+        SEMI_GLOBAL,
+        batch_score_banded,
+        batch_score_full,
+        batch_traceback_banded,
+        make_edit_distance_aligner,
+        make_gotoh_aligner,
+        make_smith_waterman_aligner,
+    )
+    from nvbio_tpu_torch.align.myers import myers_semiglobal
+    from nvbio_tpu_torch.align.scoring import BLOSUM62
+    from nvbio_tpu_torch.bowtie.params import MapParams
+
+    t_phase = time.time()
+    rng = np.random.default_rng(SEED + 1400)
+    dev = torch.device("cuda")
+    n = len(genome)
+    pats, starts = make_reads(genome, N_ALN, rng)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    # each read inside a window of RW at a random offset, a few cut short
+    w0 = np.clip(starts - rng.integers(0, RW - L - 2 * MAX_DIST, N_ALN), 0,
+                 n - RW)
+    texts = genome[w0[:, None] + np.arange(RW)]
+    tlens = np.full(N_ALN, RW, np.int32)
+    tlens[:64] = rng.integers(L, RW, 64)
+    full = dict(patterns=t(pats), pattern_lens=t(np.full(N_ALN, L)),
+                texts=t(texts), text_lens=t(tlens))
+    sc = MapParams().scoring
+    out = {}
+    for kind, make in (("ed", lambda ty: make_edit_distance_aligner(ty)),
+                       ("sw", lambda ty: make_smith_waterman_aligner(ty)),
+                       ("gotoh", lambda ty: make_gotoh_aligner(ty, sc))):
+        for ty in (GLOBAL, SEMI_GLOBAL, LOCAL):
+            out[f"full-{kind}-{ty.name}"] = library_call(
+                f"batch_score_full {kind} {ty.name} {N_ALN} x {L} x {RW}",
+                batch_score_full, full, N_ALN * L * RW, card,
+                aligner=make(ty))
+    # banded: the read's own window from max_dist before its start
+    bw0 = np.clip(starts - MAX_DIST, 0, n - ALN_TB)
+    btexts = genome[bw0[:, None] + np.arange(ALN_TB)]
+    banded = dict(full, texts=t(btexts), text_lens=t(np.full(N_ALN, ALN_TB)),
+                  mismatch_scores=t(-(2 + (4 * rng.integers(
+                      2, 41, size=(N_ALN, L))) // 40)))
+    for ty in (GLOBAL, SEMI_GLOBAL, LOCAL):
+        out[f"banded-{ty.name}"] = library_call(
+            f"batch_score_banded gotoh {ty.name} W={W} {N_ALN} x {L}",
+            batch_score_banded, banded, N_ALN * L * W, card,
+            aligner=make_gotoh_aligner(ty, sc), band=W)
+    for ty in (SEMI_GLOBAL, LOCAL):
+        out[f"traceback-{ty.name}"] = library_call(
+            f"batch_traceback_banded gotoh {ty.name} W={W} {N_ALN} x {L}",
+            batch_traceback_banded, banded, N_ALN * L * W, card,
+            aligner=make_gotoh_aligner(ty, sc), band=W)
+    out["myers"] = library_call(
+        f"myers_semiglobal {N_ALN} x {L} x {RW}", myers_semiglobal, full,
+        N_ALN * L * RW, card)
+    # protein: random residues, a third of the queries planted in their text
+    prng = np.random.default_rng(SEED + 1500)
+    ppats = prng.integers(0, 24, size=(PROT_ALN_B, PROT_ALN_M))
+    ptexts = prng.integers(0, 24, size=(PROT_ALN_B, PROT_ALN_N))
+    k = PROT_ALN_B // 3
+    ptexts[:k, 100:100 + PROT_ALN_M] = ppats[:k]
+    prot = make_gotoh_aligner(LOCAL, type(sc)(
+        0, 0, PROT_GAP_OPEN, PROT_GAP_EXT, PROT_GAP_OPEN, PROT_GAP_EXT))
+    out["protein-local-blosum62"] = library_call(
+        f"batch_score_full gotoh LOCAL BLOSUM62 {PROT_ALN_B} x {PROT_ALN_M} "
+        f"x {PROT_ALN_N}", batch_score_full,
+        dict(patterns=t(ppats), pattern_lens=t(np.full(PROT_ALN_B,
+                                                       PROT_ALN_M)),
+             texts=t(ptexts), text_lens=t(np.full(PROT_ALN_B, PROT_ALN_N))),
+        PROT_ALN_B * PROT_ALN_M * PROT_ALN_N, card, aligner=prot,
+        subst_matrix=torch.as_tensor(BLOSUM62, device=dev))
+    out["phase_s"] = time.time() - t_phase
+    print(f"[aligner] phase {out['phase_s']:.1f} s; card {card}", flush=True)
+    return out
+
+
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
     left out, their device time is their kernels'."""
@@ -3861,6 +4169,7 @@ def main() -> int:
     # the precompiled libraries and those of bands W2 and MEM_W (mem's
     # band), one nvcc each, all in parallel
     t0 = time.time()
+    stamp("build")
     info = K.build(bands=(W2, MEM_W))
     for name, d in info.items():
         print(f"[build] {name}: {d['seconds']:.1f} s; "
@@ -3881,6 +4190,7 @@ def main() -> int:
     regs = {}
     for d in info.values():
         regs.update(ptxas_entries(d["ptxas"]))
+    stamp("kernels")
     kernels, extra = phase_kernels(genome, words, dev, rng, regs)
 
     # one parameter set serves the single-end and paired-end paths
@@ -3891,15 +4201,20 @@ def main() -> int:
                                    seed_stride=15, hits_per_seed=6)
     full_params = dataclasses.replace(params, pe_full_traceback=True)
     full_local = dataclasses.replace(local_params, pe_full_traceback=True)
+    stamp("qgram_index")
     t0 = time.time()
     index = build_qgram_index(genome, params.qgram_q)
     print(f"[index] q-gram q={params.qgram_q} over {GENOME_LEN} bp on the "
           f"host in {time.time() - t0:.2f} s", flush=True)
     se_records = []
+    stamp("single-end")
     gpu_mapper, batch0, se_launches, stats = phase_main_path(
         genome, ref, index, params, card, records=se_records)
     gpu_index = gpu_mapper.index
-    pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card)
+    stamp("paired")
+    pe_records = []
+    pair0, pe_launches, pe_stats = phase_paired(genome, gpu_mapper, card,
+                                                records=pe_records)
 
     def gpu(prm):
         return ReadMapper.build(ref, prm, index=gpu_index, device="cuda")
@@ -3907,11 +4222,13 @@ def main() -> int:
     # any band: max_dist 10 (band 21, no precompiled library); rescue of
     # 150-base mates (K4 over 5 words)
     params21 = dataclasses.replace(params, max_dist=MAX_DIST_2)
+    stamp("single-end-w21")
     gpu21, batch21, se21_launches, se21_stats = phase_main_path(
         genome, ref, gpu_index, params21, card, label="single-end-w21",
         n_batches=1, seed=SEED + 800)
     params150 = dataclasses.replace(params, max_read_len=L_PE2)
     gpu150 = gpu(params150)
+    stamp("paired-150")
     pair150, pe150_launches, pe150_stats = phase_paired(
         genome, gpu150, card, label="paired-150", n_batches=1, rl=L_PE2,
         seed=SEED + 900)
@@ -3919,11 +4236,15 @@ def main() -> int:
     # FM-index seeding: the index built once, its search on the card against
     # the CPU, then the FM-seeded single-end and paired-end paths
     fm_params = dataclasses.replace(params, seeding="fmi")
+    stamp("build_fm")
     fm_cpu, fm_gpu, fm_build = build_fm(genome)
+    stamp("fmi_search")
     fm_search = phase_fmi_search(genome, fm_cpu, fm_gpu, fm_params, card)
+    stamp("fmi")
     gpu_fm, fm_batch0, fm_launches, fm_stats = phase_fmi(
         genome, ref, fm_gpu, fm_params, card)
     fm_stats.update(build=fm_build, search=fm_search)
+    stamp("paired-fmi")
     pfm0, pfm_launches, pfm_stats = phase_paired(
         genome, gpu_fm, card, label="paired-fmi", n_batches=1,
         seed=SEED + 1500)
@@ -3934,22 +4255,32 @@ def main() -> int:
     rep_genome = plant_repeats(genome, np.random.default_rng(SEED + 1))
     print(f"[index] repeat-planted genome ({N_REPEATS} x {REPEAT_LEN} bp) "
           f"in {time.time() - t0:.2f} s", flush=True)
+    stamp("index_device")
     index_device, rep_bwt = phase_index_device(rep_genome, card)
     index_device["uniform"] = fm_build["device"]
+    stamp("blockwise")
     blockwise = phase_blockwise(genome, fm_gpu, rep_genome, rep_bwt, card)
     del rep_bwt
+    stamp("setbwt")
     setbwt = phase_setbwt(card)
+    stamp("randomized")
     rand_stats, rand_launches = phase_randomized(
         genome, ref, gpu_index, fm_gpu, fm_cpu, params, card)
 
     gpu_local = gpu(local_params)
-    local0, local_launches, local_stats = phase_local(genome, gpu_local,
-                                                      card)
+    stamp("local")
+    local_records = []
+    local0, local_launches, local_stats = phase_local(
+        genome, gpu_local, card, records=local_records)
     gpu_full, gpu_full_local = gpu(full_params), gpu(full_local)
     full_launches = {**PE_LAUNCHES, "banded_traceback": 0,
                      "banded_traceback_wide": 2}
+    stamp("paired_full")
+    pf_records = []
     pf0, pf_launches, pf_stats = phase_paired_full(
-        genome, gpu_full, "paired-full", SEED + 600, full_launches, card)
+        genome, gpu_full, "paired-full", SEED + 600, full_launches, card,
+        records=pf_records)
+    stamp("paired-full-local")
     pfl0, pfl_launches, pfl_stats = phase_paired_full(
         genome, gpu_full_local, "paired-full-local", SEED + 700,
         full_launches, card)
@@ -3962,25 +4293,52 @@ def main() -> int:
         device="cuda")
     print(f"[index] the repeat-planted genome's q-gram index in "
           f"{time.time() - t0:.2f} s", flush=True)
-    all0, all_launches, all_stats = phase_all(rep_genome, gpu_rep, card)
+    stamp("all")
+    all_records = []
+    all0, all_launches, all_stats = phase_all(rep_genome, gpu_rep, card,
+                                              records=all_records)
+    stamp("paired_all")
     pa0, pa_launches, pa_stats = phase_paired_all(rep_genome, gpu_rep, card)
+    stamp("gcups")
     gcups_launches, gcups = phase_gcups(card)
+    stamp("cli")
     cli_stats = phase_cli(genome, gpu_mapper, card)
+    stamp("cli_index")
     cli_stats["index"] = phase_cli_index(genome, fm_cpu, card)
+    stamp("cli_setbwt")
     cli_stats["setbwt"] = phase_cli_setbwt(card)
 
     # mem (SMEM seeding, chaining, one K2-LOCAL launch a batch), error
     # correction, coordinate sorting and the new commands
+    stamp("mem")
     mem_stats, mem_launches, mem_kernel = phase_mem(genome, rep_genome, card,
                                                     regs)
     kernels.append(mem_kernel)
+    stamp("correct")
     correct_stats = phase_correct(card)
-    sort_stats = phase_sort(se_records, card)
+    stamp("sort")
+    sort_stats = phase_sort(se_records[:N_SORT], card)
+    se_first = se_records[:B]   # [scan] compares the first batch's
     del se_records
+    stamp("cli_apps")
     cli_stats["apps"] = phase_cli_apps(genome, card)
     # the micro-assembly batch and the FM library (no kernel of the repo)
+    stamp("assemble")
     asm_stats = phase_assemble(card)
+    stamp("fm_library")
     fmlib_stats = phase_fm_library(genome, fm_cpu, fm_gpu, card)
+    # the scan route and the aligner library (no kernel of the repo)
+    stamp("scan")
+    # the kernel route's records of each path's first batch (same seeds)
+    scan_stats = phase_scan(
+        genome, rep_genome, ref, rep_ref, gpu_index, gpu_rep.index,
+        {"se": se_first, "pe": pe_records[:2 * B],
+         "local": local_records[:B], "paired-full": pf_records,
+         "all": all_records}, params, local_params, card)
+    del se_first, pe_records, local_records, pf_records, all_records
+    stamp("aligner")
+    aligner_stats = phase_aligner(genome, card)
+    stamp("profile")
 
     # each kernel's launches in the run of the path it serves
     runs = {"single_end": se_launches, "paired_end": pe_launches,
@@ -4032,6 +4390,7 @@ def main() -> int:
     pfm_stats["profile"] = phase_profile(
         "paired-fmi", lambda: dispatch_pair_batch(gpu_fm, *pfm0))
 
+    stamp("gpu=cpu")
     cpu_index = gpu_index.to("cpu")
 
     def cpu(prm):
@@ -4085,6 +4444,7 @@ def main() -> int:
                          lambda: map_pair_batch(gpu_fm, m1, m2),
                          lambda: map_pair_batch(cpu_fm, m1, m2), 2 * N_CMP)
 
+    stamp("end")
     print(json.dumps({"kernels": kernels, "kernel_extra": extra,
                       "main_path": stats, "paired_end": pe_stats,
                       "single_end_w21": se21_stats,
@@ -4098,7 +4458,9 @@ def main() -> int:
                       "randomized": rand_stats, "mem": mem_stats,
                       "correct": correct_stats, "sort": sort_stats,
                       "cli": cli_stats, "assemble": asm_stats,
-                      "fm_library": fmlib_stats, "card": card}))
+                      "fm_library": fmlib_stats, "scan": scan_stats,
+                      "aligner": aligner_stats, "phase_starts": STAMPS,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

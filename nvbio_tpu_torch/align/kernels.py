@@ -43,7 +43,6 @@ import time
 
 import torch
 
-from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import extract_window
 
@@ -373,7 +372,7 @@ def banded_score_cands_plain(reads, rc, lens, w0, wlens, genome_words,
     tlen = wlens.to(torch.int32).reshape(B * C)
     if local:
         text = extract_window(genome_words, w0.reshape(B * C), L + W - 1, 2)
-        smax, kb = batch_score_banded(pat, plen, text, tlen, scoring, W,
+        smax, kb = banded_score_plain(pat, plen, text, tlen, scoring, W,
                                       mmv, local=True)
         return smax.reshape(B, C), kb.reshape(B, C)
     text = extract_window(genome_words, w0.reshape(B * C), L + W, 2)
@@ -791,10 +790,66 @@ banded_traceback_wide.launches = 0
 # K3: banded scoring of flat (pattern, text) pairs, SEMI_GLOBAL or LOCAL
 # ---------------------------------------------------------------------------
 
-# K3's plain version is the flat batched scorer: its prefix max is floored
-# at NEG_INF exactly as the TPU kernel's doubling loop (pallas_kernels.py:
-# 96-103) floors it, and ``local=True`` is the kernel's LOCAL variant.
-banded_score_plain = batch_score_banded
+def banded_score_plain(patterns, pattern_lens, texts, text_lens,
+                       scoring: GotohScoring, band: int,
+                       mismatch_scores=None, local: bool = False):
+    """Plain torch version of ``banded_score`` (same contract): the flat
+    batched scorer. The band state is a dense (B, W) plane updated once
+    per pattern row, the within-row text-gap dependency broken by an
+    exclusive prefix max ("lazy F"), floored at NEG_INF exactly as the TPU
+    kernel's doubling loop (pallas_kernels.py:96-103) floors it; the JAX
+    package's scan scorer (``align.batch.batch_score_banded``) leaves it
+    unfloored, so the two differ only in rows whose every cell lies near
+    NEG_INF (no alignment exists). ``local=True`` floors H at 0 and keeps
+    a running max over the cells with i <= plen and i - 1 + k < tlen
+    (pallas_kernels.py:93-94, :108-112)."""
+    B, M = patterns.shape
+    W = band
+    TW = M + W - 1
+    dev = patterns.device
+    po, pe = scoring.pattern_gap_open, scoring.pattern_gap_ext
+    to, te = scoring.text_gap_open, scoring.text_gap_ext
+    neg = NEG_INF
+    pats = patterns.to(torch.int32)
+    texts = texts.to(torch.int32)
+    if texts.shape[1] < TW:
+        texts = torch.nn.functional.pad(texts, (0, TW - texts.shape[1]))
+    plen = pattern_lens.to(torch.int32)
+    tlen = text_lens.to(torch.int32)
+    mm = (None if mismatch_scores is None
+          else mismatch_scores.to(torch.int32))
+
+    kcol = torch.arange(W, dtype=torch.int32, device=dev)
+    H = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    E = torch.full((B, W), neg, dtype=torch.int32, device=dev)
+    final = torch.full((B, W), neg, dtype=torch.int32, device=dev)
+    neg_col = torch.full((B, 1), neg, dtype=torch.int32, device=dev)
+    for im1 in range(M):
+        p = pats[:, im1:im1 + 1]
+        trow = texts[:, im1:im1 + W]
+        mmv = scoring.mismatch if mm is None else mm[:, im1:im1 + 1]
+        in_text = (im1 + kcol)[None, :] < tlen[:, None]
+        sub = torch.where(p == trow, scoring.match, mmv).to(torch.int32)
+        sub = torch.where(in_text, sub, neg)
+        diag = H + sub
+        Erow = torch.maximum(torch.cat([E[:, 1:], neg_col], dim=1) + pe,
+                             torch.cat([H[:, 1:], neg_col], dim=1) + po)
+        H0 = torch.maximum(diag, Erow)
+        if local:
+            H0 = H0.clamp(min=0)
+        # F[k] = te*(k-1) + max(NEG, max_{k'<k}(H0[k'] + to - te*k'))
+        G = torch.cummax(H0 + (to - te * kcol), dim=1).values.clamp(min=neg)
+        F = torch.cat([neg_col, G[:, :-1]], dim=1) + te * (kcol - 1)
+        Hrow = torch.maximum(H0, F)
+        if local:
+            valid = in_text & (im1 + 1 <= plen)[:, None]
+            final = torch.maximum(final, torch.where(valid, Hrow, neg))
+        else:
+            final = torch.where((plen == im1 + 1)[:, None], Hrow, final)
+        H, E = Hrow, Erow
+    score = final.max(dim=1).values
+    k_best = torch.argmax(final, dim=1).to(torch.int32)
+    return score, k_best
 
 
 def banded_score(patterns, pattern_lens, texts, text_lens,

@@ -1,9 +1,11 @@
 """Aligner and scoring-scheme types (copy of ``nvbio_tpu.align.types``).
 
-Scoring values follow the reference's conventions: ``gap_open`` is the
-score of a length-1 gap, ``gap_ext`` the per-additional-symbol score; E is
-the pattern-gap state (SAM "I"), F the text-gap state (SAM "D"); all costs
-are negative scores.
+The aligners are hashable frozen dataclasses, {EditDistance, SmithWaterman,
+Gotoh, Hamming} x {GLOBAL, SEMI_GLOBAL, LOCAL}, with the JAX package's
+defaults. Scoring values follow the reference's conventions: ``gap_open``
+is the score of a length-1 gap, ``gap_ext`` the per-additional-symbol
+score; E is the pattern-gap state (SAM "I"), F the text-gap state (SAM
+"D"); all costs are negative scores.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ SEMI_GLOBAL = AlignmentType.SEMI_GLOBAL
 
 
 @dataclasses.dataclass(frozen=True)
+class SWScoring:
+    """Linear-gap scoring (Smith-Waterman aligner)."""
+
+    match: int = 2
+    mismatch: int = -1
+    deletion: int = -1   # vertical move: consumes text (SAM 'D')
+    insertion: int = -1  # horizontal move: consumes pattern (SAM 'I')
+
+
+@dataclasses.dataclass(frozen=True)
 class GotohScoring:
     """Affine-gap scoring (Gotoh aligner).
 
@@ -40,9 +52,56 @@ class GotohScoring:
 
 
 @dataclasses.dataclass(frozen=True)
+class EditDistanceAligner:
+    type: AlignmentType = GLOBAL
+
+    @property
+    def scoring(self) -> SWScoring:
+        return SWScoring(match=0, mismatch=-1, deletion=-1, insertion=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SmithWatermanAligner:
+    type: AlignmentType = LOCAL
+    scoring: SWScoring = SWScoring()
+
+
+@dataclasses.dataclass(frozen=True)
 class GotohAligner:
     type: AlignmentType = LOCAL
     scoring: GotohScoring = GotohScoring()
+
+
+@dataclasses.dataclass(frozen=True)
+class HammingAligner:
+    """Mismatch-only scoring: no gaps, diagonal moves only."""
+
+    type: AlignmentType = SEMI_GLOBAL
+    scoring: SWScoring = SWScoring()
+
+
+def make_edit_distance_aligner(
+    type: AlignmentType = GLOBAL
+) -> EditDistanceAligner:
+    return EditDistanceAligner(AlignmentType(type))
+
+
+def make_smith_waterman_aligner(
+    type: AlignmentType, scoring: SWScoring = SWScoring()
+) -> SmithWatermanAligner:
+    return SmithWatermanAligner(AlignmentType(type), scoring)
+
+
+def make_gotoh_aligner(
+    type: AlignmentType, scoring: GotohScoring = GotohScoring()
+) -> GotohAligner:
+    return GotohAligner(AlignmentType(type), scoring)
+
+
+def make_hamming_aligner(
+    type: AlignmentType, scoring: SWScoring = SWScoring()
+) -> HammingAligner:
+    return HammingAligner(AlignmentType(type), scoring)
 
 
 # A score small enough to never win a max() but large enough not to wrap

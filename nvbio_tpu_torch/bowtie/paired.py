@@ -16,7 +16,13 @@ goes through the fused traceback (K2), or with ``pe_full_traceback`` the
 full-matrix traceback (K2-WIDE, band T+M). Per batch: K1 (or K3-LOCAL) x2,
 K4 x2, K3 x2, K2 (or K2-WIDE) x2. All-mapping keeps the top K = 4 distinct
 pair loci of the matrix and traces each mate's B*K slots in one call (K1
-x2, K2 x2; no rescue).
+x2, K2 x2; no rescue). Under the scan route (``extension="scan"``,
+``pipeline.use_pallas_extension``) the candidates and tracebacks take the
+aligner library, as in ``pipeline``, and the rescue is the JAX package's
+scan rescue (``paired.py:170-175``): the full-matrix wavefront
+``batch_score_full`` (SEMI_GLOBAL Gotoh, the mate's penalties) over the
+whole ``maxins + band`` window, the rescued mate's window start taken
+from its sink.
 
 One deliberate difference from the JAX package: in local mode a mate's
 CIGAR carries its soft clips, as single-end records do, so that it spans
@@ -34,11 +40,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nvbio_tpu_torch import packed
+from nvbio_tpu_torch.align.batch import batch_score_full
 from nvbio_tpu_torch.align.kernels import (
     banded_score_windows,
     myers_semiglobal_windows,
 )
-from nvbio_tpu_torch.align.types import NEG_INF
+from nvbio_tpu_torch.align.types import NEG_INF, SEMI_GLOBAL, GotohAligner
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end
 from nvbio_tpu_torch.bowtie.params import MapParams
 from nvbio_tpu_torch.bowtie.pipeline import (
@@ -50,6 +58,7 @@ from nvbio_tpu_torch.bowtie.pipeline import (
     n_ceil_of,
     read_candidates,
     score_min_of,
+    use_pallas_extension,
 )
 from nvbio_tpu_torch.io.sam import (
     FLAG_FIRST_IN_PAIR,
@@ -174,6 +183,17 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
             wstart = torch.where(upstream, (rev_end - RW).clamp(min=0),
                                  anchor_w0).clamp(max=n_last)
             wlen = (n_genome - wstart).clamp(min=0, max=RW).to(torch.int32)
+            if not use_pallas_extension(P):
+                sunk = batch_score_full(
+                    other, other_len,
+                    packed.extract_window(genome_words, wstart, RW, 2), wlen,
+                    GotohAligner(SEMI_GLOBAL, P.scoring),
+                    mismatch_scores=other_mm)
+                # the rescued mate's window start (its banded re-align)
+                rw0 = (wstart + sunk.sink_text.to(torch.int64)
+                       - (other_len.to(torch.int64) + P.max_dist)).clamp(
+                           min=0).clamp(max=n_last)
+                return sunk.score, rw0
             _dist, tend = myers_semiglobal_windows(other, other_len,
                                                    genome_words, wstart,
                                                    wlen, RW)
@@ -341,6 +361,7 @@ def format_pair_batch(mapper, batch1, batch2, res,
             clip=list(zip(res["pattern_start"].tolist(),
                           res["pattern_end"].tolist()))))
     names = mapper.ref_names
+    rev_ops = use_pallas_extension(mapper.params)
 
     out = []
     for b, name in enumerate(batch1.names):
@@ -382,7 +403,7 @@ def format_pair_batch(mapper, batch1, batch2, res,
             yt = "CP" if proper[b] else "DP" if discordant[b] else "UP"
             cigar, md_tags = alignment_fields(
                 me["ops"].get(b), me["n_ops"][b], me["nm"][b],
-                me["simple"][b], *me["clip"][b], L)
+                me["simple"][b], *me["clip"][b], L, rev_ops)
             out.append(SamRecord(
                 qname=name, flag=flag, rname=names[ci],
                 pos=me["local"][b] + 1, mapq=me["mapq"][b], cigar=cigar,
@@ -508,6 +529,7 @@ def format_pair_batch_all(mapper, batch1, batch2, res) -> list[SamRecord]:
             ops=lazy_ops_rows(keep & ((f["nm"] > 0) | ~f["simple"]),
                               ops_dev)))
     names = mapper.ref_names
+    rev_ops = use_pallas_extension(mapper.params)
 
     out = []
     for b, name in enumerate(batch1.names):
@@ -531,7 +553,7 @@ def format_pair_batch_all(mapper, batch1, batch2, res) -> list[SamRecord]:
                 cigar, md_tags = alignment_fields(
                     me["ops"].get((b, k)), me["n_ops"][b][k], nm,
                     me["simple"][b][k], me["ps"][b][k], me["pe"][b][k],
-                    me["lens"][b])
+                    me["lens"][b], rev_ops)
                 out.append(SamRecord(
                     qname=name, flag=flag, rname=names[me["ci"][b][k]],
                     pos=me["local"][b][k] + 1,

@@ -6,8 +6,10 @@ set of values configures both packages (see ``nvbio_tpu_torch.convert``).
 The port's pipeline implements the q-gram paths (single-end, paired-end,
 local, all-mapping, the full-matrix mate traceback); fields of other paths
 are kept for parity and rejected by the pipeline when they select a path
-that is not ported yet. ``extension`` is ignored: the port always
-scores with its CUDA kernel (its plain version for CPU tensors)."""
+that is not ported yet. ``extension`` picks the engine
+(``pipeline.use_pallas_extension``): ``"pallas"`` and ``"auto"`` the CUDA
+kernels (their plain versions for CPU tensors), any other value
+(``"scan"``) the aligner library's scan route, as in the JAX package."""
 
 from __future__ import annotations
 

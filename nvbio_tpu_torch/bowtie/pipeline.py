@@ -12,10 +12,16 @@ traceback
 its wide form ``banded_traceback_wide`` for the full-matrix mate traceback
 of ``finalize_best(..., full_matrix=True)``). All-mapping (``--all``,
 ``align_batch_all``) scores once, with no reseed pass, and traces every
-candidate in one flattened call. The JAX package's kernel path is the one
-followed; where it sends local candidates to its flat scorer over
+candidate in one flattened call. That is the kernel route, the JAX
+package's kernel path, which ``extension="pallas"`` and ``"auto"`` (the
+default) take; where it sends local candidates to its flat scorer over
 extracted windows (``pipeline.py:573-581``), the port computes the same
-function in the candidate kernel, straight from the packed genome.
+function in the candidate kernel, straight from the packed genome. Any
+other ``extension`` (``"scan"``) takes the scan route, the JAX package's
+engine off the accelerator: the aligner library's ``batch_score_banded``
+over the B*C extracted windows, its ``batch_traceback_banded`` (or
+``batch_traceback_full_scan``) and ``_md_pack_entries``, all plain torch
+ops on the mapper's device, ops in forward order (``use_pallas_extension``).
 
 Seeding is by a q-gram index (the direct-address ``QGramIndex`` or the
 two-level ``QGroupIndex``) or, under ``seeding="fmi"``, by the FM index
@@ -39,14 +45,22 @@ import numpy as np
 import torch
 
 from nvbio_tpu_torch import packed, sumtree, threefry
+from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.kernels import banded_score_cands
 from nvbio_tpu_torch.align.traceback import (
+    batch_traceback_banded,
     batch_traceback_banded_fast,
     batch_traceback_full,
+    batch_traceback_full_scan,
     cigar_to_string,
     md_from_entries,
 )
-from nvbio_tpu_torch.align.types import NEG_INF
+from nvbio_tpu_torch.align.types import (
+    LOCAL,
+    NEG_INF,
+    SEMI_GLOBAL,
+    GotohAligner,
+)
 from nvbio_tpu_torch.alphabet import _FROM_CODE, Alphabet
 from nvbio_tpu_torch.bowtie.mapq import mapq_v2_end_to_end, mapq_v2_local
 from nvbio_tpu_torch.bowtie.params import MapParams
@@ -81,6 +95,17 @@ from nvbio_tpu_torch.qgram import (
 
 # "no position" sentinel: larger than any genome position plus tolerance
 _BIG = torch.iinfo(torch.int64).max
+
+
+def use_pallas_extension(params: MapParams) -> bool:
+    """Whether candidate scoring, tracebacks and mate rescue take the
+    kernel route (``"pallas"``, and ``"auto"``: the JAX package's
+    ``"auto"`` takes its Pallas kernels on the accelerator) or the aligner
+    library's scan route (any other value, ``"scan"`` in particular: the
+    JAX package's engine off the accelerator, ``bowtie/pipeline.py:
+    129-132``). The kernel route's op rows are END->START, the scan
+    route's forward."""
+    return params.extension in ("pallas", "auto")
 
 
 def check_supported(params: MapParams) -> None:
@@ -130,15 +155,16 @@ class HostReads:
 
 
 def alignment_fields(ops_row, n_ops: int, nm: int, simple: bool, ps: int,
-                     pe: int, L: int) -> tuple[str, dict]:
+                     pe: int, L: int, reverse: bool) -> tuple[str, dict]:
     """CIGAR (the aligned ops between soft clips) and the MD/XM/XO/XG tags
-    of one alignment of an L-base read over pattern span [ps, pe). Its
-    END->START op row ``ops_row`` is read only where the alignment has
-    gaps (not ``simple``) or edits (NM > 0)."""
+    of one alignment of an L-base read over pattern span [ps, pe). Its op
+    row ``ops_row`` (END->START where ``reverse``, as the kernel route
+    writes it; forward from the scan route) is read only where the
+    alignment has gaps (not ``simple``) or edits (NM > 0)."""
     core = (f"{n_ops}M" if simple else
-            cigar_to_string(ops_row, n_ops, reverse=True))
+            cigar_to_string(ops_row, n_ops, reverse=reverse))
     if nm > 0:
-        md, xm, xo, xg = md_from_entries(ops_row, n_ops, reverse=True)
+        md, xm, xo, xg = md_from_entries(ops_row, n_ops, reverse=reverse)
     else:
         md, xm, xo, xg = str(n_ops), 0, 0, 0
     return soft_clipped(core, ps, pe, L), dict(MD=md, XM=xm, XO=xo, XG=xg)
@@ -512,12 +538,26 @@ def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
 
     # ---- extension scoring -------------------------------------------------
     wlens = (n_genome - w0).clamp(min=0, max=TW).to(torch.int32)
-    # local mode: the JAX kernel path's local branch scores B*C extracted
-    # windows with its flat LOCAL scorer; the same function, read from the
-    # packed genome
-    sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens, w0,
-                               wlens, genome_words, P.scoring, W, NCH, mm,
-                               mm_rc, local=P.mode == "local")
+    local = P.mode == "local"
+    if use_pallas_extension(P):
+        # local mode: the JAX kernel path's local branch scores B*C
+        # extracted windows with its flat LOCAL scorer; the same function,
+        # read from the packed genome
+        sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens,
+                                   w0, wlens, genome_words, P.scoring, W, NCH,
+                                   mm, mm_rc, local=local)
+    else:
+        # the scan route: the library's banded scorer over the B*C windows
+        # (the JAX package's batch_score_banded, pipeline.py:573-587)
+        flip = cand_strand[:, :, None]
+        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
+        mm_flat = None if mm is None else torch.where(
+            flip, mm_rc[:, None, :], mm[:, None, :]).reshape(B * C, L)
+        aligner = GotohAligner(LOCAL if local else SEMI_GLOBAL, P.scoring)
+        sc = batch_score_banded(
+            pats.reshape(B * C, L), lens[:, None].expand(B, C).reshape(B * C),
+            packed.extract_window(genome_words, w0.reshape(B * C), TW, 2),
+            wlens.reshape(B * C), aligner, W, mm_flat).score.reshape(B, C)
     scores = torch.where(cand_valid, sc, NEG_INF)
 
     return dict(scores=scores, w0=w0, strand=cand_strand, valid=cand_valid,
@@ -538,12 +578,59 @@ def _reduce_best2(cands, params: MapParams):
     return best_score, best_pos, best_strand, second_score
 
 
+def _md_pack_entries(tb, bpat, btext):
+    """(packed MD entries in forward order, NM) of a scan-route traceback:
+    each op's entry op | mismatch << 2 | (reference symbol & 15) << 3, the
+    layout the kernel walk writes; NM counts mismatches, I and D. Port of
+    the JAX function (``bowtie/pipeline.py:598-630``)."""
+    L = bpat.shape[1]
+    TW = btext.shape[1]
+    ops = tb.ops
+    is_m, is_i, is_d = ops == 1, ops == 2, ops == 3
+    pat_cursor = (torch.cumsum((is_m | is_i).to(torch.int32), dim=1) - 1
+                  + tb.pattern_start[:, None])
+    txt_cursor = (torch.cumsum((is_m | is_d).to(torch.int32), dim=1) - 1
+                  + tb.text_start[:, None])
+    pat_sym = torch.gather(bpat, 1, pat_cursor.clamp(0, L - 1).long())
+    txt_sym = torch.gather(btext, 1, txt_cursor.clamp(0, TW - 1).long())
+    mism = is_m & (pat_sym != txt_sym)
+    nm = (mism | is_i | is_d).sum(dim=1, dtype=torch.int32)
+    entries = torch.where(
+        ops != 0, ops | (mism.to(torch.int32) << 2) | ((txt_sym & 15) << 3),
+        0).to(torch.int32)
+    return entries, nm
+
+
+def _traceback(bpat, blens, btext, btlen, params: MapParams, mm, band: int,
+               local: bool, full_matrix: bool = False):
+    """(TracebackResult with packed entries, nm) of the chosen windows by
+    ``params``' route: the fused kernel (K2, or K2-WIDE for
+    ``full_matrix``; END->START) or the scan route's library traceback
+    with ``_md_pack_entries`` (forward)."""
+    sc = params.scoring
+    if use_pallas_extension(params):
+        if full_matrix:
+            return batch_traceback_full(bpat, blens, btext, btlen, sc, mm,
+                                        local=local)
+        return batch_traceback_banded_fast(bpat, blens, btext, btlen, sc,
+                                           band, mm, local=local)
+    aligner = GotohAligner(LOCAL if local else SEMI_GLOBAL, sc)
+    if full_matrix:
+        tb = batch_traceback_full_scan(bpat, blens, btext, btlen, aligner, mm)
+    else:
+        tb = batch_traceback_banded(bpat, blens, btext, btlen, aligner, band,
+                                    mm)
+    entries, nm = _md_pack_entries(tb, bpat, btext)
+    return tb._replace(ops=entries), nm
+
+
 def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
                   params: MapParams, full_matrix: bool = False):
-    """Traceback + NM of each read's chosen candidate (the fused traceback
-    kernel over the re-extracted winning windows; LOCAL in local mode).
-    ``full_matrix=True`` takes the full-matrix traceback instead (no band
-    inside the window: the paired-end mates of ``pe_full_traceback``)."""
+    """Traceback + NM of each read's chosen candidate over the
+    re-extracted winning windows (``_traceback``: the fused traceback
+    kernel, or the scan route's; LOCAL in local mode). ``full_matrix=True``
+    takes the full-matrix traceback instead (no band inside the window:
+    the paired-end mates of ``pe_full_traceback``)."""
     P = params
     W = P.band
     reads, lens, rc = cands["reads"], cands["lens"], cands["rc"]
@@ -556,13 +643,8 @@ def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
     bpat = torch.where(best_strand[:, None], rc, reads).contiguous()
     bmm = (None if mm is None
            else torch.where(best_strand[:, None], mm_rc, mm).contiguous())
-    local = P.mode == "local"
-    if full_matrix:
-        tb, nm = batch_traceback_full(bpat, lens, btext, btlen, P.scoring,
-                                      bmm, local=local)
-    else:
-        tb, nm = batch_traceback_banded_fast(bpat, lens, btext, btlen,
-                                             P.scoring, W, bmm, local=local)
+    tb, nm = _traceback(bpat, lens, btext, btlen, P, bmm, W,
+                        P.mode == "local", full_matrix)
 
     # pure-match reads (no I/D): their CIGAR is just "{L}M"; the host needs
     # their op rows only when NM > 0 (for the MD tag)
@@ -673,7 +755,8 @@ def align_batch_all(index: QGramIndex | FMIndex, genome_words,
     primary. Port of ``nvbio_tpu.bowtie.pipeline.align_batch_all`` (:714),
     which traces SEMI_GLOBAL in local mode too and gives the primary the
     end-to-end MAPQ; the port follows it. Returns (B, C) tensors, ``ops``
-    (B, C, MAXS) uint8 END->START, and the (B,) ``mapq``."""
+    (B, C, MAXS) uint8 (END->START on the kernel route), and the (B,)
+    ``mapq``."""
     P = params
     W = P.band
     cands = read_candidates(index, genome_words, n_genome, reads, lens,
@@ -704,8 +787,7 @@ def align_batch_all(index: QGramIndex | FMIndex, genome_words,
     bmm = None if mm is None else torch.where(
         flip, mm_rc.repeat_interleave(C, dim=0),
         mm.repeat_interleave(C, dim=0))
-    tb, nm = batch_traceback_banded_fast(bpat, blens, btext, btlen,
-                                         P.scoring, W, bmm)
+    tb, nm = _traceback(bpat, blens, btext, btlen, P, bmm, W, local=False)
     simple = (tb.n_ops == blens) & ((tb.text_end - tb.text_start) == blens)
 
     # the primary's MAPQ: the best-only reduce
@@ -825,6 +907,7 @@ class ReadMapper:
         is_best, nms = res["is_best"].tolist(), res["nm"].tolist()
         n_ops_l, simple = res["n_ops"].tolist(), res["simple"].tolist()
         mapqs = res["mapq"].tolist()
+        rev_ops = use_pallas_extension(self.params)
 
         reads = HostReads(batch)
         out = []
@@ -848,7 +931,7 @@ class ReadMapper:
                 seq, qual = ("*", "*") if rank else reads.seq_qual(b, strand)
                 cigar, md_tags = alignment_fields(
                     ops_of.get((b, c)), n_ops_l[b][c], nms[b][c],
-                    simple[b][c], 0, L, L)
+                    simple[b][c], 0, L, L, rev_ops)
                 out.append(SamRecord(
                     qname=name,
                     flag=(FLAG_REVERSE if strand else 0)
@@ -908,6 +991,7 @@ class ReadMapper:
         ops_of = lazy_ops_rows(
             res["mapped"] & ((res["nm"] > 0) | ~res["simple"]), ops)
         simple = res["simple"].tolist()
+        rev_ops = use_pallas_extension(self.params)
 
         out = []
         for b, name in enumerate(batch.names):
@@ -927,7 +1011,7 @@ class ReadMapper:
                 tags["XS"] = second[b]
             cigar, md_tags = alignment_fields(
                 ops_of.get(b), n_ops_l[b], nms[b], simple[b], pat_starts[b],
-                pat_ends[b], L)
+                pat_ends[b], L, rev_ops)
             tags.update(md_tags)
             out.append(SamRecord(
                 qname=name, flag=FLAG_REVERSE if strand else 0,

@@ -18,7 +18,6 @@ from nvbio_tpu.align.types import SEMI_GLOBAL, GotohAligner
 from nvbio_tpu.align.types import GotohScoring as JScoring
 from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align import traceback as ttb
-from nvbio_tpu_torch.align.batch import batch_score_banded
 from nvbio_tpu_torch.align.types import NEG_INF, GotohScoring
 from nvbio_tpu_torch.packed import words_to_tensor
 
@@ -152,7 +151,7 @@ def test_batch_score_banded_matches_jax(rng, scoring):
         jnp.asarray(tlens),
         GotohAligner(SEMI_GLOBAL, JScoring(*SCORINGS[scoring])), W,
         jnp.asarray(mm))
-    score, kbest = batch_score_banded(
+    score, kbest = K.banded_score_plain(
         _t(pats), _t(plens), _t(txts), _t(tlens),
         GotohScoring(*SCORINGS[scoring]), W, _t(mm))
     np.testing.assert_array_equal(score.numpy(), np.asarray(want.score))
