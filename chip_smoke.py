@@ -127,7 +127,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      own .pac) through the app on cuda (with --profile: a trace written)
      and on cpu, identical BAM records, debug bytes and report counts; the
      app's overlapped single-end loop against a map_batch loop over the
-     same 2 batches, A B B A twice, equal records; and the first 8 Mbp as
+     same 2 batches, A B B A, equal records; and the first 8 Mbp as
      a .ref.npz prefix with the port's .fmi.npz beside it: 1024 reads with
      --seeding fmi to SAM on cuda (K1 +2, K2 +1, plus the probe) and on
      cpu, identical records; then the index app (``index``) in this
@@ -155,14 +155,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      at this shape (4096 lanes, M = 256, W = 33) bit for bit against its
      plain version, with its bound and registers (the kernel entry
      banded_traceback_mem); secondaries per read on the repeat-planted
-     genome (> 0, with XA); GPU = CPU SAM records of 256 reads on the
+     genome (> 0, with XA); GPU = CPU SAM records of 128 reads on the
      first 8 Mbp (the cpu index by host SA-IS);
  12c. correct: the three Lighter passes on the card over 1.38 M reads of
      100 bp (a seeded 4.6 Mbp genome at 30x, 1% substitutions), batches of
      4096, k = 17, with the app's 2^24-bit filters and with 2^27-bit ones:
      seconds a pass, reads/s, both filters' occupancy, substituted bases
      before and after (fewer after required with 2^27 bits) and newly
-     broken, device ops of one correct batch; the app on 20 k reads over
+     broken, device ops of one correct batch; the app on 10 k reads over
      50 kbp on cuda and on cpu: identical FASTQ bytes;
  12d. sort: the single-end records of phase 4's first two batches
      (65536) coordinate-sorted
@@ -210,7 +210,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      per batch the seconds, device ops and busy ms, peak device memory;
      the reads whose records differ from the kernel route's on the same
      batch (reported: the JAX package's two engines differ by design);
-     GPU = CPU SAM records on 1024 reads or pairs of each;
+     GPU = CPU SAM records on 512 reads or pairs of each;
  12i. aligner: the aligner library on the card — ED, SW and Gotoh x
      GLOBAL, SEMI_GLOBAL, LOCAL full-matrix over 32768 pairs of 100 x 531,
      the banded Gotoh score (three types) and traceback (SEMI_GLOBAL,
@@ -218,11 +218,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (100, 531), Gotoh LOCAL + BLOSUM62 over 4096 pairs of 256 x 512
      residues (gaps -5/-3): ms, device ops and busy ms, GCUPS (cells/s)
      and cuda = cpu on 256 lanes of each call;
+ 12j. dist: multi-GPU mapping over a NCCL group of this process (world 1:
+     D = 2 and 4 need more cards, ``--dist-cards`` below) — a batch of
+     32768 through the sharded single-end step with shard_qgram_index and
+     with shard_fmindex(method="device", resident=True), and through the
+     replicated paired (32768 pairs) and --all steps: seconds, launches a
+     rank (the unsharded path's: K1 x2 + K2 x1, the PE set), peak memory;
+     records equal to the unsharded ReadMapper's on the same batch (the
+     sharded steps: every read the first pass maps; the reads the reseed
+     pass maps differently are counted); dryrun_multichip; GPU = CPU on
+     1024 reads through a gloo group of the same rank; map --dist with 2
+     processes on the card over gloo, 2 batches, the merged SAM equal to
+     the single-process records in stripe order;
 Each phase's start (seconds since the script started) is printed as
 [time] and kept in the JSON line ("phase_starts").
 Prints one JSON line of kernels before the card's line and the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 nvbio_tpu.
+
+    python3 chip_smoke.py --dist-cards 2 4
+
+runs only [dist]'s step legs at each world size as spawned ranks, one
+card each (a machine with at least that many cards).
 """
 
 from __future__ import annotations
@@ -2317,7 +2334,7 @@ CLI_MAPQ_FILTER = 10
 # 8 Mbp (its own .pac prefix): the app builds its q-gram index on the fly,
 # and over 100 Mbp that takes ~10 s a run on the host
 CLI_CMP_GENOME = 8_000_000
-N_AB = 4             # runs of each loop in the overlap A/B, A B B A twice
+N_AB = 2             # runs of each loop in the overlap A/B, A B B A
 CLI_FLAGS = ("--batch", str(B), "--max-read-len", str(L), "--hits-per-seed",
              "6", "--max-dist", str(MAX_DIST))
 # the device of the app's runs on the card: its default (cuda)
@@ -2384,7 +2401,7 @@ def phase_cli(genome, mapper, card):
     mates 2, BAM, report), 1024 reads and 1024 pairs of the first 8 Mbp
     (h.pac) on cuda (with a profile) and on cpu; then the app's overlapped
     single-end loop against a plain map_batch loop over the same 2 batches
-    (A B B A twice)."""
+    (A B B A)."""
     import io
     import os
     import tempfile
@@ -2874,12 +2891,12 @@ def phase_cli_setbwt(card) -> dict:
 MEM_B, MEM_L, MEM_RL = 1024, 256, 150   # the app's batch and max_read_len
 MEM_TAIL = 20                # a third of the reads end in 20 random bases
 N_MEM_BATCHES = 8
-N_MEM_CMP = 256              # GPU = CPU reads, on the genome's first 8 Mbp
+N_MEM_CMP = 128              # GPU = CPU reads, on the genome's first 8 Mbp
 CORRECT_GENOME = 4_600_000   # E. coli K-12's size
 CORRECT_COV, CORRECT_RL = 30, 100
 CORRECT_BATCH, CORRECT_BITS, CORRECT_K = 4096, 1 << 24, 17  # app defaults
 CORRECT_BITS_SIZED = 1 << 27   # ~29 filter bits a genome k-mer
-CORRECT_CMP_GENOME, N_CORRECT_CMP = 50_000, 20_000
+CORRECT_CMP_GENOME, N_CORRECT_CMP = 50_000, 10_000
 N_SORT = 65536               # [sort]: the first two [main] batches' records
 SORT_RUN = 8192              # 8 spilled runs and the merge
 MEM_W = 33                   # MemParams().band: 2 * max_dist 16 + 1
@@ -2926,7 +2943,7 @@ def phase_mem(genome, rep_genome, card, regs):
     sensitivity >= 0.95, tailed reads soft-clipped >= 0.8; the SMEM stage
     alone (ms, device ops, share of the batch's device busy); host
     formatting's share of the wall; secondaries per read on the
-    repeat-planted copy (> 0); GPU = CPU on 256 reads of the first 8 Mbp;
+    repeat-planted copy (> 0); GPU = CPU on 128 reads of the first 8 Mbp;
     and K2-LOCAL at this path's shape against its plain version, bit for
     bit (the kernel entry)."""
     from nvbio_tpu_torch.align import kernels as K
@@ -3182,7 +3199,7 @@ def phase_correct(card):
     tests/test_torch_correct.py::test_filter_size_decides_the_outcome) and
     with CORRECT_BITS_SIZED-bit filters sized for the genome (fewer
     substituted bases after than before required); then the app
-    (``correct``) on 20 k reads over 50 kbp on cuda and on cpu: identical
+    (``correct``) on 10 k reads over 50 kbp on cuda and on cpu: identical
     FASTQ bytes."""
     import tempfile
 
@@ -3840,7 +3857,7 @@ def phase_fm_library(genome, fm_cpu, fm_gpu, card) -> dict:
 # and the aligner library at realistic sizes
 # ---------------------------------------------------------------------------
 
-N_SCAN_CMP = 1024            # GPU = CPU reads (pairs) of each scan path
+N_SCAN_CMP = 512             # GPU = CPU reads (pairs) of each scan path
 N_ALN = 32768                # library calls: pairs a call
 N_ALN_CMP = 256              # of them also run on the CPU
 ALN_TB = L + W - 1           # the banded calls' text: 130
@@ -4060,6 +4077,366 @@ def phase_aligner(genome, card) -> dict:
     return out
 
 
+N_DIST_CMP = 1024            # [dist]: GPU = CPU reads through a gloo group
+N_DIST_CLI_BATCHES = 2       # [dist]: the SE batches map --dist maps
+
+
+def free_port() -> int:
+    """A free localhost TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_step(mesh, label, run, fmt, per_batch, card, n_reads) -> tuple:
+    """One batch through a sharded step on ``mesh``: its seconds (dispatch
+    + sync, every rank starting together), the launches of the kernel
+    wrappers in it (``per_batch`` each, as on the unsharded path), the
+    peak device memory of a second run, and its records (``fmt(res)``)."""
+    from nvbio_tpu_torch.parallel.mesh import all_reduce_sum
+
+    # every rank starts the timed step together, the group's communicator
+    # made: a rank's time would otherwise hold its wait for the slowest
+    # rank's host work before the step (the step's collectives wait)
+    all_reduce_sum(mesh, torch.zeros(1, device=mesh.device))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    res = run()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_launches()
+    require_launches(f"dist {label}", launches, per_batch, 1)
+    peak = peak_memory(f"dist {label}", run)
+    recs = fmt(res)
+    print(f"[dist] {label}: {n_reads} reads a rank in {dt:.3f} s "
+          f"({n_reads / dt:.1f} reads/s a rank); launches {launches}; "
+          f"peak {peak / 1e9:.3f} GB; card {card}", flush=True)
+    return res, recs, dict(seconds=dt, reads_per_s=n_reads / dt,
+                           launches=launches, peak_bytes=peak)
+
+
+def unmapped_names(recs) -> set:
+    return {r.qname for r in recs if r.flag & 0x4}
+
+
+def dist_legs(mesh, genome, ref, index, fm_index, params, fm_params, card,
+              rank=0) -> dict:
+    """The sharded steps on ``mesh`` (each rank its own batch of B reads,
+    or pairs): single-end with ``shard_qgram_index`` and with
+    ``shard_fmindex(method="device", resident=True)``, the replicated
+    paired and --all steps, and ``dryrun_multichip``. Each against the
+    unsharded ReadMapper on the same batch: the replicated steps' records
+    equal; the sharded steps' records equal for every read mapped by the
+    first pass (the reseed pass of a sharded index differs by design:
+    ROADMAP section 3), the others counted."""
+    from nvbio_tpu_torch.bowtie.paired import format_pair_batch, \
+        map_pair_batch
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.fmi.sharded import place_sharded_fmindex, \
+        shard_fmindex
+    from nvbio_tpu_torch.parallel.dryrun import dryrun_multichip
+    from nvbio_tpu_torch.parallel.mesh import (
+        sharded_align_step,
+        sharded_all_step,
+        sharded_paired_step,
+    )
+    from nvbio_tpu_torch.parallel.sharded_index import (
+        place_sharded_index,
+        shard_qgram_index,
+    )
+
+    D, dev = mesh.size, mesh.device
+    out = dict(world=D)
+    t0 = time.time()
+    sq_host = shard_qgram_index(index, D)
+    sq = place_sharded_index(mesh, sq_host)
+    torch.cuda.synchronize()
+    out["qgram_shard_s"] = time.time() - t0
+    slices = []
+    t0 = time.time()
+    sf_all = shard_fmindex(genome, D, method="device", resident=True,
+                           device=dev, on_slice=lambda d, s: slices.append(s))
+    sf = place_sharded_fmindex(mesh, sf_all)
+    torch.cuda.synchronize()
+    out["fm_shard_s"] = time.time() - t0
+    print(f"[dist] rank {rank}/{D} on {dev}: q-gram shards in "
+          f"{out['qgram_shard_s']:.2f} s ({sq.positions.numel()} positions "
+          f"here); FM slices of {sf.slice_len} + {sf.overlap} bp built on "
+          f"the card in {out['fm_shard_s']:.2f} s (s a slice: "
+          f"{', '.join(f'{s:.3f}' for s in slices)}), "
+          f"{sf.nbytes() / 1e6:.1f} MB here", flush=True)
+
+    def mapper(prm, idx):
+        return ReadMapper.build(ref, prm, index=idx, device=dev)
+
+    base, base_fm = mapper(params, index), mapper(fm_params, fm_index)
+    first = {"qgram": mapper(dataclasses.replace(params, max_reseed=0),
+                             base.index),
+             "fmi": mapper(dataclasses.replace(fm_params, max_reseed=0),
+                           base_fm.index)}
+    batch = read_batch(genome, SEED + 1900 + rank)[0]
+    tens = base.batch_tensors(batch)
+    for name, sidx, prm, ref_mapper in (("qgram", sq, params, base),
+                                        ("fmi", sf, fm_params, base_fm)):
+        step = sharded_align_step(mesh, prm, index_sharded=True)
+        _, recs, st = dist_step(
+            mesh, f"se-sharded-{name}",
+            lambda: step(sidx, base.genome_words, base.n_genome, *tens)[0],
+            lambda res: base.format_batch(batch, res), SE_LAUNCHES, card, B)
+        want = ref_mapper.map_batch(batch)
+        second = unmapped_names(first[name].map_batch(batch))
+        differ = {a.qname for a, b in zip(recs, want) if a.line() != b.line()}
+        st.update(differ=len(differ), reseeded=len(second),
+                  mapped=sum(not r.flag & 4 for r in recs) / B)
+        print(f"[dist] se-sharded-{name}: {len(differ)} reads' records "
+              f"differ from the unsharded mapper's, all among the "
+              f"{len(second)} the first pass leaves unmapped: "
+              f"{differ <= second}; mapped {st['mapped']:.5f}", flush=True)
+        require(len(recs) == len(want) == B and differ <= second,
+                f"dist se-sharded-{name}: records differ outside the "
+                f"reseed pass")
+        require(st["mapped"] >= 0.95, f"dist se-sharded-{name}: mapped "
+                                      f"{st['mapped']:.4f}")
+        out[f"se_sharded_{name}"] = st
+
+    (p1, p2), *_ = pair_batches(genome, SEED + 1950 + rank)
+    pstep = sharded_paired_step(mesh, params)
+    _, recs, st = dist_step(
+        mesh, "paired-replicated",
+        lambda: pstep(base.index, base.genome_words, base.n_genome,
+                      *base.batch_tensors(p1), *base.batch_tensors(p2))[:3],
+        lambda res: format_pair_batch(base, p1, p2, res), PE_LAUNCHES,
+        card, B)
+    want = map_pair_batch(base, p1, p2)
+    require([r.line() for r in recs] == [r.line() for r in want],
+            "dist paired-replicated: records differ from map_pair_batch's")
+    out["paired_replicated"] = st
+
+    ab = read_batch(genome, SEED + 1980 + rank)[0]
+    astep = sharded_all_step(mesh, params)
+    _, recs, st = dist_step(
+        mesh, "all-replicated",
+        lambda: astep(base.index, base.genome_words, base.n_genome,
+                      *base.batch_tensors(ab))[0],
+        lambda res: base.format_batch_all(ab, res), ALL_LAUNCHES, card, B)
+    require([r.line() for r in recs] ==
+            [r.line() for r in base.map_batch_all(ab)],
+            "dist all-replicated: records differ from map_batch_all's")
+    out["all_replicated"] = st
+    t0 = time.time()
+    out["dryrun"] = dryrun_multichip(mesh)
+    print(f"[dist] dryrun_multichip({D}) in {time.time() - t0:.2f} s: "
+          f"{out['dryrun']}", flush=True)
+    out["sharded"] = dict(qgram=sq_host, fmi=sf_all, batch=batch,
+                          words=base.genome_words, base=base)
+    return out
+
+
+def dist_cli(genome, mapper, card) -> dict:
+    """``map --dist --num-processes 2``: two processes on this card over
+    gloo, each mapping its stripe of N_DIST_CLI_BATCHES SE batches on the
+    genome's .pac; the merged SAM against the single-process records in
+    stripe order (rank 0's batches, then rank 1's)."""
+    import os
+    import tempfile
+
+    from nvbio_tpu_torch.io.pac import save_reference_pac
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import write_fastq
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    save_reference_pac(Reference(mapper.ref_names, mapper.ref_offsets,
+                                 genome), f"{d}/g")
+    se = [read_batch(genome, SEED + 2000 + i)[0]
+          for i in range(N_DIST_CLI_BATCHES)]
+    write_fastq(f"{d}/se.fq", [n for b in se for n in b.names],
+                np.concatenate([b.codes for b in se]),
+                np.concatenate([b.quals for b in se]))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nvbio_tpu_torch", "map", f"{d}/g",
+         f"{d}/se.fq", "-o", f"{d}/dist.sam", *CLI_FLAGS, *CLI_GPU_ARGS,
+         "--dist", "--coordinator", coord, "--num-processes", "2",
+         "--process-id", str(r)], cwd=repo,
+        env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    want = [r.line() for rank in range(2) for b in se[rank::2]
+            for r in mapper.map_batch(b)]
+    logs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        logs.append(err)
+        for line in err.splitlines():
+            print(f"[dist]   cli: {line}", flush=True)
+        require(p.returncode == 0, f"map --dist exited {p.returncode}")
+    dt = time.time() - t0
+    with open(f"{d}/dist.sam") as f:
+        got = [ln.rstrip("\n") for ln in f if not ln.startswith("@")]
+    shards = [n for n in os.listdir(d) if ".shard" in n]
+    print(f"[dist] map --dist, 2 processes on one card over gloo: "
+          f"{len(got)} records in {dt:.2f} s end to end (reference load, "
+          f"index, gauge included); equal to the single-process records in "
+          f"stripe order: {got == want}; shards left {shards}; card {card}",
+          flush=True)
+    bad = [(a, b) for a, b in zip(got, want) if a != b]
+    require(not bad and len(got) == len(want) == N_DIST_CLI_BATCHES * B,
+            f"map --dist: {len(bad)} merged records differ from the "
+            f"single-process run's in stripe order, first {bad[:1]}")
+    require(not shards and "merged 2 SAM shards" in logs[0],
+            "map --dist: the shards were not merged and removed")
+    tmp.cleanup()
+    return dict(seconds=dt, records=len(got))
+
+
+def phase_dist(genome, ref, index, fm_index, params, fm_params, mapper,
+               card) -> dict:
+    """The sharded steps over NCCL at world = 1 in this process (a card a
+    rank: more cards take ``--dist-cards``), GPU = CPU through a gloo
+    group of the same rank, and map --dist with two processes on the
+    card."""
+    import torch.distributed as dist
+
+    from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
+    from nvbio_tpu_torch.fmi.sharded import place_sharded_fmindex
+    from nvbio_tpu_torch.parallel.dist import init_distributed
+    from nvbio_tpu_torch.parallel.mesh import make_reads_mesh, \
+        sharded_align_step
+    from nvbio_tpu_torch.parallel.sharded_index import place_sharded_index
+
+    n = torch.cuda.device_count()
+    print(f"[dist] the legs at D = 2 and 4 need more than one card (run "
+          f"python3 chip_smoke.py --dist-cards 2 4 on a machine with 4): "
+          f"this process runs D = 1 on 1 of {n}", flush=True)
+    require(init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend="nccl"), "no NCCL group")
+    try:
+        mesh = make_reads_mesh(None, "cuda:0")
+        out = dist_legs(mesh, genome, ref, index, fm_index, params,
+                        fm_params, card)
+        sh = out.pop("sharded")
+        # the same rank through a gloo group, on the CPU
+        mesh_cpu = make_reads_mesh(dist.new_group(backend="gloo"), "cpu")
+        small = head(sh["batch"], N_DIST_CMP)
+        words_cpu = sh["words"].cpu()
+        fmt = sh["base"]
+        cpu_fmt = ReadMapper(index=None, genome_words=words_cpu,
+                             n_genome=fmt.n_genome, ref_names=fmt.ref_names,
+                             ref_offsets=fmt.ref_offsets, params=params,
+                             device=torch.device("cpu"))
+        for name, prm, gpu_idx, cpu_idx in (
+                ("qgram", params, place_sharded_index(mesh, sh["qgram"]),
+                 place_sharded_index(mesh_cpu, sh["qgram"])),
+                ("fmi", fm_params, place_sharded_fmindex(mesh, sh["fmi"]),
+                 place_sharded_fmindex(mesh_cpu, sh["fmi"]))):
+            gstep = sharded_align_step(mesh, prm, index_sharded=True)
+            cstep = sharded_align_step(mesh_cpu, prm, index_sharded=True)
+            phase_gpu_equals_cpu(
+                f"dist se-sharded-{name}",
+                lambda: fmt.format_batch(small, gstep(
+                    gpu_idx, fmt.genome_words, fmt.n_genome,
+                    *fmt.batch_tensors(small))[0]),
+                lambda: cpu_fmt.format_batch(small, cstep(
+                    cpu_idx, words_cpu, fmt.n_genome,
+                    *cpu_fmt.batch_tensors(small))[0]), N_DIST_CMP)
+        del sh
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = dist_cli(genome, mapper, card)
+    return out
+
+
+def dist_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One spawned rank of ``--dist-cards``: the NCCL group, its card
+    (``cuda:<rank>``), the operating point's genome and indexes built
+    here, and ``dist_legs``; writes ``dist_<world>_<rank>.json``."""
+    import torch.distributed as dist
+
+    from nvbio_tpu_torch.index.device_sa import build_fmindex_device
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.parallel.dist import init_distributed
+    from nvbio_tpu_torch.parallel.mesh import make_reads_mesh
+    from nvbio_tpu_torch.qgram import build_qgram_index
+
+    card = smi("name,power.limit")
+    torch.cuda.set_device(rank)   # the synchronizes and memory counters
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="nccl")
+    try:
+        mesh = make_reads_mesh(None, f"cuda:{rank}")
+        genome = np.random.default_rng(SEED).integers(
+            0, 4, size=GENOME_LEN, dtype=np.uint8)
+        ref = Reference(["sim100M"], np.array([0, GENOME_LEN], np.int64),
+                        genome, np.zeros(0, np.uint32))
+        params, fm_params = map_params()
+        index = build_qgram_index(genome, params.qgram_q)
+        fm = build_fmindex_device(genome, device=mesh.device)
+        out = dist_legs(mesh, genome, ref, index, fm, params, fm_params,
+                        card, rank)
+        out.pop("sharded")
+        out["card"] = card
+        with open(f"{out_dir}/dist_{world}_{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_cards_main(worlds) -> int:
+    """``python3 chip_smoke.py --dist-cards N [N ...]``: the [dist] step
+    legs at each world size N as N spawned ranks, one card each (N at
+    most the machine's cards); per world the slowest rank's seconds a
+    batch and the aggregate reads/s."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from nvbio_tpu_torch.align import kernels as K
+
+    n = torch.cuda.device_count()
+    require(all(1 <= w <= n for w in worlds),
+            f"--dist-cards {worlds} on a machine with {n} cards")
+    card = smi("name,power.limit")
+    K.build()
+    summary = {}
+    with tempfile.TemporaryDirectory() as d:
+        for world in worlds:
+            stamp(f"dist-{world}")
+            mp.start_processes(dist_rank, args=(world, free_port(), d),
+                               nprocs=world, start_method="spawn")
+            ranks = []
+            for r in range(world):
+                with open(f"{d}/dist_{world}_{r}.json") as f:
+                    ranks.append(json.load(f))
+            legs = {}
+            for leg in ("se_sharded_qgram", "se_sharded_fmi",
+                        "paired_replicated", "all_replicated"):
+                slow = max(x[leg]["seconds"] for x in ranks)
+                legs[leg] = dict(
+                    seconds_slowest_rank=slow, reads_per_s=world * B / slow,
+                    peak_bytes=max(x[leg]["peak_bytes"] for x in ranks),
+                    launches_rank0=ranks[0][leg]["launches"])
+                print(f"[dist] D = {world}: {leg} slowest rank "
+                      f"{slow:.3f} s a batch of {B} a rank = "
+                      f"{world * B / slow:.1f} reads/s over {world} cards; "
+                      f"peak {legs[leg]['peak_bytes'] / 1e9:.3f} GB; card "
+                      f"{card}", flush=True)
+            summary[world] = dict(legs=legs, ranks=ranks)
+    print(json.dumps({"dist_cards": summary, "phase_starts": STAMPS,
+                      "card": card}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
     left out, their device time is their kernels'."""
@@ -4146,10 +4523,22 @@ def head(batch, n=N_CMP):
                      batch.lengths[:n])
 
 
+def map_params():
+    """The single-end and paired-end paths' MapParams (-X 500, fr, rescue
+    on) and the FM-seeded copy."""
+    from nvbio_tpu_torch.bowtie.params import MapParams
+
+    params = MapParams(max_read_len=L, seed_len=22, seed_stride=15,
+                       hits_per_seed=6, max_dist=MAX_DIST, maxins=MAXINS)
+    return params, dataclasses.replace(params, seeding="fmi")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-cards"]:
+        return dist_cards_main([int(x) for x in sys.argv[2:]])
     from nvbio_tpu_torch.align import kernels as K
     from nvbio_tpu_torch.bowtie.paired import (
         dispatch_pair_batch,
@@ -4195,8 +4584,7 @@ def main() -> int:
 
     # one parameter set serves the single-end and paired-end paths
     # (-X 500, fr, rescue on); local mode is the --local preset
-    params = MapParams(max_read_len=L, seed_len=22, seed_stride=15,
-                       hits_per_seed=6, max_dist=MAX_DIST, maxins=MAXINS)
+    params, fm_params = map_params()
     local_params = MapParams.local(max_read_len=L, seed_len=22,
                                    seed_stride=15, hits_per_seed=6)
     full_params = dataclasses.replace(params, pe_full_traceback=True)
@@ -4235,7 +4623,6 @@ def main() -> int:
 
     # FM-index seeding: the index built once, its search on the card against
     # the CPU, then the FM-seeded single-end and paired-end paths
-    fm_params = dataclasses.replace(params, seeding="fmi")
     stamp("build_fm")
     fm_cpu, fm_gpu, fm_build = build_fm(genome)
     stamp("fmi_search")
@@ -4338,6 +4725,11 @@ def main() -> int:
     del se_first, pe_records, local_records, pf_records, all_records
     stamp("aligner")
     aligner_stats = phase_aligner(genome, card)
+    # multi-GPU mapping: the sharded steps over NCCL, GPU = CPU over gloo,
+    # and map --dist
+    stamp("dist")
+    dist_stats = phase_dist(genome, ref, gpu_index, fm_gpu, params,
+                            fm_params, gpu_mapper, card)
     stamp("profile")
 
     # each kernel's launches in the run of the path it serves
@@ -4459,7 +4851,8 @@ def main() -> int:
                       "correct": correct_stats, "sort": sort_stats,
                       "cli": cli_stats, "assemble": asm_stats,
                       "fm_library": fmlib_stats, "scan": scan_stats,
-                      "aligner": aligner_stats, "phase_starts": STAMPS,
+                      "aligner": aligner_stats, "dist": dist_stats,
+                      "phase_starts": STAMPS,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,10 +36,7 @@ def main(argv=None):
     for app in apps.values():
         app.add_parser(sub)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and hasattr(apps.get(argv[0]), "reject_not_ported"):
-        apps[argv[0]].reject_not_ported(argv)
-    args = parser.parse_args(argv)
+    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
     try:
         return args.func(args)
     except BrokenPipeError:

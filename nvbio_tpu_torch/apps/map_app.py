@@ -6,6 +6,7 @@
         [--no-discordant] [--local] [--all] [--config FILE]
         [--mapq-filter Q] [--report FILE] [--debug-output FILE]
         [--profile DIR] [--device cpu]
+        [--dist [--coordinator HOST:PORT --num-processes N --process-id R]]
 
 Port of ``nvbio_tpu/apps/map_app.py``: single-end and paired-end,
 end-to-end or local (``--local``), best-alignment or all-mapping
@@ -25,8 +26,18 @@ secondaries; ``--report`` writes an HTML stats report (SE and PE, not
 ``--all``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into
 DIR. The single-end loop dispatches batch i+1, with its copies to the host
 enqueued behind it, before it formats batch i. Runs on the CUDA card unless
-``--device cpu`` is given. The multi-host flags are rejected as not yet
-ported.
+``--device cpu`` is given.
+
+``--dist`` (or ``--coordinator``/``--num-processes``) makes the run one
+process of several (``nvbio_tpu/apps/map_app.py:181-196``): each process
+joins a gloo group (``parallel.dist.init_distributed``: the flags, else
+torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``), maps
+the batches ``i % N == R`` of the input on its own device and writes
+``<output>.shard<R>``; after a barrier process 0 merges the shards under one
+header into ``<output>`` and removes them. The group carries only that
+barrier, no tensors, so it is gloo on the card too, and several processes
+may share one card. As in the JAX package, a shard is SAM text whatever the
+output's extension, so ``-o out.bam`` ends as SAM text in ``out.bam``.
 """
 
 from __future__ import annotations
@@ -37,9 +48,6 @@ import time
 
 import numpy as np
 import torch
-
-# flags of `nvbio_tpu map` whose paths are not ported yet
-NOT_PORTED = ("--dist", "--coordinator", "--num-processes", "--process-id")
 
 
 def add_parser(sub):
@@ -94,19 +102,23 @@ def add_parser(sub):
     p.add_argument("--all", action="store_true", dest="all_mode",
                    help="report ALL alignments above threshold "
                         "(secondary records), not just the best")
+    p.add_argument("--dist", action="store_true",
+                   help="one process of a multi-process run: a gloo "
+                        "process group (coordinator from --coordinator or "
+                        "torchrun's MASTER_ADDR/MASTER_PORT), round-robin "
+                        "input batches per process, per-process SAM shards "
+                        "merged by process 0. The group carries only a "
+                        "barrier, so processes may share a card; or launch "
+                        "with torchrun --nproc-per-node N -m nvbio_tpu_torch "
+                        "map ... --dist")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="process group rendezvous address (tcp://HOST:PORT)")
+    p.add_argument("--num-processes", type=int,
+                   help="processes in the run (else WORLD_SIZE)")
+    p.add_argument("--process-id", type=int,
+                   help="this process's rank, 0..N-1 (else RANK)")
     p.set_defaults(func=run)
     return p
-
-
-def reject_not_ported(argv: list[str]) -> None:
-    """Raise SystemExit naming the first flag of ``nvbio_tpu map`` in
-    ``argv`` whose path is not ported yet (checked before argparse, which
-    would read ``-1`` as a negative number)."""
-    for tok in argv:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            raise SystemExit(f"nvbio_tpu_torch map: {flag} is not yet ported "
-                             f"(multi-host mapping)")
 
 
 def _load_reference(path: str, seeding: str = "qgram"):
@@ -253,6 +265,24 @@ def run(args):
         raise SystemExit("paired-end needs both -1 and -2")
     if not paired and not args.reads:
         raise SystemExit("provide a reads file (or -1/-2 for paired-end)")
+
+    # multi-process: join the group, stripe the input by process and write
+    # a per-process shard, merged below by process 0 (nvBowtie.cpp:644-699
+    # is the reference's one-ComputeThread-per-GPU model)
+    dist_on = joined = False
+    out_path = args.output
+    if args.dist or args.coordinator or args.num_processes:
+        from nvbio_tpu_torch.parallel import dist as pdist
+
+        try:
+            joined = not torch.distributed.is_initialized() and \
+                pdist.init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id)
+        except ValueError as e:
+            raise SystemExit(f"nvbio_tpu_torch map: {e}") from None
+        dist_on = pdist.process_count() > 1
+        if dist_on and args.output != "-":
+            out_path = pdist.shard_path(args.output)
     common = dict(
         max_read_len=args.max_read_len,
         seed_len=args.seed_len,
@@ -284,7 +314,14 @@ def run(args):
         check_paired_supported(params, args.max_read_len)
     t0 = time.time()
     ref, index = _load_reference(args.reference, params.seeding)
-    mapper = ReadMapper.build(ref, params, index=index, device=args.device)
+    device = args.device
+    if dist_on and device is None and torch.cuda.is_available():
+        # one card a process where there are several (torchrun's
+        # LOCAL_RANK); processes may share one
+        from nvbio_tpu_torch.parallel.mesh import local_rank
+
+        device = f"cuda:{local_rank() % torch.cuda.device_count()}"
+    mapper = ReadMapper.build(ref, params, index=index, device=device)
     log_info(f"reference + index ready in {time.time() - t0:.1f}s "
              f"({ref.total_length:,} bp, seeding={params.seeding}) on "
              f"{mapper.device}")
@@ -314,8 +351,9 @@ def run(args):
             n_mapped += 0 if rec.flag & 0x4 else 1
 
     def batches(path):
-        return fastq_batches(path, args.batch, args.max_read_len,
-                             alphabet=Alphabet.DNA_N)
+        it = fastq_batches(path, args.batch, args.max_read_len,
+                           alphabet=Alphabet.DNA_N)
+        return pdist.host_stripe(it) if dist_on else it
 
     dbg = None
     if args.debug_output and not paired and not args.all_mode:
@@ -323,7 +361,7 @@ def run(args):
 
         dbg = DebugOutput(args.debug_output)
     prof = _profiler(args.profile, mapper.device)
-    with prof, open_alignment_output(args.output, ref.names, lengths) as w:
+    with prof, open_alignment_output(out_path, ref.names, lengths) as w:
         if paired:
             for b1, b2 in zip(batches(args.mate1), batches(args.mate2)):
                 if args.all_mode:  # PE all-mapping: every concordant locus
@@ -342,6 +380,17 @@ def run(args):
     if dbg is not None:
         dbg.close()
         log_info(f"debug records written to {args.debug_output}")
+    if dist_on and args.output != "-":
+        # every process's shard is closed; process 0 merges them
+        torch.distributed.barrier()
+        if pdist.process_index() == 0:
+            paths = [pdist.shard_path(args.output, p)
+                     for p in range(pdist.process_count())]
+            nrec = pdist.merge_sam_shards(paths, args.output, remove=True)
+            log_info(f"merged {len(paths)} SAM shards -> {args.output} "
+                     f"({nrec:,} records)")
+    if joined:
+        torch.distributed.destroy_process_group()
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, f"nvbio_tpu_torch.{os.getpid()}."

@@ -33,8 +33,18 @@ by stratified slots or, under ``select_mode="randomized"``, by the SumTree
 draws of ``_sumtree_select`` (``threefry.py`` gives ``jax.random``'s
 bits). Positions are int64 throughout, so the JAX package's clip-at-zero
 uint32 helpers become plain clamps, and its dtype-max sentinels become one
-int64 constant ``_BIG`` compared by value. The sharded indexes are not
-ported yet.
+int64 constant ``_BIG`` compared by value.
+
+The sharded indexes seed through branches of their own
+(``pipeline.py:262-296`` and ``:384-409`` of the JAX package), inside a
+step over the reads mesh (``parallel.mesh``): a ``ShardedQGramIndex``
+(``parallel.sharded_index.sharded_seed_hits``, and in the reseed pass one
+stratified slot of each mutated key's bucket, ``stratified_offsets(rs, 1,
+NS*3q)``, not the middle slot) and a ``ShardedFMIndex``
+(``fmi.sharded``: pass 0 keeps the first slice with a hit, and the reseed
+pass takes the dense ``search_1mm``, 3s slots a seed, not the top-8 hybrid
+search). Neither honours ``select_mode="randomized"``. So a sharded step
+equals a replicated one only where the data make these the same.
 """
 
 from __future__ import annotations
@@ -71,6 +81,12 @@ from nvbio_tpu_torch.fmi.search import (
     locate_core,
     search_1mm_hybrid_topk,
 )
+from nvbio_tpu_torch.fmi.sharded import (
+    ShardedFMIndex,
+    sharded_fmi_seed_hits,
+    sharded_fmi_seed_hits_1mm,
+    sharded_fmi_whole_read,
+)
 from nvbio_tpu_torch.index.device_sa import (
     build_fmindex_device,
     prefer_device_sa,
@@ -80,6 +96,10 @@ from nvbio_tpu_torch.io.sam import (
     FLAG_SECONDARY,
     FLAG_UNMAPPED,
     SamRecord,
+)
+from nvbio_tpu_torch.parallel.sharded_index import (
+    ShardedQGramIndex,
+    sharded_seed_hits,
 )
 from nvbio_tpu_torch.qgram import (
     QGramIndex,
@@ -95,6 +115,10 @@ from nvbio_tpu_torch.qgram import (
 
 # "no position" sentinel: larger than any genome position plus tolerance
 _BIG = torch.iinfo(torch.int64).max
+
+# what read_candidates seeds from (the sharded two placed on a mesh)
+SeedIndex = (QGramIndex | QGroupIndex | FMIndex | ShardedQGramIndex
+             | ShardedFMIndex)
 
 
 def use_pallas_extension(params: MapParams) -> bool:
@@ -414,7 +438,7 @@ def fm_seed_hits_1mm(index: FMIndex, seeds):
             (mm_hi - mm_lo).reshape(B, NS, -1) > 0)
 
 
-def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
+def read_candidates(index: SeedIndex, genome_words,
                     n_genome: int, reads, lens, quals, params: MapParams,
                     seed_phase: int = 0, approx_1mm: bool = False):
     """Seed + locate + dedup + extension-score candidates for one batch.
@@ -427,11 +451,15 @@ def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
     ``FMIndex`` by backward search and locate (plus, in the first pass
     under ``whole_read_exact``, the whole-read exact pass 0). Each seed's
     hits are its stratified slots, or the SumTree draws of
-    ``_sumtree_select`` under ``select_mode="randomized"``.
+    ``_sumtree_select`` under ``select_mode="randomized"``. A placed
+    ``ShardedFMIndex`` or ``ShardedQGramIndex`` seeds through its own
+    branch (module docstring), with collectives over its mesh: every rank
+    of the mesh must make the same calls.
     """
     P = params
     check_supported(P)
-    want = (FMIndex,) if P.seeding == "fmi" else (QGramIndex, QGroupIndex)
+    want = ((FMIndex, ShardedFMIndex) if P.seeding == "fmi"
+            else (QGramIndex, QGroupIndex, ShardedQGramIndex))
     if not isinstance(index, want):
         raise TypeError(f"seeding={P.seeding!r} needs a "
                         f"{' or '.join(w.__name__ for w in want)}, "
@@ -453,7 +481,28 @@ def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
     randomized = P.select_mode == "randomized"
     sel_off = None   # (B, 2S1, H) read offset of each randomized draw's seed
 
-    if isinstance(index, FMIndex):
+    if isinstance(index, ShardedFMIndex):
+        # genome-sliced FM indexes, one a rank: local backward search,
+        # answers routed home by all_to_all
+        pos, hvalid, _ = sharded_fmi_seed_hits(index, seeds, P.seed_len, H)
+        hit_valid = hvalid & seed_valid2[:, :, None]
+        if P.whole_read_exact and seed_phase == 0:
+            q2 = torch.cat([reads.clamp(max=3), rc.clamp(max=3)])
+            l2 = torch.cat([lens, lens])
+            pos_e, ok_e = sharded_fmi_whole_read(index, q2, l2)
+            ok_e = ok_e & (l2 > 0) & \
+                ~torch.any(torch.cat([reads, rc]) > 3, dim=1)
+            pos, hit_valid = _append_pass0(pos, hit_valid, pos_e, ok_e, B, S1)
+            H = H + 2
+    elif isinstance(index, ShardedQGramIndex):
+        # bucket-range shards, one a rank: all-gathered keys, masked
+        # answers all-reduced
+        keys = seed_keys_from_batch(seeds, index.q)          # (B, 2S1)
+        pos, range_size = sharded_seed_hits(index, keys, H)
+        k = torch.arange(H, device=dev)
+        hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
+            seed_valid2[:, :, None]
+    elif isinstance(index, FMIndex):
         if randomized:
             lo, range_size = fm_seed_ranges(index, seeds)
             lo_c, slot, sel_off, hit_valid = _sumtree_select(
@@ -487,7 +536,11 @@ def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
                                              2 * S1)
 
     if approx_1mm:
-        if isinstance(index, FMIndex):
+        if isinstance(index, ShardedFMIndex):
+            # the dense 1-mismatch search of each seed against each slice
+            pos1, nonempty = sharded_fmi_seed_hits_1mm(index, seeds,
+                                                       P.seed_len)
+        elif isinstance(index, FMIndex):
             # approx-hybrid 1-mismatch ranges of each seed, the middle row
             # of each nonempty range located
             pos1, nonempty = fm_seed_hits_1mm(index, seeds)
@@ -500,7 +553,15 @@ def read_candidates(index: QGramIndex | QGroupIndex | FMIndex, genome_words,
             xor = (dd[None, :] << (2 * (qq - 1 - jj))[:, None]).reshape(
                 3 * qq)
             mut_keys = keys[:, :, None] ^ xor[None, None, :]  # (B, NS, 3q)
-            if getattr(index, "mid_pos", None) is not None:
+            if isinstance(index, ShardedQGramIndex):
+                # one stratified slot of each mutated bucket:
+                # floor(j * r / (NS * 3q)) for column j, not the middle
+                NS = mut_keys.shape[1]
+                p1, rs1 = sharded_seed_hits(
+                    index, mut_keys.reshape(B, NS * 3 * qq), 1)
+                pos1 = p1.reshape(B, NS, 3 * qq)
+                nonempty = rs1.reshape(B, NS, 3 * qq) > 0
+            elif getattr(index, "mid_pos", None) is not None:
                 pos1, nonempty = midpos_lookup(index, mut_keys)
             else:   # the middle slot of each range (a Q-Group index)
                 lo1, hi1 = index_range(index, mut_keys)
@@ -666,7 +727,7 @@ def finalize_best(cands, genome_words, n_genome: int, best_pos, best_strand,
     )
 
 
-def align_batch_core(index: QGramIndex | FMIndex, genome_words,
+def align_batch_core(index: SeedIndex, genome_words,
                      n_genome: int, reads, lens, quals, params: MapParams):
     """Map one dense batch of reads (single-end); per-read result tensors.
 
@@ -747,7 +808,7 @@ def align_batch_core(index: QGramIndex | FMIndex, genome_words,
     return out
 
 
-def align_batch_all(index: QGramIndex | FMIndex, genome_words,
+def align_batch_all(index: SeedIndex, genome_words,
                     n_genome: int, reads, lens, quals, params: MapParams):
     """All-mapping of one dense batch (single-end): a traceback of every
     candidate of every read, in one flattened (B*C) call of the traceback

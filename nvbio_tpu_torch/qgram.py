@@ -95,7 +95,8 @@ class QGramIndex:
 def position_dtype(n: int):
     """int32 below 2^31 symbols, uint32 up to 2^32 (the JAX package's)."""
     if n >= 2**32:
-        raise ValueError("texts >= 2^32 symbols are not supported")
+        raise ValueError("texts >= 2^32 symbols must be sharded (see "
+                         "nvbio_tpu_torch.parallel.sharded_index)")
     return np.uint32 if n >= 2**31 else np.int32
 
 

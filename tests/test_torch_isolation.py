@@ -50,6 +50,38 @@ def test_importing_the_port_loads_no_jax_and_no_nvbio_tpu():
     assert bad.strip() == "[]"
 
 
+_SHARDED_PROBE = r"""
+import importlib, os, sys, tempfile
+for m in ("parallel", "parallel.mesh", "parallel.sharded_index",
+          "parallel.dist", "parallel.dryrun", "parallel.worker",
+          "fmi.sharded"):
+    importlib.import_module("nvbio_tpu_torch." + m)
+for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+    os.environ.pop(v, None)
+from nvbio_tpu_torch.parallel import worker
+try:  # the entry point's imports run before it finds no process group
+    worker.main(["--outdir", tempfile.mkdtemp(), "--device", "cpu"])
+except SystemExit as e:
+    print("exit:", e)
+print(sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+             or k == "nvbio_tpu" or k.startswith("nvbio_tpu.")))
+"""
+
+
+def test_sharded_modules_and_worker_load_no_jax():
+    """The multi-GPU modules and the worker's entry point, run as far as
+    its process-group check, load neither JAX nor nvbio_tpu."""
+    from tests.conftest import cpu_subprocess_env
+
+    r = subprocess.run([sys.executable, "-c", _SHARDED_PROBE], cwd=REPO,
+                       env=cpu_subprocess_env(str(REPO)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    exit_line, bad = r.stdout.strip().splitlines()
+    assert "no process group configured" in exit_line
+    assert bad == "[]"
+
+
 def test_port_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|nvbio_tpu\b(?!_torch))",
                      re.M)

@@ -159,7 +159,8 @@ def test_fmi_seeding_and_multi_host_stop_by_name(se_dir):
 
     # FM seeding and randomized hit selection (which a config file selects)
     # are ported: the port's SAM records equal nvbio_tpu's on the .pac
-    # reference; the multi-host flags stop by name
+    # reference; the multi-host flags are ported too: a one-process group
+    # writes the same records, and an incomplete one stops by name
     (se_dir / "rand.cfg").write_text("seeding=fmi\nselect_mode=randomized\n")
     args = ["map", "se", "se.fq", *COMMON, "--batch", "32", "--seeding",
             "fmi", "--config", "rand.cfg", "-o"]
@@ -176,11 +177,22 @@ def test_fmi_seeding_and_multi_host_stop_by_name(se_dir):
     assert records("rand_port.sam") == records("rand_jax.sam")
     assert sum(not int(ln.split("\t")[1]) & 4
                for ln in records("rand_port.sam")) >= 30
-    for flag in ("--dist", "--coordinator=h:1", "--num-processes",
-                 "--process-id"):
-        with pytest.raises(SystemExit, match=f"{flag.split('=')[0]} is not "
-                                             f"yet ported"):
-            main(["map", "ref.fa", "reads.fq", flag, "2"])
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    port_args = [str(se_dir / a) if a in ("se", "se.fq", "rand.cfg") else a
+                 for a in args]
+    assert main([*port_args, str(se_dir / "rand_dist.sam"), "--device",
+                 "cpu", "--dist", f"--coordinator=127.0.0.1:{port}",
+                 "--num-processes", "1", "--process-id", "0"]) == 0
+    assert records("rand_dist.sam") == records("rand_jax.sam")
+    assert not list(se_dir.glob("rand_dist.sam.shard*"))
+    for flag, missing in ((["--coordinator=h:1"], "number of processes"),
+                          (["--num-processes", "2"], "coordinator")):
+        with pytest.raises(SystemExit, match=missing):
+            main(["map", "ref.fa", "reads.fq", *flag])
 
 
 def test_mapq_filter_matches_the_recorded_sam(tmp_path):

@@ -162,9 +162,12 @@ def test_cli_map_matches_jax_cli(tmp_path):
 def test_cli_rejects_what_is_not_ported(tmp_path):
     from nvbio_tpu_torch.__main__ import main
 
-    for flag in (["--num-processes", "2"],
-                 ["-1", "a.fq", "-2", "b.fq", "--dist"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    # the multi-host flags are ported: a group without its coordinator
+    # stops by name, and --dist with nothing configured is a
+    # single-process run (it goes on to read the reference)
+    for flag, what in ((["--num-processes", "2"], "coordinator"),
+                       (["-1", "a.fq", "-2", "b.fq", "--dist"], "ref.fa")):
+        with pytest.raises((SystemExit, FileNotFoundError), match=what):
             main(["map", "ref.fa", "reads.fq", *flag])
     # BAM output and .pac prefixes are ported: a prefix with neither
     # artifact stops by name
