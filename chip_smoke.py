@@ -201,6 +201,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      protein FM index of 4 Mi residues (8192 queries of 9; 64 against a
      numpy scan); ms and device ops of each; every result equal on cuda
      and on cpu (a subset of the seeds on the cpu index);
+ 12k. surface: every package-level name (the names the JAX package's
+     __init__ files re-export) imported through its package in this
+     process, each the same object as its defining module's;
+     packed.gather_symbols on the 100 Mbp genome's words on the card at
+     1 M seeded positions (the last symbol among them) against numpy's
+     unpack of the same words and gather_symbols on their cpu copy, and a
+     PackedArray of them through .to("cuda") and to_codes; fmi.rank.rank2
+     on the card's FM rank rows at 1 M seeded (c, lo <= hi) triples
+     against two rank calls on the card and rank2 on the cpu index's rows
+     (equality only: no path of the port calls these host-API helpers, so
+     they are not timed);
  12h. scan: extension="scan" (the aligner library's engine: the banded
      scan scorer over the B*C extracted windows, the scan traceback and,
      for mate rescue, the full-matrix wavefront over the 531-wide window),
@@ -3852,6 +3863,97 @@ def phase_fm_library(genome, fm_cpu, fm_gpu, card) -> dict:
     return out
 
 
+# [surface]: the package-level names, gather_symbols, rank2
+SURFACE_NAMES = {
+    "": {"Alphabet": "alphabet"},
+    "bowtie": {"MapParams": "bowtie.params",
+               "ReadMapper": "bowtie.pipeline"},
+    "fmi": {"FMIndex": "fmi.index", "build_fmindex": "fmi.index",
+            "rank": "fmi.rank", "rank2": "fmi.rank",
+            "backward_search": "fmi.search", "locate_batch": "fmi.search"},
+    "index": {"suffix_array": "index.sa"},
+    "io": {"read_fasta": "io.fasta", "write_fasta": "io.fasta",
+           "read_fastq": "io.fastq", "fastq_batches": "io.fastq",
+           "Reference": "io.reference", "SamWriter": "io.sam",
+           "BamReader": "io.bam", "BamWriter": "io.bam",
+           "open_alignment_output": "io.output",
+           "read_alignments": "io.output", "SNPDatabase": "io.vcf",
+           "load_vcf": "io.vcf"},
+    "utils": {"log_debug": "utils.console", "log_error": "utils.console",
+              "log_info": "utils.console", "log_stats": "utils.console",
+              "log_verbose": "utils.console", "log_visible": "utils.console",
+              "set_verbosity": "utils.console", "Timer": "utils.timers"},
+}
+N_SURFACE = 1 << 20          # gather_symbols positions, rank2 triples
+
+
+def phase_surface(host_words, words, fm_cpu, fm_gpu, card) -> dict:
+    """The public surface on the card: package-level names, gather_symbols
+    and PackedArray on the genome's words and rank2 on the FM rank rows,
+    each equal to its reference (GPU = CPU)."""
+    import importlib
+
+    from nvbio_tpu_torch.fmi.rank import rank, rank2
+    from nvbio_tpu_torch.packed import PackedArray, gather_symbols, unpack
+
+    t_phase = time.time()
+    out = {}
+    n_names = 0
+    for pkg, names in SURFACE_NAMES.items():
+        mod = importlib.import_module(
+            "nvbio_tpu_torch" + (f".{pkg}" if pkg else ""))
+        for name, home in names.items():
+            want = getattr(importlib.import_module(
+                f"nvbio_tpu_torch.{home}"), name)
+            require(getattr(mod, name) is want,
+                    f"surface: {pkg or 'nvbio_tpu_torch'}.{name} is not "
+                    f"{home}.{name}")
+            n_names += 1
+    out["names"] = n_names
+
+    rng = np.random.default_rng(SEED + 3400)
+    n = GENOME_LEN
+    idx = rng.integers(0, n, N_SURFACE)
+    idx[:2] = 0, n - 1
+    got = gather_symbols(words, torch.from_numpy(idx).cuda(), 2)
+    require(got.is_cuda and got.dtype == torch.int32,
+            "surface: gather_symbols left the card or int32")
+    codes = unpack(host_words, n, 2)
+    require(np.array_equal(got.cpu().numpy(), codes[idx].astype(np.int32))
+            and torch.equal(got.cpu(), gather_symbols(
+                words.cpu(), torch.from_numpy(idx), 2)),
+            "surface: gather_symbols differs from unpack or the cpu copy")
+    pa = PackedArray(host_words, n, 2).to("cuda")
+    require(pa.words.is_cuda and np.array_equal(pa.to_codes(), codes),
+            "surface: PackedArray through .to('cuda') lost symbols")
+    out["gather_symbols_n"] = N_SURFACE
+    print(f"[surface] {n_names} package-level names are their modules'; "
+          f"gather_symbols of {N_SURFACE} positions equal to unpack and the "
+          f"cpu copy; PackedArray of {n} symbols round-trips; card {card}",
+          flush=True)
+
+    nr = fm_gpu.n
+    a, b = rng.integers(0, nr + 1, (2, N_SURFACE))
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    lo[:3], hi[:3] = (0, 0, nr), (0, nr, nr)
+    c = torch.from_numpy(rng.integers(0, 4, N_SURFACE))
+    lo, hi = torch.from_numpy(lo), torch.from_numpy(hi)
+    cg, lo_g, hi_g = c.cuda(), lo.cuda(), hi.cuda()
+    rlo, rhi = rank2(fm_gpu.rank_rows, cg, lo_g, hi_g)
+    clo, chi = rank2(fm_cpu.rank_rows, c, lo, hi)
+    require(torch.equal(rlo, rank(fm_gpu.rank_rows, cg, lo_g))
+            and torch.equal(rhi, rank(fm_gpu.rank_rows, cg, hi_g))
+            and torch.equal(rlo.cpu(), clo) and torch.equal(rhi.cpu(), chi),
+            "surface: rank2 differs from rank on the card or from the cpu")
+    out["rank2_n"] = N_SURFACE
+    print(f"[surface] rank2 of {N_SURFACE} triples on the {nr} bp index "
+          f"equal to two rank calls and to the cpu rows; card {card}",
+          flush=True)
+    out["phase_s"] = time.time() - t_phase
+    print(f"[surface] phase {out['phase_s']:.1f} s; card {card}", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The scan route (extension="scan": the aligner library's engine, no kernel)
 # and the aligner library at realistic sizes
@@ -4714,6 +4816,10 @@ def main() -> int:
     asm_stats = phase_assemble(card)
     stamp("fm_library")
     fmlib_stats = phase_fm_library(genome, fm_cpu, fm_gpu, card)
+    # the public surface: package names, gather_symbols, rank2
+    stamp("surface")
+    surface_stats = phase_surface(ref.packed_words(), words, fm_cpu, fm_gpu,
+                                  card)
     # the scan route and the aligner library (no kernel of the repo)
     stamp("scan")
     # the kernel route's records of each path's first batch (same seeds)
@@ -4850,7 +4956,8 @@ def main() -> int:
                       "randomized": rand_stats, "mem": mem_stats,
                       "correct": correct_stats, "sort": sort_stats,
                       "cli": cli_stats, "assemble": asm_stats,
-                      "fm_library": fmlib_stats, "scan": scan_stats,
+                      "fm_library": fmlib_stats, "surface": surface_stats,
+                      "scan": scan_stats,
                       "aligner": aligner_stats, "dist": dist_stats,
                       "phase_starts": STAMPS,
                       "card": card}))

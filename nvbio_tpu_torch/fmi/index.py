@@ -19,7 +19,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from nvbio_tpu_torch.fmi import rank as rank_mod
+from nvbio_tpu_torch.fmi.rank import (
+    build_occ_table,
+    build_rank_rows,
+    build_ssa_rows,
+)
 from nvbio_tpu_torch.fmi.search import step_backward
 
 
@@ -85,9 +89,9 @@ class FMIndex:
             sa_interval=int(sa_interval), ssa_marks=_t(ssa_marks),
             ssa_cum=_t(ssa_cum), ssa_vals=_t(ssa_vals),
             rank_rows=torch.from_numpy(
-                rank_mod.build_rank_rows(bwt_words, int(n), occ)),
+                build_rank_rows(bwt_words, int(n), occ)),
             ssa_rows=torch.from_numpy(
-                rank_mod.build_ssa_rows(ssa_marks, ssa_cum)),
+                build_ssa_rows(ssa_marks, ssa_cum)),
             ftab_k=int(ftab_k) if ftab_lo is not None else 0,
             ftab_lo=None if ftab_lo is None else _t(ftab_lo),
             ftab_hi=None if ftab_hi is None else _t(ftab_hi))
@@ -182,7 +186,7 @@ def build_fmindex(text_codes: np.ndarray, sa: np.ndarray | None = None,
     sa = np.asarray(sa, np.int64)
     bwt, primary = bwt_from_sa(text_codes, sa)
     bwt_words = packed.pack(bwt, 2)
-    occ = rank_mod.build_occ_table(bwt_words, n)
+    occ = build_occ_table(bwt_words, n)
 
     count = np.zeros(5, dtype=np.int64)
     count[1:] = np.cumsum(np.bincount(text_codes, minlength=4)[:4])

@@ -152,6 +152,17 @@ def rank(rows: torch.Tensor, c: torch.Tensor, i: torch.Tensor):
     return base_c + _count_matches(words, c, rem)
 
 
+def rank2(rows: torch.Tensor, c: torch.Tensor, lo: torch.Tensor,
+          hi: torch.Tensor):
+    """(rank(c, lo), rank(c, hi)), the backward-search step pair, from one
+    stacked ``rank`` call. The JAX ``rank2`` takes the ``(bwt_words, occ)``
+    pair; the port's takes its interleaved rank rows, as its ``rank``
+    does. ``lo`` and ``hi`` share a shape, to which ``c`` broadcasts."""
+    i = torch.stack([lo.to(torch.int64), hi.to(torch.int64)])
+    both = rank(rows, c.to(torch.int64).expand(lo.shape)[None], i)
+    return both[0], both[1]
+
+
 def rank_all(rows: torch.Tensor, i: torch.Tensor):
     """rank of ALL 4 symbols at positions i: (..., 4) int64."""
     base, words, rem = _row(rows, i.to(torch.int64))

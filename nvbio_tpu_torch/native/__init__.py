@@ -62,6 +62,19 @@ def load(name: str, sources: list[str], extra_flags=()) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def _builds(get) -> bool:
+    try:
+        get()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True
+
+
+def sais_available() -> bool:
+    """Whether the native SA-IS suffix sorter builds and loads here."""
+    return _builds(get_sais)
+
+
 def get_sais() -> ctypes.CDLL:
     """Native SA-IS suffix sorter (int32 and int64 index engines)."""
     lib = load("nvbio_torch_sais", ["sais.cpp"])
@@ -140,6 +153,11 @@ def get_qgram() -> ctypes.CDLL:
     return lib
 
 
+def qgram_available() -> bool:
+    """Whether the native q-gram builder builds and loads here."""
+    return _builds(get_qgram)
+
+
 def qgram_build(codes, q: int, n_flags=None):
     """Counting-sort q-gram table: (offsets, positions) uint32 arrays."""
     lib = get_qgram()
@@ -181,11 +199,7 @@ def get_bgzf() -> ctypes.CDLL:
 
 def bgzf_available() -> bool:
     """Whether the native BGZF compressor builds and loads here."""
-    try:
-        get_bgzf()
-    except (OSError, subprocess.CalledProcessError):
-        return False
-    return True
+    return _builds(get_bgzf)
 
 
 def get_lz4() -> ctypes.CDLL:
@@ -252,11 +266,7 @@ def get_bwte() -> ctypes.CDLL:
 
 def bwte_available() -> bool:
     """Whether the native BWTE engine builds and loads here."""
-    try:
-        get_bwte()
-    except (OSError, subprocess.CalledProcessError):
-        return False
-    return True
+    return _builds(get_bwte)
 
 
 def bcr_block_bwt(reads):

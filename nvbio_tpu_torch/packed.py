@@ -11,7 +11,9 @@ arithmetic, so an unmasked high symbol would sign-extend).
 
 from __future__ import annotations
 
+import dataclasses
 import sys
+from typing import Any
 
 import numpy as np
 import torch
@@ -68,6 +70,58 @@ def words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
     """uint32 packed words -> int32 tensor of the same bits on ``device``."""
     w = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
     return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+@dataclasses.dataclass
+class PackedArray:
+    """A length-tagged packed symbol array (``nvbio_tpu.packed.
+    PackedArray``). ``words`` is a numpy uint32 array (host) or an int32
+    tensor of the same bits; ``.to(device)`` stands for the JAX
+    ``.device()``."""
+
+    words: Any          # uint32[n_words] (or batched [..., n_words])
+    length: int         # number of valid symbols
+    bits: int           # bits per symbol
+
+    @classmethod
+    def from_codes(cls, symbols: np.ndarray, bits: int) -> "PackedArray":
+        return cls(pack(symbols, bits), int(np.asarray(symbols).shape[-1]),
+                   bits)
+
+    def to_codes(self) -> np.ndarray:
+        w = self.words
+        if isinstance(w, torch.Tensor):
+            w = w.cpu().numpy().view(np.uint32)
+        return unpack(w, self.length, self.bits)
+
+    @property
+    def spw(self) -> int:
+        return symbols_per_word(self.bits)
+
+    def to(self, device) -> "PackedArray":
+        w = self.words
+        w = w.to(device) if isinstance(w, torch.Tensor) else \
+            words_to_tensor(w, device)
+        return PackedArray(w, self.length, self.bits)
+
+
+def gather_symbols(words, idx, bits: int):
+    """The symbols at positions ``idx`` (any integer shape) of packed
+    ``words``, as ``nvbio_tpu.packed.gather_symbols``: numpy words (uint32)
+    give a numpy int32 array, tensor words (int32 bits) an int32 tensor on
+    their device. Batched words (..., n_words) gather along the last axis,
+    giving (..., *idx.shape)."""
+    spw = symbols_per_word(bits)
+    mask = (1 << bits) - 1
+    if not isinstance(words, torch.Tensor):
+        words = np.asarray(words, dtype=np.uint32)
+        idx = np.asarray(idx, dtype=np.int64)
+        word = np.take(words, idx // spw, axis=-1)
+        shift = ((idx % spw) * bits).astype(np.uint32)
+        return ((word >> shift) & mask).astype(np.int32)
+    idx = torch.as_tensor(idx, device=words.device).to(torch.int64)
+    word = words[..., idx // spw].to(torch.int64) & 0xFFFFFFFF
+    return ((word >> ((idx % spw) * bits)) & mask).to(torch.int32)
 
 
 def extract_window(words: torch.Tensor, start: torch.Tensor, win_len: int,

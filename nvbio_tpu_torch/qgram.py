@@ -60,13 +60,7 @@ class QGramIndex:
                 raise TypeError(f"unsupported table dtype {a.dtype}")
             return torch.from_numpy(np.ascontiguousarray(a))
 
-        mid = None
-        if mid_pos is not None:
-            mp = np.asarray(mid_pos)
-            sent = np.iinfo(mp.dtype).max
-            # widen before mapping the sentinel: -1 does not fit a uint32
-            dt = np.int64 if mp.dtype == np.uint32 else mp.dtype
-            mid = tensor(np.where(mp == sent, -1, mp.astype(dt)).astype(dt))
+        mid = None if mid_pos is None else tensor(_port_midpos(mid_pos))
         return cls(int(q), tensor(offsets), tensor(positions), int(n), mid)
 
     @classmethod
@@ -100,6 +94,40 @@ def position_dtype(n: int):
     return np.uint32 if n >= 2**31 else np.int32
 
 
+def _port_midpos(mid_pos) -> np.ndarray:
+    """A ``mid_pos`` table as the JAX package holds it (an empty bucket is
+    the dtype's max) with the port's -1 for an empty bucket."""
+    mp = np.asarray(mid_pos)
+    sent = np.iinfo(mp.dtype).max
+    # widen before mapping the sentinel: -1 does not fit a uint32
+    dt = np.int64 if mp.dtype == np.uint32 else mp.dtype
+    return np.where(mp == sent, -1, mp.astype(dt)).astype(dt)
+
+
+def _midpos_array(offsets: np.ndarray, positions: np.ndarray) -> np.ndarray:
+    """The middle entry of each bucket of a host (offsets, positions) table
+    in their dtype, the dtype's max where a bucket is empty (the native
+    builder's rule, as the JAX package holds it)."""
+    dt = offsets.dtype
+    cnt = offsets[1:].astype(np.int64) - offsets[:-1]
+    mid = np.full(len(cnt), np.iinfo(dt).max, dt)
+    full = np.flatnonzero(cnt > 0)
+    mid[full] = positions[offsets[full].astype(np.int64) + cnt[full] // 2]
+    return mid
+
+
+def attach_midpos(idx: QGramIndex) -> QGramIndex:
+    """``idx`` with ``mid_pos`` filled from its (offsets, positions) table:
+    the middle entry of each bucket, -1 where it is empty, built on the
+    host and placed on the tables' device."""
+    dt = position_dtype(idx.n)
+    offsets = idx.offsets.cpu().numpy().astype(dt, copy=False)
+    positions = idx.positions.cpu().numpy().astype(dt, copy=False)
+    mid = _port_midpos(_midpos_array(offsets, positions))
+    return dataclasses.replace(
+        idx, mid_pos=torch.from_numpy(mid).to(idx.offsets.device))
+
+
 def build_qgram_index(codes: np.ndarray, q: int = 12,
                       n_flags: np.ndarray | None = None) -> QGramIndex:
     """Host construction (native counting sort; where the toolchain does
@@ -121,21 +149,8 @@ def build_qgram_index(codes: np.ndarray, q: int = 12,
     dt = position_dtype(len(codes))
     if dt != np.uint32:
         offs, pos = offs.astype(dt), pos.astype(dt)
-    return _with_midpos(q, len(codes), offs, pos)
-
-
-def _with_midpos(q: int, n: int, offsets: np.ndarray,
-                 positions: np.ndarray) -> QGramIndex:
-    """The index of (offsets, positions) in ``position_dtype(n)``, with
-    ``mid_pos`` (the middle entry of each bucket, the native builder's
-    rule; the dtype's max marks an empty bucket, as the JAX package
-    holds it)."""
-    dt = offsets.dtype
-    cnt = offsets[1:].astype(np.int64) - offsets[:-1]
-    mid = np.full(len(cnt), np.iinfo(dt).max, dt)
-    full = np.flatnonzero(cnt > 0)
-    mid[full] = positions[offsets[full].astype(np.int64) + cnt[full] // 2]
-    return QGramIndex.from_arrays(q, n, offsets, positions, mid)
+    return QGramIndex.from_arrays(q, len(codes), offs, pos,
+                                  _midpos_array(offs, pos))
 
 
 def _window_has_n(n_flags: np.ndarray, q: int) -> np.ndarray:
@@ -204,7 +219,9 @@ def build_qgram_index_large(codes: np.ndarray, q: int = 12,
         cur += np.bincount(k, minlength=n_buckets)
         if verbose:
             print(f"  qgram pass2 chunk {c + 1}/{n_chunks}", flush=True)
-    return _with_midpos(q, n, bucket_starts.astype(dt), positions)
+    offsets = bucket_starts.astype(dt)
+    return QGramIndex.from_arrays(q, n, offsets, positions,
+                                  _midpos_array(offsets, positions))
 
 
 def seed_keys_from_batch(seeds: torch.Tensor, q: int) -> torch.Tensor:

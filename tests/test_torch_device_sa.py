@@ -6,6 +6,7 @@ job) on short texts at the bootstrap's 26-symbol edge, random texts, an
 all-A text, a period-2 text and a text with planted repeats (ties that
 take several doubling rounds)."""
 
+import importlib
 import zlib
 
 import numpy as np
@@ -14,7 +15,6 @@ import torch
 
 from nvbio_tpu.fmi.index import fmindex_from_bwt as j_fmindex_from_bwt
 from nvbio_tpu.index import device_sa as jdsa
-from nvbio_tpu_torch.fmi import rank as trank
 from nvbio_tpu_torch.fmi.index import build_fmindex, fmindex_from_bwt
 from nvbio_tpu_torch.index import device_sa as tdsa
 from nvbio_tpu_torch.index.sa import suffix_array
@@ -22,6 +22,9 @@ from nvbio_tpu_torch.index.sa import suffix_array
 # the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
 # worker keeps torch's OpenMP pools from spinning against each other
 torch.set_num_threads(1)
+
+# ``nvbio_tpu_torch.fmi.rank`` is the function, as in ``nvbio_tpu.fmi``
+trank = importlib.import_module("nvbio_tpu_torch.fmi.rank")
 
 FIELDS = ("bwt_words", "occ", "count", "ssa_marks", "ssa_cum", "ssa_vals")
 

@@ -15,7 +15,6 @@ import torch
 
 from nvbio_tpu_torch import convert
 from nvbio_tpu_torch.fmi import index as tidx
-from nvbio_tpu_torch.fmi import rank as trank
 from nvbio_tpu_torch.fmi import search as tsearch
 from nvbio_tpu_torch.index.sa import suffix_array as t_suffix_array
 
@@ -23,9 +22,10 @@ from nvbio_tpu_torch.index.sa import suffix_array as t_suffix_array
 # worker keeps torch's OpenMP pools from spinning against each other
 torch.set_num_threads(1)
 
-# ``nvbio_tpu.fmi`` re-exports functions named like its modules
+# both packages' ``fmi`` re-export functions named like their modules
 jidx = importlib.import_module("nvbio_tpu.fmi.index")
 jrank = importlib.import_module("nvbio_tpu.fmi.rank")
+trank = importlib.import_module("nvbio_tpu_torch.fmi.rank")
 jsearch = importlib.import_module("nvbio_tpu.fmi.search")
 jsa = importlib.import_module("nvbio_tpu.index.sa")
 

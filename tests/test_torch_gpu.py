@@ -11,6 +11,8 @@ Without a card every test skips (the kernels have no CPU mode). Bands
 outside ``K.SUPPORTED_BANDS`` build their own libraries, once for the
 module (``K.build(bands=EXTRA_BANDS)``, in parallel)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -805,7 +807,7 @@ def test_fm_search_on_cuda_equals_cpu(n):
     1-mismatch top-K search. The text's end falls on a 64-symbol block at
     n = 65536."""
     dev = _card()
-    from nvbio_tpu_torch.fmi import rank as R
+    R = importlib.import_module("nvbio_tpu_torch.fmi.rank")
     from nvbio_tpu_torch.fmi import search as S
     from nvbio_tpu_torch.fmi.index import attach_ftab, build_fmindex
 

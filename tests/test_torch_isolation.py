@@ -82,6 +82,38 @@ def test_sharded_modules_and_worker_load_no_jax():
     assert bad == "[]"
 
 
+_NAMES_PROBE = r"""
+import sys
+from nvbio_tpu_torch.bowtie import MapParams, ReadMapper
+from nvbio_tpu_torch import Alphabet
+from nvbio_tpu_torch.fmi import (FMIndex, build_fmindex, rank, rank2,
+                                 backward_search, locate_batch)
+from nvbio_tpu_torch.index import suffix_array
+from nvbio_tpu_torch.io import (read_fasta, write_fasta, read_fastq,
+                                fastq_batches, Reference, SamWriter,
+                                BamReader, BamWriter, open_alignment_output,
+                                read_alignments, SNPDatabase, load_vcf)
+from nvbio_tpu_torch.utils import (log_debug, log_error, log_info, log_stats,
+                                   log_verbose, log_visible, set_verbosity,
+                                   Timer)
+print(sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+             or k == "nvbio_tpu" or k.startswith("nvbio_tpu.")))
+"""
+
+
+def test_package_level_names_load_no_jax():
+    """The names the port's packages re-export, imported through their
+    packages first in a fresh interpreter, load neither JAX nor
+    nvbio_tpu."""
+    from tests.conftest import cpu_subprocess_env
+
+    r = subprocess.run([sys.executable, "-c", _NAMES_PROBE], cwd=REPO,
+                       env=cpu_subprocess_env(str(REPO)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_port_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|nvbio_tpu\b(?!_torch))",
                      re.M)

@@ -18,6 +18,7 @@ rows, their stats to the sums: JAX's replicated step is that core under
 ``shard_map`` plus ``psum`` (``nvbio_tpu/parallel/mesh.py:26-38``)."""
 
 import dataclasses
+import importlib
 import socket
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,7 +37,6 @@ from nvbio_tpu.parallel import mesh as jmesh
 from nvbio_tpu.parallel import sharded_index as jsi
 from nvbio_tpu.qgram import QGramIndex as JQGramIndex
 from nvbio_tpu.qgram import build_qgram_index as j_build_qgram
-from nvbio_tpu_torch.fmi import rank as rank_mod
 from nvbio_tpu_torch.fmi import sharded as tfs
 from nvbio_tpu_torch.parallel import sharded_index as tsi
 from nvbio_tpu_torch.qgram import QGramIndex as TQGramIndex
@@ -46,6 +46,9 @@ from tests import torch_parallel_ranks as R
 # the suite runs in 6 xdist workers on 8 cores: one intra-op thread a
 # worker keeps torch's OpenMP pools from spinning against each other
 torch.set_num_threads(1)
+
+# ``nvbio_tpu_torch.fmi.rank`` is the function, as in ``nvbio_tpu.fmi``
+rank_mod = importlib.import_module("nvbio_tpu_torch.fmi.rank")
 
 SHARDED = PartitionSpec(jmesh.READS_AXIS)
 MESHES = (R.WORLD, R.SUB)
