@@ -4541,10 +4541,12 @@ def dist_cards_main(worlds) -> int:
 
 def device_rows(prof) -> list:
     """(device µs, calls, name) of each kernel a profile saw; host ops are
-    left out, their device time is their kernels'."""
+    left out, their device time is their kernels', and so are the
+    program's spans' shadows on the device timeline (user annotations)."""
     rows = []
     for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        if "CUDA" not in str(getattr(ev, "device_type", "")) \
+                or getattr(ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))

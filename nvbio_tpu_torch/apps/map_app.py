@@ -24,7 +24,18 @@ Q`` writes mapped primaries below Q as unmapped and drops filtered
 secondaries; ``--report`` writes an HTML stats report (SE and PE, not
 ``--all``); ``--debug-output`` writes binary per-read diagnostics (SE, not
 ``--all``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into
-DIR. The single-end loop dispatches batch i+1, with its copies to the host
+DIR. Under the profiler the mapper marks its stages as ``nvbio.*`` spans
+(``utils.timers.span``): ``dispatch`` (args: the batch's ordinal) holds
+``upload`` (the reads to the device), ``seed`` (index lookup or FM search
+and locate, pass 0, the 1-mismatch loci), ``vote`` (the dedup), ``extend``
+(candidate scoring), ``reseed`` (the reseed pass, its own seed, vote and
+extend inside), ``finalize`` (traceback and MAPQ) and ``rescue`` (PE mate
+rescue); ``fetch`` and ``wait`` (the copies to the host, the wait for
+them) follow. It also counts ``cand_slots`` (the B x C candidate slots
+scored), ``cand_valid`` (those holding a candidate), ``reseed_rows`` (the
+reseed queue's rows) and ``reseed_needed`` (the reads that needed the
+pass), logged after the run. Without ``--profile`` none of this is
+recorded. The single-end loop dispatches batch i+1, with its copies to the host
 enqueued behind it, before it formats batch i. Runs on the CUDA card unless
 ``--device cpu`` is given.
 
@@ -259,6 +270,7 @@ def run(args):
     from nvbio_tpu_torch.io.sam import SamRecord
     from nvbio_tpu_torch.utils.console import log_info, log_stats
     from nvbio_tpu_torch.utils.stats import AlignmentStats, html_report
+    from nvbio_tpu_torch.utils.timers import counters, reset_counters
 
     paired = args.mate1 is not None
     if paired and not args.mate2:
@@ -361,6 +373,7 @@ def run(args):
 
         dbg = DebugOutput(args.debug_output)
     prof = _profiler(args.profile, mapper.device)
+    reset_counters()
     with prof, open_alignment_output(out_path, ref.names, lengths) as w:
         if paired:
             for b1, b2 in zip(batches(args.mate1), batches(args.mate2)):
@@ -397,6 +410,8 @@ def run(args):
                                            f"{time.time_ns()}.pt.trace.json")
         prof.export_chrome_trace(trace)
         log_info(f"profiler trace written to {trace}")
+        log_info("counters: " + " ".join(
+            f"{k}={v}" for k, v in sorted(counters().items())))
     dt = time.time() - t0
     log_stats(f"{n_reads:,} reads in {dt:.1f}s "
               f"({n_reads / max(dt, 1e-9):,.0f} reads/s); {n_mapped:,} mapped "

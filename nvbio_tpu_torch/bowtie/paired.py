@@ -72,6 +72,7 @@ from nvbio_tpu_torch.io.sam import (
     FLAG_UNMAPPED,
     SamRecord,
 )
+from nvbio_tpu_torch.utils.timers import span
 
 
 def _take(x, idx):
@@ -217,37 +218,38 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
                 rev[:, None], c["mm_rc"], c["mm"])
             return other, omm
 
-        a1_w0, a1_st = _take(c1["w0"], se1_idx), _take(strand1, se1_idx)
-        m2_rev = a1_st if same_strand else ~a1_st
-        other2, omm2 = mate_view(c2, m2_rev)
-        r2_score, r2_w0 = rescue(a1_w0, a1_st, c1["lens"], other2,
-                                 c2["lens"], omm2)
-        r2_score = torch.where(se1_ok & (r2_score >= score_min2) & n_ok2,
-                               r2_score, neg)
+        with span("rescue"):
+            a1_w0, a1_st = _take(c1["w0"], se1_idx), _take(strand1, se1_idx)
+            m2_rev = a1_st if same_strand else ~a1_st
+            other2, omm2 = mate_view(c2, m2_rev)
+            r2_score, r2_w0 = rescue(a1_w0, a1_st, c1["lens"], other2,
+                                     c2["lens"], omm2)
+            r2_score = torch.where(se1_ok & (r2_score >= score_min2) & n_ok2,
+                                   r2_score, neg)
 
-        a2_w0, a2_st = _take(c2["w0"], se2_idx), _take(strand2, se2_idx)
-        m1_rev = a2_st if same_strand else ~a2_st
-        other1, omm1 = mate_view(c1, m1_rev)
-        r1_score, r1_w0 = rescue(a2_w0, a2_st, c2["lens"], other1,
-                                 c1["lens"], omm1)
-        r1_score = torch.where(se2_ok & (r1_score >= score_min1) & n_ok1,
-                               r1_score, neg)
+            a2_w0, a2_st = _take(c2["w0"], se2_idx), _take(strand2, se2_idx)
+            m1_rev = a2_st if same_strand else ~a2_st
+            other1, omm1 = mate_view(c1, m1_rev)
+            r1_score, r1_w0 = rescue(a2_w0, a2_st, c2["lens"], other1,
+                                     c1["lens"], omm1)
+            r1_score = torch.where(se2_ok & (r1_score >= score_min1) & n_ok1,
+                                   r1_score, neg)
 
-        resc2 = ~has_pair & se1_ok & (r2_score > half)
-        resc1 = ~has_pair & se2_ok & (r1_score > half) & ~resc2
+            resc2 = ~has_pair & se1_ok & (r2_score > half)
+            resc1 = ~has_pair & se2_ok & (r1_score > half) & ~resc2
 
-        # fold the rescues into the chosen pair
-        i1 = torch.where(resc2, se1_idx, i1)
-        i2 = torch.where(resc1, se2_idx, i2)
-        pair1_w0 = torch.where(resc1, r1_w0, _take(c1["w0"], i1))
-        pair2_w0 = torch.where(resc2, r2_w0, _take(c2["w0"], i2))
-        pair1_strand = torch.where(resc1, m1_rev, _take(strand1, i1))
-        pair2_strand = torch.where(resc2, m2_rev, _take(strand2, i2))
-        pair1_score = torch.where(resc1, r1_score, _take(s1, i1))
-        pair2_score = torch.where(resc2, r2_score, _take(s2, i2))
-        has_pair = has_pair | resc1 | resc2
-        pair_best = torch.where(resc1 | resc2, pair1_score + pair2_score,
-                                pair_best)
+            # fold the rescues into the chosen pair
+            i1 = torch.where(resc2, se1_idx, i1)
+            i2 = torch.where(resc1, se2_idx, i2)
+            pair1_w0 = torch.where(resc1, r1_w0, _take(c1["w0"], i1))
+            pair2_w0 = torch.where(resc2, r2_w0, _take(c2["w0"], i2))
+            pair1_strand = torch.where(resc1, m1_rev, _take(strand1, i1))
+            pair2_strand = torch.where(resc2, m2_rev, _take(strand2, i2))
+            pair1_score = torch.where(resc1, r1_score, _take(s1, i1))
+            pair2_score = torch.where(resc2, r2_score, _take(s2, i2))
+            has_pair = has_pair | resc1 | resc2
+            pair_best = torch.where(resc1 | resc2, pair1_score + pair2_score,
+                                    pair_best)
     else:
         pair1_w0, pair2_w0 = _take(c1["w0"], i1), _take(c2["w0"], i2)
         pair1_strand, pair2_strand = _take(strand1, i1), _take(strand2, i2)
@@ -261,31 +263,34 @@ def align_paired_core(index, genome_words, n_genome: int, reads1, lens1,
     fin2_st = torch.where(has_pair, pair2_strand, _take(strand2, se2_idx))
     fin1_score = torch.where(has_pair, pair1_score, se1_score)
     fin2_score = torch.where(has_pair, pair2_score, se2_score)
-    # pe_full_traceback: the full-matrix mate traceback (K2-WIDE)
-    fin1 = finalize_best(c1, genome_words, n_genome, fin1_w0, fin1_st, P,
-                         full_matrix=P.pe_full_traceback)
-    fin2 = finalize_best(c2, genome_words, n_genome, fin2_w0, fin2_st, P,
-                         full_matrix=P.pe_full_traceback)
-    mapped1 = fin1_score > half
-    mapped2 = fin2_score > half
+    with span("finalize"):
+        # pe_full_traceback: the full-matrix mate traceback (K2-WIDE)
+        fin1 = finalize_best(c1, genome_words, n_genome, fin1_w0, fin1_st, P,
+                             full_matrix=P.pe_full_traceback)
+        fin2 = finalize_best(c2, genome_words, n_genome, fin2_w0, fin2_st, P,
+                             full_matrix=P.pe_full_traceback)
+        mapped1 = fin1_score > half
+        mapped2 = fin2_score > half
 
-    # ---- MAPQ: pairs through the V2 table on pair scores, unpaired mates
-    # against their own second-best
-    pair_min = score_min1 + score_min2
-    mapq_pair = mapq_v2_end_to_end(pair_best, pair_second,
-                                   pair_second >= pair_min, pair_min)
-    same1 = (_absdiff(c1["w0"], fin1_w0[:, None]) <= tol) & \
-        (strand1 == fin1_st[:, None])
-    sec1 = torch.where(same1, neg, s1).max(dim=1).values
-    same2 = (_absdiff(c2["w0"], fin2_w0[:, None]) <= tol) & \
-        (strand2 == fin2_st[:, None])
-    sec2 = torch.where(same2, neg, s2).max(dim=1).values
-    mapq1_se = mapq_v2_end_to_end(fin1_score, sec1, sec1 >= score_min1,
-                                  score_min1)
-    mapq2_se = mapq_v2_end_to_end(fin2_score, sec2, sec2 >= score_min2,
-                                  score_min2)
-    mapq1 = torch.where(has_pair, mapq_pair, torch.where(mapped1, mapq1_se, 0))
-    mapq2 = torch.where(has_pair, mapq_pair, torch.where(mapped2, mapq2_se, 0))
+        # ---- MAPQ: pairs through the V2 table on pair scores, unpaired
+        # mates against their own second-best
+        pair_min = score_min1 + score_min2
+        mapq_pair = mapq_v2_end_to_end(pair_best, pair_second,
+                                       pair_second >= pair_min, pair_min)
+        same1 = (_absdiff(c1["w0"], fin1_w0[:, None]) <= tol) & \
+            (strand1 == fin1_st[:, None])
+        sec1 = torch.where(same1, neg, s1).max(dim=1).values
+        same2 = (_absdiff(c2["w0"], fin2_w0[:, None]) <= tol) & \
+            (strand2 == fin2_st[:, None])
+        sec2 = torch.where(same2, neg, s2).max(dim=1).values
+        mapq1_se = mapq_v2_end_to_end(fin1_score, sec1, sec1 >= score_min1,
+                                      score_min1)
+        mapq2_se = mapq_v2_end_to_end(fin2_score, sec2, sec2 >= score_min2,
+                                      score_min2)
+        mapq1 = torch.where(has_pair, mapq_pair,
+                            torch.where(mapped1, mapq1_se, 0))
+        mapq2 = torch.where(has_pair, mapq_pair,
+                            torch.where(mapped2, mapq2_se, 0))
 
     # discordant: both mates aligned uniquely, just not concordantly
     if P.pe_discordant:
@@ -316,9 +321,11 @@ def dispatch_pair_batch(mapper, batch1, batch2):
     """Enqueue the device work of one pair of ``ReadBatch``es on the
     mapper's device; returns ``align_paired_core``'s tensors
     (asynchronous on CUDA until read)."""
-    return align_paired_core(mapper.index, mapper.genome_words,
-                             mapper.n_genome, *mapper.batch_tensors(batch1),
-                             *mapper.batch_tensors(batch2), mapper.params)
+    with span("dispatch", mapper.next_ordinal()):
+        return align_paired_core(
+            mapper.index, mapper.genome_words, mapper.n_genome,
+            *mapper.batch_tensors(batch1), *mapper.batch_tensors(batch2),
+            mapper.params)
 
 
 def format_pair_batch(mapper, batch1, batch2, res,
@@ -487,19 +494,23 @@ def align_paired_all(index, genome_words, n_genome: int, reads1, lens1,
         return {key: v.reshape((B, K) + v.shape[1:])
                 for key, v in fin.items()}
 
-    mapq = mapq_v2_end_to_end(
-        top_vals[:, 0], torch.where(keep[:, 1], top_vals[:, 1], NEG_INF),
-        keep[:, 1], score_min1 + score_min2)
-    return dict(keep=keep, pair_score=top_vals, mapq=mapq,
-                fin1=fin_mates(c1, pw1, pst1), fin2=fin_mates(c2, pw2, pst2))
+    with span("finalize"):
+        mapq = mapq_v2_end_to_end(
+            top_vals[:, 0], torch.where(keep[:, 1], top_vals[:, 1], NEG_INF),
+            keep[:, 1], score_min1 + score_min2)
+        fin1, fin2 = fin_mates(c1, pw1, pst1), fin_mates(c2, pw2, pst2)
+    return dict(keep=keep, pair_score=top_vals, mapq=mapq, fin1=fin1,
+                fin2=fin2)
 
 
 def dispatch_pair_batch_all(mapper, batch1, batch2):
     """Enqueue the paired-end all-mapping device work of one pair of
     ``ReadBatch``es (``align_paired_all``)."""
-    return align_paired_all(mapper.index, mapper.genome_words,
-                            mapper.n_genome, *mapper.batch_tensors(batch1),
-                            *mapper.batch_tensors(batch2), mapper.params)
+    with span("dispatch", mapper.next_ordinal()):
+        return align_paired_all(
+            mapper.index, mapper.genome_words, mapper.n_genome,
+            *mapper.batch_tensors(batch1), *mapper.batch_tensors(batch2),
+            mapper.params)
 
 
 def format_pair_batch_all(mapper, batch1, batch2, res) -> list[SamRecord]:

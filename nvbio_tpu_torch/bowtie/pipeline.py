@@ -112,6 +112,7 @@ from nvbio_tpu_torch.qgram import (
     stratified_locate_rows,
     stratified_offsets,
 )
+from nvbio_tpu_torch.utils.timers import count, span
 
 # "no position" sentinel: larger than any genome position plus tolerance
 _BIG = torch.iinfo(torch.int64).max
@@ -222,13 +223,15 @@ class HostResult:
 
     tensors: dict
     event: torch.cuda.Event | None = None
+    ordinal: int | None = None
 
     def wait(self) -> dict:
         """The results as numpy arrays, once this batch's copies are done;
         work enqueued after them (the next batch) is not waited for."""
-        if self.event is not None:
-            self.event.synchronize()
-        return {k: v.numpy() for k, v in self.tensors.items()}
+        with span("wait", self.ordinal):
+            if self.event is not None:
+                self.event.synchronize()
+            return {k: v.numpy() for k, v in self.tensors.items()}
 
 
 def _mm_penalties(reads, quals, params: MapParams):
@@ -438,45 +441,17 @@ def fm_seed_hits_1mm(index: FMIndex, seeds):
             (mm_hi - mm_lo).reshape(B, NS, -1) > 0)
 
 
-def read_candidates(index: SeedIndex, genome_words,
-                    n_genome: int, reads, lens, quals, params: MapParams,
-                    seed_phase: int = 0, approx_1mm: bool = False):
-    """Seed + locate + dedup + extension-score candidates for one batch.
-
-    Returns a dict of per-candidate (B, C) tensors (scores, w0, strand,
-    valid) plus the per-read strands and penalty planes. ``seed_phase``
-    shifts the seed grid (reseed passes); ``approx_1mm`` adds the
-    1-mismatch loci (two per seed, by a within-seed vote). A q-gram index
-    (``QGramIndex`` or ``QGroupIndex``) seeds by direct lookup, an
-    ``FMIndex`` by backward search and locate (plus, in the first pass
-    under ``whole_read_exact``, the whole-read exact pass 0). Each seed's
-    hits are its stratified slots, or the SumTree draws of
-    ``_sumtree_select`` under ``select_mode="randomized"``. A placed
-    ``ShardedFMIndex`` or ``ShardedQGramIndex`` seeds through its own
-    branch (module docstring), with collectives over its mesh: every rank
-    of the mesh must make the same calls.
-    """
+def _seed_loci(index: SeedIndex, n_genome: int, reads, rc, lens,
+               params: MapParams, seed_phase: int, approx_1mm: bool):
+    """The seeding stage of ``read_candidates``: the seed grid looked up in
+    the index (backward-searched and located in an FM index), pass 0 and
+    the 1-mismatch loci. Returns (w0, valid) of (B, 2CH) candidate windows,
+    forward strand first, and CH, the candidates of a strand."""
     P = params
-    check_supported(P)
-    want = ((FMIndex, ShardedFMIndex) if P.seeding == "fmi"
-            else (QGramIndex, QGroupIndex, ShardedQGramIndex))
-    if not isinstance(index, want):
-        raise TypeError(f"seeding={P.seeding!r} needs a "
-                        f"{' or '.join(w.__name__ for w in want)}, "
-                        f"not a {type(index).__name__}")
     dev = reads.device
-    B, L = reads.shape
+    B = reads.shape[0]
     S1 = P.seeds_per_strand
     H = P.hits_per_seed
-    W = P.band
-    TW = L + W - 1
-    reads = reads.to(torch.int32)
-    lens = lens.to(torch.int32)
-
-    rc = reverse_strand(reads, lens)
-    pen = _mm_penalties(reads, quals, P)
-    mm = None if pen is None else -pen
-    mm_rc = None if pen is None else -packed.reverse_rows(pen, lens)
     starts, seeds, seed_valid2 = seed_grid(reads, rc, lens, P, seed_phase)
     randomized = P.select_mode == "randomized"
     sel_off = None   # (B, 2S1, H) read offset of each randomized draw's seed
@@ -586,39 +561,95 @@ def read_candidates(index: SeedIndex, genome_words,
     CH = S1 * H
     w0 = w0.reshape(B, 2 * CH)
     cand_valid_all = hit_valid.reshape(B, 2 * CH)
+    return w0, cand_valid_all, CH
+
+
+def read_candidates(index: SeedIndex, genome_words,
+                    n_genome: int, reads, lens, quals, params: MapParams,
+                    seed_phase: int = 0, approx_1mm: bool = False):
+    """Seed + locate + dedup + extension-score candidates for one batch.
+
+    Returns a dict of per-candidate (B, C) tensors (scores, w0, strand,
+    valid) plus the per-read strands and penalty planes. ``seed_phase``
+    shifts the seed grid (reseed passes); ``approx_1mm`` adds the
+    1-mismatch loci (two per seed, by a within-seed vote). A q-gram index
+    (``QGramIndex`` or ``QGroupIndex``) seeds by direct lookup, an
+    ``FMIndex`` by backward search and locate (plus, in the first pass
+    under ``whole_read_exact``, the whole-read exact pass 0). Each seed's
+    hits are its stratified slots, or the SumTree draws of
+    ``_sumtree_select`` under ``select_mode="randomized"``. A placed
+    ``ShardedFMIndex`` or ``ShardedQGramIndex`` seeds through its own
+    branch (module docstring), with collectives over its mesh: every rank
+    of the mesh must make the same calls.
+    """
+    P = params
+    check_supported(P)
+    want = ((FMIndex, ShardedFMIndex) if P.seeding == "fmi"
+            else (QGramIndex, QGroupIndex, ShardedQGramIndex))
+    if not isinstance(index, want):
+        raise TypeError(f"seeding={P.seeding!r} needs a "
+                        f"{' or '.join(w.__name__ for w in want)}, "
+                        f"not a {type(index).__name__}")
+    dev = reads.device
+    B, L = reads.shape
+    W = P.band
+    TW = L + W - 1
+    reads = reads.to(torch.int32)
+    lens = lens.to(torch.int32)
+
+    rc = reverse_strand(reads, lens)
+    pen = _mm_penalties(reads, quals, P)
+    mm = None if pen is None else -pen
+    mm_rc = None if pen is None else -packed.reverse_rows(pen, lens)
+    with span("seed"):
+        w0, cand_valid_all, CH = _seed_loci(index, n_genome, reads, rc,
+                                            lens, P, seed_phase,
+                                            approx_1mm)
 
     # ---- dedup to unique loci per strand (evidence-ranked) -----------------
     NCH = min(P.nch, CH)
     tol = 2 * P.max_dist
-    w0f, validf = _vote_reps(w0[:, :CH], cand_valid_all[:, :CH], tol, NCH)
-    w0r, validr = _vote_reps(w0[:, CH:], cand_valid_all[:, CH:], tol, NCH)
+    with span("vote"):
+        w0f, validf = _vote_reps(w0[:, :CH], cand_valid_all[:, :CH], tol,
+                                 NCH)
+        w0r, validr = _vote_reps(w0[:, CH:], cand_valid_all[:, CH:], tol,
+                                 NCH)
     C = 2 * NCH
     w0 = torch.cat([w0f, w0r], dim=1).contiguous()           # (B, C) int64
     cand_valid = torch.cat([validf, validr], dim=1)
     cand_strand = (torch.arange(C, device=dev) >= NCH)[None, :].expand(B, C)
+    # of the B x C slots that the scorer below fills, those that hold a
+    # candidate
+    count("cand_valid", cand_valid)
+    count("cand_slots", B * C)
 
     # ---- extension scoring -------------------------------------------------
     wlens = (n_genome - w0).clamp(min=0, max=TW).to(torch.int32)
     local = P.mode == "local"
-    if use_pallas_extension(P):
-        # local mode: the JAX kernel path's local branch scores B*C
-        # extracted windows with its flat LOCAL scorer; the same function,
-        # read from the packed genome
-        sc, _ = banded_score_cands(reads.contiguous(), rc.contiguous(), lens,
-                                   w0, wlens, genome_words, P.scoring, W, NCH,
-                                   mm, mm_rc, local=local)
-    else:
-        # the scan route: the library's banded scorer over the B*C windows
-        # (the JAX package's batch_score_banded, pipeline.py:573-587)
-        flip = cand_strand[:, :, None]
-        pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
-        mm_flat = None if mm is None else torch.where(
-            flip, mm_rc[:, None, :], mm[:, None, :]).reshape(B * C, L)
-        aligner = GotohAligner(LOCAL if local else SEMI_GLOBAL, P.scoring)
-        sc = batch_score_banded(
-            pats.reshape(B * C, L), lens[:, None].expand(B, C).reshape(B * C),
-            packed.extract_window(genome_words, w0.reshape(B * C), TW, 2),
-            wlens.reshape(B * C), aligner, W, mm_flat).score.reshape(B, C)
+    with span("extend"):
+        if use_pallas_extension(P):
+            # local mode: the JAX kernel path's local branch scores B*C
+            # extracted windows with its flat LOCAL scorer; the same
+            # function, read from the packed genome
+            sc, _ = banded_score_cands(
+                reads.contiguous(), rc.contiguous(), lens, w0, wlens,
+                genome_words, P.scoring, W, NCH, mm, mm_rc, local=local)
+        else:
+            # the scan route: the library's banded scorer over the B*C
+            # windows (the JAX package's batch_score_banded,
+            # pipeline.py:573-587)
+            flip = cand_strand[:, :, None]
+            pats = torch.where(flip, rc[:, None, :], reads[:, None, :])
+            mm_flat = None if mm is None else torch.where(
+                flip, mm_rc[:, None, :], mm[:, None, :]).reshape(B * C, L)
+            aligner = GotohAligner(LOCAL if local else SEMI_GLOBAL,
+                                   P.scoring)
+            sc = batch_score_banded(
+                pats.reshape(B * C, L),
+                lens[:, None].expand(B, C).reshape(B * C),
+                packed.extract_window(genome_words, w0.reshape(B * C), TW,
+                                      2),
+                wlens.reshape(B * C), aligner, W, mm_flat).score.reshape(B, C)
     scores = torch.where(cand_valid, sc, NEG_INF)
 
     return dict(scores=scores, w0=w0, strand=cand_strand, valid=cand_valid,
@@ -750,54 +781,58 @@ def align_batch_core(index: SeedIndex, genome_words,
         tol = 2 * P.max_dist
         B2 = max(8, min(B, int(round(B * P.reseed_frac / 8)) * 8))
         for p in range(1, P.max_reseed + 1):
-            phase = (p * P.seed_stride) // (P.max_reseed + 1)
-            needs = (best_score < score_min) & (lens >= P.seed_len)
-            reseed_overflow = torch.maximum(
-                reseed_overflow,
-                (needs.sum(dtype=torch.int32) - B2).clamp(min=0)[None])
-            order = torch.argsort(torch.where(needs, 0, 1).to(torch.int32),
-                                  stable=True)
-            sel = order[:B2]
-            c2 = read_candidates(
-                index, genome_words, n_genome, cands["reads"][sel],
-                lens[sel], quals[sel], P, seed_phase=phase,
-                approx_1mm=P.seeding_1mm)
-            bs2, bp2, bstr2, sec2 = _reduce_best2(c2, P)
-            old_b, old_p = best_score[sel], best_pos[sel]
-            old_st, old_sec = best_strand[sel], second_score[sel]
-            sm2, sub_needs = score_min[sel], needs[sel]
-            improved = (bs2 > old_b) & sub_needs
-            diff_locus = (_absdiff(bp2, old_p) > tol) | (bstr2 != old_st)
-            # the displaced old best becomes a distinct-locus second
-            new_sec = torch.maximum(sec2, torch.where(diff_locus, old_b,
-                                                      old_sec))
-            # a non-improving distinct hit still informs the second-best
-            sec_keep = torch.maximum(
-                old_sec, torch.where(diff_locus & (bs2 >= sm2), bs2,
-                                     NEG_INF))
-            best_score = best_score.clone()
-            best_pos = best_pos.clone()
-            best_strand = best_strand.clone()
-            second_score = second_score.clone()
-            best_score[sel] = torch.where(improved, bs2, old_b)
-            best_pos[sel] = torch.where(improved, bp2, old_p)
-            best_strand[sel] = torch.where(improved, bstr2, old_st)
-            second_score[sel] = torch.where(
-                improved, new_sec, torch.where(sub_needs, sec_keep, old_sec))
+            with span("reseed"):
+                phase = (p * P.seed_stride) // (P.max_reseed + 1)
+                needs = (best_score < score_min) & (lens >= P.seed_len)
+                n_needs = needs.sum(dtype=torch.int32)
+                count("reseed_needed", n_needs)
+                count("reseed_rows", B2)
+                reseed_overflow = torch.maximum(
+                    reseed_overflow, (n_needs - B2).clamp(min=0)[None])
+                order = torch.argsort(torch.where(needs, 0, 1).to(
+                    torch.int32), stable=True)
+                sel = order[:B2]
+                c2 = read_candidates(
+                    index, genome_words, n_genome, cands["reads"][sel],
+                    lens[sel], quals[sel], P, seed_phase=phase,
+                    approx_1mm=P.seeding_1mm)
+                bs2, bp2, bstr2, sec2 = _reduce_best2(c2, P)
+                old_b, old_p = best_score[sel], best_pos[sel]
+                old_st, old_sec = best_strand[sel], second_score[sel]
+                sm2, sub_needs = score_min[sel], needs[sel]
+                improved = (bs2 > old_b) & sub_needs
+                diff_locus = (_absdiff(bp2, old_p) > tol) | (bstr2 != old_st)
+                # the displaced old best becomes a distinct-locus second
+                new_sec = torch.maximum(
+                    sec2, torch.where(diff_locus, old_b, old_sec))
+                # a non-improving distinct hit still informs the second-best
+                sec_keep = torch.maximum(
+                    old_sec, torch.where(diff_locus & (bs2 >= sm2), bs2,
+                                         NEG_INF))
+                best_score = best_score.clone()
+                best_pos = best_pos.clone()
+                best_strand = best_strand.clone()
+                second_score = second_score.clone()
+                best_score[sel] = torch.where(improved, bs2, old_b)
+                best_pos[sel] = torch.where(improved, bp2, old_p)
+                best_strand[sel] = torch.where(improved, bstr2, old_st)
+                second_score[sel] = torch.where(
+                    improved, new_sec,
+                    torch.where(sub_needs, sec_keep, old_sec))
 
-    fin = finalize_best(cands, genome_words, n_genome, best_pos, best_strand,
-                        P)
-
-    mapped = (best_score >= score_min) & (lens >= P.seed_len) & \
-        n_ceil_of(reads, lens, P)
-    has_second = second_score >= score_min
-    if P.mode == "local":
-        mapq = mapq_v2_local(best_score, second_score, has_second, score_min,
-                             P.scoring.match * lens)
-    else:
-        mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
-                                  score_min)
-    mapq = torch.where(mapped, mapq, 0)
+    with span("finalize"):
+        fin = finalize_best(cands, genome_words, n_genome, best_pos,
+                            best_strand, P)
+        mapped = (best_score >= score_min) & (lens >= P.seed_len) & \
+            n_ceil_of(reads, lens, P)
+        has_second = second_score >= score_min
+        if P.mode == "local":
+            mapq = mapq_v2_local(best_score, second_score, has_second,
+                                 score_min, P.scoring.match * lens)
+        else:
+            mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
+                                      score_min)
+        mapq = torch.where(mapped, mapq, 0)
     out = dict(mapped=mapped, best_score=best_score,
                second_score=second_score, has_second=has_second,
                reseed_overflow=reseed_overflow, mapq=mapq)
@@ -836,26 +871,27 @@ def align_batch_all(index: SeedIndex, genome_words,
     is_best = torch.arange(C, device=scores.device)[None, :] == \
         best_idx[:, None]
 
-    # every candidate flattened into one traceback batch, read-major
-    w0f = w0.reshape(B * C)
-    btext = packed.extract_window(genome_words, w0f, TW, 2)
-    btlen = (n_genome - w0f).clamp(min=0, max=TW).to(torch.int32)
-    strand = cands["strand"].expand(B, C)
-    flip = strand.reshape(B * C)[:, None]
-    bpat = torch.where(flip, rc.repeat_interleave(C, dim=0),
-                       reads.repeat_interleave(C, dim=0))
-    blens = lens.repeat_interleave(C)
-    bmm = None if mm is None else torch.where(
-        flip, mm_rc.repeat_interleave(C, dim=0),
-        mm.repeat_interleave(C, dim=0))
-    tb, nm = _traceback(bpat, blens, btext, btlen, P, bmm, W, local=False)
-    simple = (tb.n_ops == blens) & ((tb.text_end - tb.text_start) == blens)
+    with span("finalize"):
+        # every candidate flattened into one traceback batch, read-major
+        w0f = w0.reshape(B * C)
+        btext = packed.extract_window(genome_words, w0f, TW, 2)
+        btlen = (n_genome - w0f).clamp(min=0, max=TW).to(torch.int32)
+        strand = cands["strand"].expand(B, C)
+        flip = strand.reshape(B * C)[:, None]
+        bpat = torch.where(flip, rc.repeat_interleave(C, dim=0),
+                           reads.repeat_interleave(C, dim=0))
+        blens = lens.repeat_interleave(C)
+        bmm = None if mm is None else torch.where(
+            flip, mm_rc.repeat_interleave(C, dim=0),
+            mm.repeat_interleave(C, dim=0))
+        tb, nm = _traceback(bpat, blens, btext, btlen, P, bmm, W, local=False)
+        simple = (tb.n_ops == blens) & ((tb.text_end - tb.text_start) == blens)
 
-    # the primary's MAPQ: the best-only reduce
-    best_score, best_pos, best_strand, second_score = _reduce_best2(cands, P)
-    has_second = second_score >= score_min
-    mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
-                              score_min)
+        # the primary's MAPQ: the best-only reduce
+        best_score, _, _, second_score = _reduce_best2(cands, P)
+        has_second = second_score >= score_min
+        mapq = mapq_v2_end_to_end(best_score, second_score, has_second,
+                                  score_min)
     return dict(
         keep=keep, is_best=is_best, scores=scores, strand=strand,
         window_start=w0, text_start=tb.text_start.reshape(B, C),
@@ -876,6 +912,10 @@ class ReadMapper:
     ref_offsets: np.ndarray
     params: MapParams
     device: torch.device
+    # batches dispatched: the ordinal of a batch's dispatch, fetch and wait
+    # spans
+    dispatched: int = dataclasses.field(default=0, repr=False,
+                                        compare=False)
 
     @classmethod
     def build(cls, reference, params: MapParams = MapParams(), index=None,
@@ -921,21 +961,36 @@ class ReadMapper:
         ci = np.searchsorted(self.ref_offsets, gpos, side="right") - 1
         return ci, gpos - self.ref_offsets[np.clip(ci, 0, None)]
 
+    def next_ordinal(self) -> int:
+        """The ordinal of the batch about to be dispatched."""
+        self.dispatched += 1
+        return self.dispatched - 1
+
     def batch_tensors(self, batch):
         """(codes, lengths, quals) of a ``ReadBatch`` as int32 tensors on
-        the mapper's device."""
+        the mapper's device.
+
+        On CUDA each copy is from pageable host memory: a
+        ``cudaMemcpyAsync`` that CUDA stages behind the stream's earlier
+        work, then a ``cudaStreamSynchronize``. So the host waits
+        here until the batch dispatched before it is done (``map`` and the
+        benchmark dispatch batch i+1 before they wait on batch i): 35.9 ms
+        (q-gram seeding) and 38.9 ms (FM) of host time for a batch of 2^18
+        150-base reads on an H100, the card idle 3.5-10.3 ms of it."""
         def t(a, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
                 self.device).to(torch.int32)
 
-        return t(batch.codes), t(batch.lengths, np.int32), t(batch.quals)
+        with span("upload"):
+            return t(batch.codes), t(batch.lengths, np.int32), t(batch.quals)
 
     def dispatch(self, batch) -> dict:
         """Enqueue the device work of one ``ReadBatch``; returns device
         tensors (asynchronous on CUDA until read)."""
-        return align_batch_core(self.index, self.genome_words,
-                                self.n_genome, *self.batch_tensors(batch),
-                                self.params)
+        with span("dispatch", self.next_ordinal()):
+            return align_batch_core(self.index, self.genome_words,
+                                    self.n_genome,
+                                    *self.batch_tensors(batch), self.params)
 
     def map_batch(self, batch) -> list[SamRecord]:
         """Map a ReadBatch -> SAM records (host-side formatting)."""
@@ -944,8 +999,10 @@ class ReadMapper:
     def dispatch_all(self, batch) -> dict:
         """Enqueue the all-mapping device work of one ``ReadBatch``
         (``align_batch_all``)."""
-        return align_batch_all(self.index, self.genome_words, self.n_genome,
-                               *self.batch_tensors(batch), self.params)
+        with span("dispatch", self.next_ordinal()):
+            return align_batch_all(self.index, self.genome_words,
+                                   self.n_genome, *self.batch_tensors(batch),
+                                   self.params)
 
     def map_batch_all(self, batch) -> list[SamRecord]:
         """All-mapping: every above-threshold locus of each read, the
@@ -1012,16 +1069,20 @@ class ReadMapper:
         would wait for that batch's kernels too, so the copies go in now,
         each into a fresh pinned buffer (the caching host allocator reuses
         a block only once its copy has completed and nothing holds it),
-        followed by one event. On the CPU nothing is copied."""
-        if self.device.type == "cpu":
-            return HostResult(dict(res))
-        host = {}
-        for k, v in res.items():
-            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            host[k].copy_(v, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return HostResult(host, event)
+        followed by one event. On the CPU nothing is copied. The result
+        carries the ordinal of the batch dispatched last."""
+        ordinal = self.dispatched - 1
+        with span("fetch", ordinal):
+            if self.device.type == "cpu":
+                return HostResult(dict(res), ordinal=ordinal)
+            host = {}
+            for k, v in res.items():
+                host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                      pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return HostResult(host, event, ordinal)
 
     def format_batch(self, batch, res) -> list[SamRecord]:
         ops_dev = res["ops"]  # fetched below only for rows that need it
