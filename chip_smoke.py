@@ -377,9 +377,11 @@ def ptxas_entries(log: str) -> dict:
         m = re.search(r"entry function '(\S+)'", ln)
         if m:
             nm = re.search(r"\d([A-Za-z_]+_kernel)I(.*?)EEv", m.group(1))
+            plain = re.search(r"\d([A-Za-z_]+_kernel)E", m.group(1))
             entry = (f"{nm.group(1)}<"
                      f"{','.join(re.findall(r'L[ib](\d+)', nm.group(2)))}>"
-                     if nm else m.group(1)[:40])
+                     if nm else plain.group(1) if plain
+                     else m.group(1)[:40])
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -1194,6 +1196,11 @@ def read_batch(genome, seed):
 
 
 SE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
+# an FM-seeded single-end batch adds the FM walks' kernels: backward search
+# for pass 1's seeds, pass 0 and the reseed grid's seeds, locate for their
+# hits and the 1-mismatch loci, one top-K search
+FM_SE_LAUNCHES = {**SE_LAUNCHES, "fm_backward_search": 3, "fm_locate": 4,
+                  "fm_search_1mm_topk": 1}
 
 
 def phase_main_path(genome, ref, index, params, card, label="main",
@@ -1293,7 +1300,8 @@ def wrappers():
     return (K.banded_score_cands, K.banded_traceback, K.banded_score,
             K.myers_semiglobal, K.banded_traceback_wide,
             K.regtile_score_blocked, K.banded_score_windows,
-            K.myers_semiglobal_windows)
+            K.myers_semiglobal_windows, K.fm_backward_search, K.fm_locate,
+            K.fm_search_1mm_topk)
 
 
 def reset_launches():
@@ -1343,6 +1351,9 @@ def placed(rec, start, rc, max_dist) -> bool:
 # their packed-window entries, one per mate each), K2 per mate
 PE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 2,
                "banded_score_windows": 2, "myers_semiglobal_windows": 2}
+# FM-seeded pairs add each mate's seed and pass-0 searches and locates (no
+# reseed pass)
+FM_PE_LAUNCHES = {**PE_LAUNCHES, "fm_backward_search": 4, "fm_locate": 4}
 
 
 def phase_paired(genome, mapper, card, label="paired",
@@ -2101,7 +2112,7 @@ def phase_randomized(genome, ref, index, fm_gpu, fm_cpu, params, card):
         n_batches=1, seed=SEED + 1700)
     mf, bf, launches["randomized_fmi"], out["fmi"] = phase_main_path(
         genome, ref, fm_gpu, fp, card, label="randomized-fmi", n_batches=1,
-        seed=SEED + 1800)
+        seed=SEED + 1800, per_batch=FM_SE_LAUNCHES)
     pair0, launches["randomized_paired"], out["paired"] = phase_paired(
         genome, mq, card, label="randomized-paired", n_batches=1,
         seed=SEED + 1900)
@@ -2125,9 +2136,9 @@ def phase_randomized(genome, ref, index, fm_gpu, fm_cpu, params, card):
     return out, launches
 
 
-def device_ops(fn) -> tuple[int, float]:
-    """(device ops, device busy ms) of one call of ``fn`` (torch.profiler,
-    after a warm-up call)."""
+def device_op_rows(fn) -> list:
+    """``device_rows`` of one call of ``fn`` (torch.profiler, after a
+    warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2136,7 +2147,12 @@ def device_ops(fn) -> tuple[int, float]:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = device_rows(prof)
+    return device_rows(prof)
+
+
+def device_ops(fn) -> tuple[int, float]:
+    """(device ops, device busy ms) of one call of ``fn``."""
+    rows = device_op_rows(fn)
     return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
 
 
@@ -2271,6 +2287,153 @@ def phase_fmi_search(genome, cpu_index, gpu_index, params, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [fm-kernels]: the FM walks' CUDA kernels (csrc/fm_search.cu) against their
+# plain torch versions on the card, at the shapes of the benchmark's
+# fmi-se150 batch (2^18 reads of 150 bases, 2% substitutions) and of a mem
+# batch
+# ---------------------------------------------------------------------------
+
+FM_K_READS = 1 << 18        # reads a batch
+FM_K_RL = 150               # read length
+FM_K_RESEED = 32768         # the reseed pass's queue (B/8)
+FM_K_MEM_ROWS = 1024 * 2 * 16 * 4   # mem: reads x strands x SMEMs x hits
+FM_K_MEM_SEEDS = 2048       # seeds of a mem-sized search
+FM_K_HITS = 4               # rows located a seed (bowtie2's default)
+
+
+def fm_steps_of(fn) -> tuple[int, int]:
+    """(fm_steps, fm_steps_fixed) of one call of ``fn``: the steps its
+    lanes took in the kernels and the plain loops' trip counts, from the
+    counters a CPU profiler switches on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvbio_tpu_torch.utils import timers
+
+    timers.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    got = timers.counters()
+    timers.reset_counters()
+    return got.get("fm_steps", 0), got.get("fm_steps_fixed", 0)
+
+
+def phase_fm_kernels(genome, gpu_index, params, card, regs) -> dict:
+    """[fm-kernels]: each FM walk's kernel against its plain version on the
+    card, bit for bit on every output, at the main path's shapes: pass 1's
+    seeds (2^18 x 18 of 22, the k = 11 table's start), the located hits
+    (4 stratified rows a seed), pass 0 (2^19 strands of 150), the reseed
+    queue's 1-mismatch top-K search (32768 x 18 seeds, A = 11, K = 8) and a
+    mem batch's locate and a mem-sized search. CUDA-event medians of 7 for
+    both, launches a call, the steps the lanes took against the plain
+    loops' (``fm_step_pct``), ptxas's registers and spills, and a bytes
+    bound: at least one 32-byte sector a step (lo and hi in one block) for
+    a search, an SSA sector a step and a rank sector a step not at a mark
+    for a locate, plus inputs and outputs (whole query rows), over the HBM
+    rate. It assumes every sector comes from HBM; the L2's share is not
+    measured, so it is no floor on the kernel's time."""
+    from nvbio_tpu_torch.align import kernels as K
+    from nvbio_tpu_torch.bowtie.pipeline import reverse_strand, seed_grid
+    from nvbio_tpu_torch.fmi import search as S
+    from nvbio_tpu_torch.qgram import stratified_offsets
+
+    from nvbio_tpu_torch.utils.simgenome import sample_reads
+
+    P = dataclasses.replace(params, max_read_len=FM_K_RL,
+                            hits_per_seed=FM_K_HITS)
+    codes, _, _ = sample_reads(genome, FM_K_READS, FM_K_RL, seed=SEED + 2100,
+                               subst_rate=0.02)
+    reads = torch.from_numpy(codes).cuda()
+    lens = torch.full((FM_K_READS,), FM_K_RL, dtype=torch.int32,
+                      device="cuda")
+    rc = reverse_strand(reads, lens)
+    _, seeds, _ = seed_grid(reads, rc, lens, P)
+    NS, slen = seeds.shape[1], P.seed_len
+    seeds_q = seeds.reshape(-1, slen)
+    seeds_l = torch.full((seeds_q.shape[0],), slen, dtype=torch.int64,
+                         device="cuda")
+    lo, hi = S.backward_search_core(gpu_index, seeds_q, seeds_l)
+    rs = (hi - lo).clamp(min=0).reshape(FM_K_READS, NS)
+    rows = (lo.reshape(FM_K_READS, NS, 1) + stratified_offsets(
+        rs, P.hits_per_seed, NS)).clamp(0, gpu_index.n).reshape(-1)
+    q2 = torch.cat([reads.clamp(max=3), rc.clamp(max=3)])
+    l2 = torch.cat([lens, lens])
+    phase = P.seed_stride // (P.max_reseed + 1)
+    _, seeds2, _ = seed_grid(reads[:FM_K_RESEED], rc[:FM_K_RESEED],
+                             lens[:FM_K_RESEED], P, phase)
+    r_q = seeds2.reshape(-1, slen)
+    r_l = torch.full((r_q.shape[0],), slen, dtype=torch.int64, device="cuda")
+    A = (slen + 1) // 2
+    mem_q, mem_l = seeds_q[:FM_K_MEM_SEEDS], seeds_l[:FM_K_MEM_SEEDS]
+    mem_rows = rows[:FM_K_MEM_ROWS]
+    topk_kw = dict(n_approx=A, K=8)
+    entries = {
+        "backward_search seeds": (S.backward_search_core,
+                                  S.backward_search_core_plain,
+                                  (seeds_q, seeds_l), {}),
+        "locate hits": (S.locate_core, S.locate_core_plain, (rows,), {}),
+        "backward_search pass0": (S.backward_search_core,
+                                  S.backward_search_core_plain, (q2, l2),
+                                  {}),
+        "search_1mm_hybrid_topk reseed": (
+            S.search_1mm_hybrid_topk, S.search_1mm_hybrid_topk_plain,
+            (r_q, r_l), topk_kw),
+        "locate mem": (S.locate_core, S.locate_core_plain, (mem_rows,), {}),
+        "backward_search mem": (S.backward_search_core,
+                                S.backward_search_core_plain,
+                                (mem_q, mem_l), {}),
+    }
+    out = {}
+    for name, (kern, plain, args, kw) in entries.items():
+        def run(fn=kern, args=args, kw=kw):
+            return fn(gpu_index, *args, **kw)
+
+        launcher = {S.backward_search_core: K.fm_backward_search,
+                    S.locate_core: K.fm_locate,
+                    S.search_1mm_hybrid_topk: K.fm_search_1mm_topk}[kern]
+        n0 = launcher.launches
+        got = run()
+        launches = launcher.launches - n0
+        want = plain(gpu_index, *args, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        require(same, f"fm-kernels: {name}: kernel and plain version differ")
+        require(launches == 1, f"fm-kernels: {name}: {launches} launches")
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(lambda: plain(gpu_index, *args, **kw), warm=False)
+        op_rows = device_op_rows(run)
+        ops = sum(r[1] for r in op_rows)
+        names = [r[2][:40] for r in op_rows]
+        steps, fixed = fm_steps_of(run)
+        lanes = args[0].shape[0]
+        io = sum(a.numel() * a.element_size() for a in args) + sum(
+            t.numel() * t.element_size() for t in got)
+        # a locate reads an SSA row each step, a rank row each step not at
+        # a mark and a sampled value each resolved lane: 2 a step
+        sectors = 2 * steps if kern is S.locate_core else steps
+        nbytes = sectors * RANK_ROW_BYTES + io
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        inst = {S.backward_search_core: "backward_search_kernel",
+                S.locate_core: "locate_kernel",
+                S.search_1mm_hybrid_topk: "topk_kernel"}[kern]
+        r, spill = regs.get(inst, (None, None))
+        out[name] = dict(lanes=lanes, ms=ms, plain_ms=plain_ms,
+                         registers=r, spill_bytes=spill,
+                         device_ops=ops, launches=launches, steps=steps,
+                         steps_fixed=fixed,
+                         step_pct=100.0 * steps / max(fixed, 1),
+                         bound_ms=bound, bound_bytes=nbytes, equal=same)
+        print(f"[fm-kernels] {name}: {lanes} lanes, kernel {ms:.3f} ms "
+              f"({ops} device ops, {launches} launch), plain {plain_ms:.3f} "
+              f"ms; equal bit for bit; steps {steps} of the plain loops' "
+              f"{fixed} ({100.0 * steps / max(fixed, 1):.2f}%); bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{100.0 * bound / ms:.1f}% of the kernel's time); {inst}: "
+              f"{r} regs, {spill} B spill; ops {names}; card {card}",
+              flush=True)
+    return out
+
+
 def fm_stage(mapper, batch):
     """The FM seeding work of one single-end batch, alone: seeds of both
     strands searched and H rows each located, pass 0 (whole reads), and
@@ -2307,12 +2470,13 @@ def fm_stage(mapper, batch):
 def phase_fmi(genome, ref, gpu_index, params, card):
     """[fmi]: N_BATCHES_FM batches of B single-end reads, FM-seeded (the
     card index with its k-mer table), through phase_main_path (K1 x2, K2 x1
-    a batch, sensitivity >= 0.95); one batch profiled, and its FM stage
+    and the FM walks' launches of FM_SE_LAUNCHES a batch, sensitivity >=
+    0.95); one batch profiled, and its FM stage
     alone: ms, device ops, device busy and its share of the batch's, peak
     device memory."""
     mapper, batch0, launches, stats = phase_main_path(
         genome, ref, gpu_index, params, card, label="fmi",
-        n_batches=N_BATCHES_FM, seed=SEED + 1400)
+        n_batches=N_BATCHES_FM, seed=SEED + 1400, per_batch=FM_SE_LAUNCHES)
     stats["profile"] = phase_profile("fmi", lambda: mapper.dispatch(batch0))
     stage = fm_stage(mapper, batch0)
     ms = cuda_ms(stage)
@@ -2393,9 +2557,10 @@ def stage_seconds(log: str) -> dict:
             re.findall(r"\] (\S+)\s+([\d.]+)s\s+(\d+) calls", log)}
 
 
-def cli_launches(path, got, per_batch, n_batches):
-    """A run's launches: the gauge probe's plus ``per_batch`` a batch."""
-    want = {k: PROBE_LAUNCHES.get(k, 0) + per_batch.get(k, 0) * n_batches
+def cli_launches(path, got, per_batch, n_batches, probe=PROBE_LAUNCHES):
+    """A run's launches: the gauge probe's (``probe``) plus ``per_batch`` a
+    batch."""
+    want = {k: probe.get(k, 0) + per_batch.get(k, 0) * n_batches
             for k in got}
     require(got == want, f"{path}: launches {got}, expected {want}")
 
@@ -2626,8 +2791,9 @@ def phase_cli(genome, mapper, card):
                            p(f"fmi_{run}.sam"), *CLI_FLAGS, "--batch",
                            str(N_CMP), *dev_args])
         if run == "card":
-            cli_launches("cli fmi", read_launches(),
-                         {"banded_score_cands": 2, "banded_traceback": 1}, 1)
+            # the probe's zero-length reads take the FM walks too
+            cli_launches("cli fmi", read_launches(), FM_SE_LAUNCHES, 1,
+                         probe=FM_SE_LAUNCHES)
         with open(p(f"fmi_{run}.sam")) as f:
             fm[run] = ([ln for ln in f if not ln.startswith("@PG")], secs)
     (g, g_s), (c, c_s) = fm["card"], fm["host"]
@@ -2982,8 +3148,8 @@ def phase_mem(genome, rep_genome, card, regs):
                for i in range(N_MEM_BATCHES)]
     out, t_dev, t_fmt, wall, launches = run_batches(
         mapper.dispatch, mapper.format_batch, [(b,) for b, *_ in batches])
-    require_launches("mem", launches, {"banded_traceback": 1},
-                     N_MEM_BATCHES)
+    require_launches("mem", launches,
+                     {"banded_traceback": 1, "fm_locate": 1}, N_MEM_BATCHES)
     n = ok = tailed_n = clipped = 0
     for recs, (_, starts, is_rc, tailed) in zip(out, batches):
         prim = [r for r in recs if not r.flag & 0x100]
@@ -3372,8 +3538,9 @@ def phase_cli_apps(genome, card) -> dict:
     secs, _ = run_cli([p("m.fa"), p("m.fq"), "-o", p("m.bam"),
                        *CLI_GPU_ARGS], "mem")
     got = read_launches()
-    require(got == {k: int(k == "banded_traceback") for k in got},
-            f"cli mem: launches {got}, expected one K2-LOCAL")
+    require(got == {k: int(k in ("banded_traceback", "fm_locate"))
+                    for k in got},
+            f"cli mem: launches {got}, expected one K2-LOCAL and one locate")
     _, recs = read_bam(p("m.bam"))
     prim = [r for r in recs if not int(r[1]) & 0x100]
     ok = sum(not int(r[1]) & 4 and bool(int(r[1]) & 0x10) == bool(
@@ -4281,13 +4448,17 @@ def dist_legs(mesh, genome, ref, index, fm_index, params, fm_params, card,
                            base_fm.index)}
     batch = read_batch(genome, SEED + 1900 + rank)[0]
     tens = base.batch_tensors(batch)
-    for name, sidx, prm, ref_mapper in (("qgram", sq, params, base),
-                                        ("fmi", sf, fm_params, base_fm)):
+    # the sliced FM index's reseed pass runs the dense search_1mm: two
+    # backward searches and a locate, and no top-K search
+    sharded_fm = {**SE_LAUNCHES, "fm_backward_search": 5, "fm_locate": 4}
+    for name, sidx, prm, ref_mapper, per_batch in (
+            ("qgram", sq, params, base, SE_LAUNCHES),
+            ("fmi", sf, fm_params, base_fm, sharded_fm)):
         step = sharded_align_step(mesh, prm, index_sharded=True)
         _, recs, st = dist_step(
             mesh, f"se-sharded-{name}",
             lambda: step(sidx, base.genome_words, base.n_genome, *tens)[0],
-            lambda res: base.format_batch(batch, res), SE_LAUNCHES, card, B)
+            lambda res: base.format_batch(batch, res), per_batch, card, B)
         want = ref_mapper.map_batch(batch)
         second = unmapped_names(first[name].map_batch(batch))
         differ = {a.qname for a, b in zip(recs, want) if a.line() != b.line()}
@@ -4731,6 +4902,9 @@ def main() -> int:
     fm_cpu, fm_gpu, fm_build = build_fm(genome)
     stamp("fmi_search")
     fm_search = phase_fmi_search(genome, fm_cpu, fm_gpu, fm_params, card)
+    stamp("fm_kernels")
+    fm_search["kernels"] = phase_fm_kernels(genome, fm_gpu, fm_params, card,
+                                            regs)
     stamp("fmi")
     gpu_fm, fm_batch0, fm_launches, fm_stats = phase_fmi(
         genome, ref, fm_gpu, fm_params, card)
@@ -4738,7 +4912,7 @@ def main() -> int:
     stamp("paired-fmi")
     pfm0, pfm_launches, pfm_stats = phase_paired(
         genome, gpu_fm, card, label="paired-fmi", n_batches=1,
-        seed=SEED + 1500)
+        seed=SEED + 1500, per_batch=FM_PE_LAUNCHES)
 
     # index construction on the card beyond the uniform genome's, and
     # randomized hit selection on three paths

@@ -19,6 +19,10 @@ The banded kernels hold the bands of ``SUPPORTED_BANDS``; any other band
 builds a library of its own at its first use (``lib<name>_w<W>.so``).
 K4 and K3 each have a second entry that reads its texts straight from the
 packed genome (``myers_semiglobal_windows``, ``banded_score_windows``).
+``fm_search.cu`` (no TPU kernel: the JAX package's FM walks are jnp scans)
+holds the FM-index walks, launched by ``fm_backward_search``,
+``fm_locate`` and ``fm_search_1mm_topk`` for CUDA tensors only: their
+plain versions, and the routing to them, are ``fmi/search.py``'s.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current stream, raises if
@@ -63,6 +67,7 @@ _SOURCES = {
     "myers_semiglobal": "myers_semiglobal.cu",
     "banded_traceback_wide": "banded_traceback_wide.cu",
     "regtile_score_blocked": "regtile_score_blocked.cu",
+    "fm_search": "fm_search.cu",
 }
 # the sources compiled once for each band
 _BANDED = ("banded_score_cands", "banded_traceback", "banded_score",
@@ -175,6 +180,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "regtile_score_blocked":
         fn = lib.nvbt_regtile_score_blocked
         fn.argtypes = [P] * 5 + [I] * 12 + [P] * 4
+    elif name == "fm_search":
+        lib.nvbt_fm_backward_search.argtypes = \
+            [P, I, P, I, L, P, L, P, L, L, P, P, I, I] + [P] * 4
+        lib.nvbt_fm_locate.argtypes = \
+            [P, L, P, L, P, L, L, P, L, P, L, I] + [P] * 4
+        fn = lib.nvbt_fm_search_1mm_topk
+        fn.argtypes = [P, I, P, I, L, P, L, P, L, L, I, I] + [P] * 7
+        lib.nvbt_fm_backward_search.restype = ctypes.c_int
+        lib.nvbt_fm_locate.restype = ctypes.c_int
     else:
         fn = lib.nvbt_myers_semiglobal
         fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4
@@ -1358,3 +1372,137 @@ def banded_score_semiglobal_regtile(patterns, pattern_lens, texts,
         to_blocks(texts, TWp), lens_blocks(text_lens), mmb,
         scoring=scoring, band=W, length=M)
     return score.reshape(Bp)[:B], kbest.reshape(Bp)[:B]
+
+
+# ---- the FM-index walks (fm_search.cu) -------------------------------------
+# CUDA only: ``fmi/search.py``'s wrappers route CPU tensors to the plain
+# versions beside them and compute the plain loops' trip counts.
+
+def _check_fm_index(rank_rows, count, n: int, dev):
+    _check(rank_rows, "rank_rows", torch.int32, (rank_rows.shape[0], 8), dev)
+    if rank_rows.data_ptr() % 16:
+        raise ValueError("rank_rows must be 16-byte aligned")
+    _check(count, "count", torch.int64, (5,), dev)
+    if n + 1 >= 2**32:
+        raise ValueError("text too long for the FM kernels")
+
+
+def _check_fm_walk(what: str, dev, lanes: int, steps, queries=None,
+                   qlens=None):
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if queries is not None:
+        if queries.dim() != 2:
+            raise ValueError(f"{what}: queries must be (B, L), got "
+                             f"{tuple(queries.shape)}")
+        _check(queries, "queries", torch.int32, queries.shape, dev)
+        if qlens.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"qlens has dtype {qlens.dtype}, expected "
+                            f"int32 or int64")
+        _check(qlens, "qlens", qlens.dtype, (lanes,), dev)
+    if steps is not None:
+        _check(steps, "steps", torch.int16, (lanes,), dev)
+
+
+def _fm_launch(entry: str, what: str, dev, *args) -> None:
+    """One launch of ``entry`` on the current stream (tensors passed as
+    their pointers, None as null); raises if the launch failed."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = getattr(_lib("fm_search"), entry)(*ptrs, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def fm_backward_search(queries, qlens, rank_rows, count, primary: int,
+                       n: int, ftab_lo, ftab_hi, ftab_k: int, n_steps: int,
+                       steps=None):
+    """Exact-match SA intervals [lo, hi), (B,) int64, of queries (B, L)
+    int32 with lengths qlens (B,) int32 or int64: lanes of length >=
+    ``ftab_k`` start from their k-symbol suffix's entry of ``ftab_lo`` /
+    ``ftab_hi`` (int32[4^k]; k = 0: none), the rest from the full range;
+    at most ``n_steps`` steps. ``steps`` ((B,) int16 or None) receives the
+    steps each lane took."""
+    dev = queries.device
+    B, L = queries.shape if queries.dim() == 2 else (0, 0)
+    _check_fm_walk("fm_backward_search", dev, B, steps, queries, qlens)
+    _check_fm_index(rank_rows, count, n, dev)
+    if ftab_k:
+        _check(ftab_lo, "ftab_lo", torch.int32, (4 ** ftab_k,), dev)
+        _check(ftab_hi, "ftab_hi", torch.int32, (4 ** ftab_k,), dev)
+    lo = torch.empty(B, dtype=torch.int64, device=dev)
+    hi = torch.empty(B, dtype=torch.int64, device=dev)
+    if B:
+        _fm_launch("nvbt_fm_backward_search", "fm_backward_search", dev,
+                   queries, L, qlens, int(qlens.dtype == torch.int64), B,
+                   rank_rows, rank_rows.shape[0], count, primary, n,
+                   ftab_lo if ftab_k else None, ftab_hi if ftab_k else None,
+                   ftab_k, n_steps, lo, hi, steps)
+        fm_backward_search.launches += 1
+    return lo, hi
+
+
+fm_backward_search.launches = 0
+
+
+def fm_locate(rows, rank_rows, count, primary: int, n: int, ssa_rows,
+              ssa_vals, sa_interval: int, steps=None):
+    """SA values of SA rows (int64, any shape, clamped to [0, n]) by an LF
+    walk of at most ``sa_interval`` steps to a marked row (``ssa_rows``
+    (nw, 2) int32: marks word and exclusive popcount; ``ssa_vals`` int32):
+    (positions int64, resolved bool), of the rows' shape. ``steps`` ((rows
+    numel,) int16 or None) receives the steps each lane took."""
+    dev = rows.device
+    B = rows.numel()
+    _check_fm_walk("fm_locate", dev, B, steps)
+    _check(rows, "rows", torch.int64, rows.shape, dev)
+    _check_fm_index(rank_rows, count, n, dev)
+    _check(ssa_rows, "ssa_rows", torch.int32, (ssa_rows.shape[0], 2), dev)
+    _check(ssa_vals, "ssa_vals", torch.int32, (ssa_vals.shape[0],), dev)
+    pos = torch.empty(rows.shape, dtype=torch.int64, device=dev)
+    done = torch.empty(rows.shape, dtype=torch.bool, device=dev)
+    if B:
+        _fm_launch("nvbt_fm_locate", "fm_locate", dev, rows, B, rank_rows,
+                   rank_rows.shape[0], count, primary, n, ssa_rows,
+                   ssa_rows.shape[0], ssa_vals, ssa_vals.shape[0],
+                   sa_interval, pos, done, steps)
+        fm_locate.launches += 1
+    return pos, done
+
+
+fm_locate.launches = 0
+
+
+def fm_search_1mm_topk(queries, qlens, rank_rows, count, primary: int,
+                       n: int, n_approx: int, K: int, steps=None):
+    """Approx-hybrid 1-mismatch search with top-K survivors of queries
+    (B, L) int32, lengths (B,) int32 or int64: (exact_lo, exact_hi, mm_lo,
+    mm_hi), int64, mm_* (B, K) with empty slots at lo == hi == 0; the first
+    K nonempty (j, delta) branches, j < ``n_approx``. Takes n_approx <= L
+    and K <= 3 n_approx. ``steps`` ((B,) int16 or None) receives the steps
+    each lane took."""
+    dev = queries.device
+    B, L = queries.shape if queries.dim() == 2 else (0, 0)
+    _check_fm_walk("fm_search_1mm_topk", dev, B, steps, queries, qlens)
+    _check_fm_index(rank_rows, count, n, dev)
+    if not 0 <= n_approx <= L or not 0 <= K <= 3 * n_approx:
+        raise ValueError(f"fm_search_1mm_topk: n_approx {n_approx} and K "
+                         f"{K} out of range for L {L}")
+    exact_lo = torch.empty(B, dtype=torch.int64, device=dev)
+    exact_hi = torch.empty(B, dtype=torch.int64, device=dev)
+    mm_lo = torch.empty((B, K), dtype=torch.int64, device=dev)
+    mm_hi = torch.empty((B, K), dtype=torch.int64, device=dev)
+    if B:
+        # the exact walk's states at the positions j < n_approx
+        states = torch.empty((max(n_approx, 1), B, 2), dtype=torch.int32,
+                             device=dev)
+        _fm_launch("nvbt_fm_search_1mm_topk", "fm_search_1mm_topk", dev,
+                   queries, L, qlens, int(qlens.dtype == torch.int64), B,
+                   rank_rows, rank_rows.shape[0], count, primary, n,
+                   n_approx, K, states, exact_lo, exact_hi, mm_lo, mm_hi,
+                   steps)
+        fm_search_1mm_topk.launches += 1
+    return exact_lo, exact_hi, mm_lo, mm_hi
+
+
+fm_search_1mm_topk.launches = 0

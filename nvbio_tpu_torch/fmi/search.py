@@ -8,19 +8,30 @@ the library searches (``search_1mm`` :189, ``search_1mm_hybrid`` :216,
 ``search_kmm_core`` :420 with ``priority.py``'s beam, ``search_kmm``
 :485; ``backward_search`` and ``locate_batch`` are the plain calls). The
 JAX package's scans become Python loops of a fixed trip count over tensor
-ops on the index's device: no loop reads a value back to the host, so on
-CUDA a whole search is enqueued without a stall. Every gather index is
-clamped into its table (a torch index out of range is a device-side assert
-on CUDA); the JAX masks are kept, so clamped lanes never reach a result.
-Intervals and positions are int64.
+ops (the ``*_plain`` functions): no loop reads a value back to the host.
+Every gather index is clamped into its table (a torch index out of range is
+a device-side assert on CUDA); the JAX masks are kept, so clamped lanes
+never reach a result. Intervals and positions are int64.
+
+``backward_search_core``, ``locate_core`` and ``search_1mm_hybrid_topk``
+route CPU tensors to the plain version and CUDA tensors to one launch of
+``csrc/fm_search.cu`` (a lane a thread, its walk in registers, left as
+soon as it is done or empty) through ``align.kernels``' launchers
+``fm_backward_search``, ``fm_locate`` and ``fm_search_1mm_topk``, which
+count their launches; the plain version's results bit for bit. While a
+profiler records, each launch also writes the steps each lane took, held
+as the counter ``fm_steps`` beside ``fm_steps_fixed``, the steps of the
+plain version's fixed loops (``utils.timers``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from nvbio_tpu_torch.align import kernels as cuda_kernels
 from nvbio_tpu_torch.fmi.rank import popcount32, rank, rank_all, \
     symbol_and_rank
+from nvbio_tpu_torch.utils import timers
 
 
 def _adjust(fmi, i):
@@ -37,8 +48,10 @@ def step_backward(fmi, c, lo, hi):
     return cnt + r[0], cnt + r[1]
 
 
-def backward_search_core(fmi, queries, qlens):
-    """Exact match: SA interval [lo, hi) per query ((B, L) left-aligned).
+def backward_search_core_plain(fmi, queries, qlens):
+    """``backward_search_core`` as torch ops.
+
+    Exact match: SA interval [lo, hi) per query ((B, L) left-aligned).
 
     With an ftab attached, queries of length >= ftab_k start from the
     interval of their k-symbol suffix (key: the leftmost symbol in the high
@@ -76,11 +89,12 @@ def backward_search_core(fmi, queries, qlens):
     return lo, hi
 
 
-def locate_core(fmi, rows):
-    """SA values of SA rows (in [0, n]) by a fixed ``sa_interval``-step LF
-    walk; (positions int64, resolved). Each step gathers one SSA row
-    (marks word and its exclusive popcount) and one rank row (the symbol
-    and its rank); the sampled value is fetched once, after the walk."""
+def locate_core_plain(fmi, rows):
+    """``locate_core`` as torch ops: SA values of SA rows (in [0, n]) by
+    a fixed ``sa_interval``-step LF walk; (positions int64, resolved).
+    Each step gathers one SSA row (marks word and its exclusive popcount)
+    and one rank row (the symbol and its rank); the sampled value is
+    fetched once, after the walk."""
     i = rows.to(torch.int64).clamp(0, fmi.n)
     ssa, vals = fmi.ssa_rows, fmi.ssa_vals
     nw, nv = ssa.shape[0], vals.shape[0]
@@ -111,8 +125,11 @@ def extend_backward_all(fmi, lo, hi):
     return cnt + r[0], cnt + r[1]
 
 
-def search_1mm_hybrid_topk(fmi, queries, qlens, n_approx: int, K: int = 8):
-    """Approx-hybrid 1-mismatch search with top-K survivor compaction.
+def search_1mm_hybrid_topk_plain(fmi, queries, qlens, n_approx: int,
+                                 K: int = 8):
+    """``search_1mm_hybrid_topk`` as torch ops.
+
+    Approx-hybrid 1-mismatch search with top-K survivor compaction.
 
     0 mismatches in the seed's right part, at most 1 in its left
     ``n_approx`` positions (the reference's ``mapping.h:66-73``): one exact
@@ -184,6 +201,76 @@ def search_1mm_hybrid_topk(fmi, queries, qlens, n_approx: int, K: int = 8):
     empty = ~cok | (chi <= clo)
     return (exact_lo, exact_hi, torch.where(empty, 0, clo),
             torch.where(empty, 0, chi))
+
+
+# ---- the CUDA kernels (csrc/fm_search.cu, launched by align.kernels) ------
+
+def _cuda_walk_inputs(queries, qlens):
+    """The int32 (B, L) queries and the (B,) lengths (int32 or int64) the
+    kernels read, contiguous."""
+    q = queries if queries.dtype == torch.int32 else queries.to(torch.int32)
+    ql = qlens if qlens.dtype in (torch.int32, torch.int64) \
+        else qlens.to(torch.int64)
+    return q.contiguous(), ql.contiguous()
+
+
+def _steps(lanes: int, fixed: int, dev):
+    """The per-lane steps output of one launch (int16, the kernel fills it)
+    while a profiler records, held as the counter ``fm_steps`` with the
+    plain loops' ``fm_steps_fixed`` = ``lanes * fixed``: no device op;
+    else None (the kernel writes none)."""
+    if not lanes or not timers.recording():
+        return None
+    steps = torch.empty(lanes, dtype=torch.int16, device=dev)
+    timers.count("fm_steps", steps)
+    timers.count("fm_steps_fixed", lanes * fixed)
+    return steps
+
+
+def backward_search_core(fmi, queries, qlens):
+    """Exact match: SA interval [lo, hi) per query ((B, L) left-aligned),
+    int64; ``backward_search_core_plain``'s results. CUDA tensors: one
+    ``align.kernels.fm_backward_search`` launch (queries read as int32)."""
+    if queries.device.type == "cpu":
+        return backward_search_core_plain(fmi, queries, qlens)
+    q, ql = _cuda_walk_inputs(queries, qlens)
+    L = q.shape[-1]
+    k = fmi.ftab_k if fmi.ftab_lo is not None and L >= fmi.ftab_k else 0
+    n_steps = max(L - k, min(k - 1, L)) if k else L
+    return cuda_kernels.fm_backward_search(
+        q, ql, fmi.rank_rows, fmi.count, fmi.primary, fmi.n, fmi.ftab_lo,
+        fmi.ftab_hi, k, n_steps, _steps(q.shape[0], n_steps, q.device))
+
+
+def locate_core(fmi, rows):
+    """SA values of SA rows (in [0, n], clamped) by an LF walk of at most
+    ``sa_interval`` steps: (positions int64, resolved);
+    ``locate_core_plain``'s results. CUDA tensors: one
+    ``align.kernels.fm_locate`` launch."""
+    if rows.device.type == "cpu":
+        return locate_core_plain(fmi, rows)
+    r = rows.to(torch.int64).contiguous()
+    return cuda_kernels.fm_locate(
+        r, fmi.rank_rows, fmi.count, fmi.primary, fmi.n, fmi.ssa_rows,
+        fmi.ssa_vals, fmi.sa_interval,
+        _steps(r.numel(), fmi.sa_interval, r.device))
+
+
+def search_1mm_hybrid_topk(fmi, queries, qlens, n_approx: int, K: int = 8):
+    """Approx-hybrid 1-mismatch search with top-K survivor compaction:
+    (exact_lo, exact_hi, mm_lo, mm_hi), mm_* (B, min(K, 3 min(n_approx,
+    L))) with empty slots at lo == hi == 0; ``search_1mm_hybrid_topk_
+    plain``'s results (its docstring has the rule). CUDA tensors: one
+    ``align.kernels.fm_search_1mm_topk`` launch."""
+    if queries.device.type == "cpu":
+        return search_1mm_hybrid_topk_plain(fmi, queries, qlens, n_approx, K)
+    q, ql = _cuda_walk_inputs(queries, qlens)
+    L = q.shape[-1]
+    A = max(min(n_approx, L), 0)
+    Kout = max(min(K, A * 3), 0)
+    return cuda_kernels.fm_search_1mm_topk(
+        q, ql, fmi.rank_rows, fmi.count, fmi.primary, fmi.n, A, Kout,
+        _steps(q.shape[0], L + A + Kout * max(A - 1, 0), q.device))
 
 
 def backward_search(fmi, queries, qlens):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from nvbio_tpu_torch import convert
+from nvbio_tpu_torch.align import kernels as tkernels
 from nvbio_tpu_torch.fmi import index as tidx
 from nvbio_tpu_torch.fmi import search as tsearch
 from nvbio_tpu_torch.index.sa import suffix_array as t_suffix_array
@@ -200,17 +201,23 @@ def test_extend_backward_all_matches_jax(pair):
     _eq(jh, th, "hi4")
 
 
+def _tandem_text(rng):
+    """A 37-symbol unit tiled 120 times with 3% point edits, then 700
+    random symbols: seeds with several nonempty 1-mismatch branches."""
+    unit = rng.integers(0, 4, 37)
+    text = np.tile(unit, 120)
+    edit = rng.random(text.size) < 0.03
+    text[edit] = rng.integers(0, 4, int(edit.sum()))
+    return np.concatenate([text, rng.integers(0, 4, 700)]).astype(np.uint8)
+
+
 @pytest.mark.parametrize("K", [8, 40])
 def test_search_1mm_hybrid_topk_matches_jax(K):
     """A tandem-repeat text (a 37-symbol unit, copies with point edits):
     many seeds have several nonempty branches, so the top-K score ties (and
     K = 8 drops some); K = 40 >= 3 * n_approx keeps every branch."""
     rng = np.random.default_rng(9)
-    unit = rng.integers(0, 4, 37)
-    text = np.tile(unit, 120)
-    edit = rng.random(text.size) < 0.03
-    text[edit] = rng.integers(0, 4, int(edit.sum()))
-    text = np.concatenate([text, rng.integers(0, 4, 700)]).astype(np.uint8)
+    text = _tandem_text(rng)
     jd = jidx.build_fmindex(text).device()
     tf = tidx.build_fmindex(text)
     L, A = 22, 11
@@ -229,6 +236,83 @@ def test_search_1mm_hybrid_topk_matches_jax(K):
     assert (n_branch >= 2).sum() > 20
     if K == 8:
         assert (n_branch == K).any()     # the compaction cut some seeds
+
+
+@pytest.mark.parametrize("K", [1, 8, 40])
+def test_topk_survivors_are_the_first_K_nonempty_branches(K):
+    """The rule of the 1-mismatch top-K search (the card's kernel walks it
+    as written here), restated with plain backward searches: the exact
+    interval is the query's; the survivors are the first K branches (j,
+    delta), j < min(n_approx, qlen) ascending, delta 1..3, whose
+    substituted suffix q'[j:qlen] (q'[j] = (q[j] + delta) % 4) occurs;
+    each holds the whole substituted query's interval, (0, 0) where that
+    is empty, and the slots past them hold (0, 0)."""
+    rng = np.random.default_rng(11)
+    text = _tandem_text(rng)
+    tf = tidx.build_fmindex(text)
+    L, A = 22, 11
+    qs, lens = _queries(text, rng, L)
+    lens[Q // 2:] = L
+    q, ql = torch.from_numpy(qs), torch.from_numpy(lens)
+    elo, ehi, mlo, mhi = tsearch.search_1mm_hybrid_topk(tf, q, ql, A, K)
+    wlo, whi = tsearch.backward_search_core(tf, q, ql)
+    assert torch.equal(elo, wlo) and torch.equal(ehi, whi)
+
+    # every branch's substituted suffix (left-aligned) and whole query
+    b, j, d = np.meshgrid(np.arange(Q), np.arange(A), np.arange(1, 4),
+                          indexing="ij")
+    b, j, d = b.ravel(), j.ravel(), d.ravel()
+    whole = qs[b].copy()
+    whole[np.arange(b.size), j] = (whole[np.arange(b.size), j] + d) % 4
+    cols = np.minimum(j[:, None] + np.arange(L), L - 1)
+    suffix = np.take_along_axis(whole, cols, axis=1)
+    slen = np.maximum(lens[b] - j, 0)
+    slo, shi = tsearch.backward_search_core(
+        tf, torch.from_numpy(suffix), torch.from_numpy(slen))
+    flo, fhi = tsearch.backward_search_core(
+        tf, torch.from_numpy(whole), torch.from_numpy(lens[b]))
+    occurs = ((j < lens[b]) & (shi > slo).numpy()).reshape(Q, A * 3)
+    flo, fhi = flo.reshape(Q, A * 3), fhi.reshape(Q, A * 3)
+    Kout = min(K, 3 * A)
+    assert mlo.shape == (Q, Kout)
+    n_cut = 0
+    for r in range(Q):
+        sel = np.nonzero(occurs[r])[0][:Kout]
+        want = [(int(flo[r, i]), int(fhi[r, i])) if fhi[r, i] > flo[r, i]
+                else (0, 0) for i in sel]
+        want += [(0, 0)] * (Kout - len(want))
+        assert [(int(a), int(c)) for a, c in zip(mlo[r], mhi[r])] == want
+        n_cut += int(occurs[r].sum() > Kout)
+    assert occurs.sum() > Q and (n_cut > 0) == (K < 40)
+
+
+def test_walks_take_the_plain_versions_for_cpu_tensors(pair):
+    """On CPU tensors backward search (with a k = 4 table), locate and the
+    top-K search return their plain versions' results and launch no
+    kernel; a tensor on neither the CPU nor a card is refused."""
+    text, _, _, tf = pair
+    tf4 = tidx.attach_ftab(tf, 4)
+    qs, lens = _queries(text, np.random.default_rng(len(text) + 7))
+    q, ql = torch.from_numpy(qs), torch.from_numpy(lens)
+    rows = torch.arange(len(text) + 1)
+    before = (tkernels.fm_backward_search.launches,
+              tkernels.fm_locate.launches,
+              tkernels.fm_search_1mm_topk.launches)
+    for got, want in (
+            (tsearch.backward_search_core(tf4, q, ql),
+             tsearch.backward_search_core_plain(tf4, q, ql)),
+            (tsearch.locate_core(tf, rows),
+             tsearch.locate_core_plain(tf, rows)),
+            (tsearch.search_1mm_hybrid_topk(tf, q, ql, 7, K=8),
+             tsearch.search_1mm_hybrid_topk_plain(tf, q, ql, 7, K=8))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert before == (tkernels.fm_backward_search.launches,
+                      tkernels.fm_locate.launches,
+                      tkernels.fm_search_1mm_topk.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsearch.backward_search_core(tf4, q.to("meta"), ql.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsearch.locate_core(tf, rows.to("meta"))
 
 
 def test_fmi_npz_across_packages(pair, tmp_path):

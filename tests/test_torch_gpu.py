@@ -11,6 +11,7 @@ Without a card every test skips (the kernels have no CPU mode). Bands
 outside ``K.SUPPORTED_BANDS`` build their own libraries, once for the
 module (``K.build(bands=EXTRA_BANDS)``, in parallel)."""
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -843,6 +844,88 @@ def test_fm_search_on_cuda_equals_cpu(n):
     want = S.search_1mm_hybrid_topk(cpu, q, ql, 11, K=8)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def _fm_walk_queries(rng, text, L, k):
+    """(Q, L) int32 queries, half text substrings (both text ends among
+    them), half random with N and negative codes, and their int32
+    lengths: 0, 1, k - 1, k, k + 1, L and L + 2 (past the row) among
+    them, the rest random in [0, L]."""
+    n, Q = len(text), 1024
+    qs = rng.integers(0, 4, size=(Q, L)).astype(np.int32)
+    starts = rng.integers(0, n - L, Q // 2)
+    starts[:2] = (0, n - L)
+    qs[: Q // 2] = text[starts[:, None] + np.arange(L)]
+    qs[Q // 2:][rng.random((Q // 2, L)) < 0.05] = 4
+    qs[Q // 2:][rng.random((Q // 2, L)) < 0.01] = -1
+    lens = rng.integers(0, L + 1, Q).astype(np.int32)
+    lens[: Q // 4] = L
+    edge = [0, 1, max(k - 1, 0), k, k + 1, L, L + 2]
+    lens[Q // 4: Q // 4 + len(edge)] = edge
+    lens[Q // 2: Q // 2 + len(edge)] = edge
+    return qs, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sa_interval", [4, 8, 16])
+@pytest.mark.parametrize("ftab_k", [0, 6])
+def test_fm_walk_kernels_equal_plain(sa_interval, ftab_k):
+    """The FM walks' kernels (``csrc/fm_search.cu``) against their plain
+    versions on the same index on the card, bit for bit on every output:
+    backward search with and without the k-symbol table (lengths 0, below
+    k, k, L and past L; int32 and int64 queries and lengths), locate of
+    every row (0, ``primary`` and n among them), also with the walk cut to
+    half the sampling interval (unresolved rows), the 1-mismatch top-K search
+    at K = 1, 8 and 33 (more than its A x 3 = 21 branches); one launch a
+    call; and the steps counter held while a profiler records."""
+    dev = _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvbio_tpu_torch.fmi import search as S
+    from nvbio_tpu_torch.fmi.index import attach_ftab, build_fmindex
+    from nvbio_tpu_torch.utils import timers
+
+    n, L = 20011, 24
+    rng = np.random.default_rng(100 * sa_interval + ftab_k)
+    text = rng.integers(0, 4, size=n, dtype=np.uint8)
+    index = build_fmindex(text, sa_interval=sa_interval).to(dev)
+    if ftab_k:
+        index = attach_ftab(index, k=ftab_k)
+    qs, lens = _fm_walk_queries(rng, text, L, ftab_k)
+    q, ql = torch.from_numpy(qs).to(dev), torch.from_numpy(lens).to(dev)
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        return all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+
+    for qq, ll in ((q, ql), (q.long(), ql.long()), (q[:, :ftab_k], ql)):
+        n0 = K.fm_backward_search.launches
+        got = S.backward_search_core(index, qq, ll)
+        assert K.fm_backward_search.launches == n0 + 1
+        assert same(got, S.backward_search_core_plain(index, qq, ll))
+    rows = torch.cat([torch.arange(n + 1), torch.tensor(
+        [index.primary, -3, n + 5])]).to(dev)
+    got = S.locate_core(index, rows)
+    want = S.locate_core_plain(index, rows)
+    assert same(got, want) and bool(want[1].all())
+    cut = dataclasses.replace(index, sa_interval=sa_interval // 2)
+    got = S.locate_core(cut, rows)
+    want = S.locate_core_plain(cut, rows)
+    assert same(got, want) and 0 < int(want[1].sum()) < rows.numel()
+    for top_k, n_approx in ((1, 11), (8, 11), (33, 7)):
+        got = S.search_1mm_hybrid_topk(index, q, ql, n_approx, K=top_k)
+        want = S.search_1mm_hybrid_topk_plain(index, q, ql, n_approx,
+                                              K=top_k)
+        assert got[2].shape == (len(qs), min(top_k, 3 * min(n_approx, L)))
+        assert same(got, want) and bool((want[3] > want[2]).any())
+    timers.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        S.locate_core(index, rows)
+    c = timers.counters()
+    timers.reset_counters()
+    assert c["fm_steps_fixed"] == rows.numel() * sa_interval
+    assert 0 < c["fm_steps"] <= c["fm_steps_fixed"]
 
 
 @pytest.mark.gpu

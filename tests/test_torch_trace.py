@@ -221,6 +221,28 @@ def test_count_holds_ints_counts_and_masks():
     assert timers.counters() == {}
 
 
+def test_fm_steps_held_with_no_op():
+    """The FM kernels' steps output: none with no profiler, nothing
+    counted; while one records, an int16 buffer of a step count a lane
+    (the kernel fills it) held as ``fm_steps`` beside the host int
+    ``fm_steps_fixed``, with no op but the allocation."""
+    from nvbio_tpu_torch.fmi import search
+
+    cpu = torch.device("cpu")
+    timers.reset_counters()
+    assert search._steps(10, 7, cpu) is None
+    assert timers.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        steps = search._steps(10, 7, cpu)
+    assert steps.dtype == torch.int16 and steps.shape == (10,)
+    assert timers._counters["fm_steps"][0] is steps
+    assert {ev.name for ev in prof.events()
+            if ev.name.startswith("aten::")} <= {"aten::empty"}
+    steps.fill_(3)
+    assert timers.counters() == {"fm_steps": 30, "fm_steps_fixed": 70}
+    timers.reset_counters()
+
+
 def test_map_profile_logs_counters(tmp_path, genome, se_batch, capsys):
     from nvbio_tpu_torch.__main__ import main
     from nvbio_tpu_torch.alphabet import codes_to_string
