@@ -16,7 +16,7 @@ What it works out again, for a sample of the window's reads (mates):
 - MAPQ by bowtie2's V2 table from that score and the reported second
   best, and the pairing rules of the configuration (FR concordance within
   ``maxins``, rescue windows);
-- its own candidates, from a position-sorted table of the genome's k-mers:
+- its own candidates, from a table of the genome's k-mers by key:
   every window that the configuration's seeding has to locate, since its
   seed key occurs at most ``hits_per_seed`` times, on the first pass's
   seed grid and on each reseed pass's shifted grid. Each is scored; the
@@ -35,6 +35,21 @@ read of the window's first ``pool_batches`` batches whose reseed queue
 took every read that needed it, ``missed_reseed`` (single-end): left
 unmapped where the reseed grid locates a window at or above the minimum
 score (such reads are too rare for a sample).
+
+The k-mer table (``KmerTable``) holds every key position of the genome,
+past 2^31 too, and is built a partition of keys at a time, so its memory
+is bounded whatever the genome's length. On the genome's device: the
+table, 16 bytes a key position (int64 key and position), 51.2 GB at 3.2
+Gbp, allocated once; beside it at most one step's scratch, either a
+chunk's keys as ``kmer_keys`` builds them (32 bytes a position at its
+peak), their partition numbers and masks (5) and the rows taken (16 a
+row), about 2.7 GB at the default 2^26 positions, or one partition's
+sort (the sorted keys, the order, the radix sort's buffers, the gathered
+positions), no more at the default 2^26 rows. On an H100 the scratch
+read 2.70 GB at 2^31 + 2^24 bases and at 3.2 Gbp. Only a bucket of more
+rows than that (one 8-mer that occurs over 2^26 times) is sorted alone
+past the bound. One sort of every key, as the table was first built,
+held 48 bytes a base (4.84 GB at 100 Mbp on an H100): 155 GB at 3.2 Gbp.
 """
 
 from __future__ import annotations
@@ -215,12 +230,72 @@ def kmer_keys(codes: torch.Tensor, K: int) -> torch.Tensor:
     return keys
 
 
-class KmerTable:
-    """Every K-mer of the genome with its position, sorted by key."""
+def partitions(counts: list, rows: int) -> tuple[list, list]:
+    """Consecutive buckets grouped greedily into partitions of at most
+    ``rows`` rows (a bucket of more rows is a partition of its own):
+    (the partition of each bucket, the rows of each partition)."""
+    part_of, sizes = [], [0]
+    for c in counts:
+        if c and sizes[-1] and sizes[-1] + c > rows:
+            sizes.append(0)
+        sizes[-1] += c
+        part_of.append(len(sizes) - 1)
+    return part_of, sizes
 
-    def __init__(self, genome: torch.Tensor, K: int):
+
+class KmerTable:
+    """Every K-mer of the genome with its position, sorted by key and then
+    by position: ``keys`` and ``pos``, int64, one row a K-mer (so a key's
+    rows list its positions in genome order, as a q-gram index's bucket
+    does). A key's bucket is its first ``P = min(K, PREFIX)`` symbols.
+    Built in three steps over the genome's key positions, taken in chunks
+    of ``chunk`` positions whose genome slices overlap by K - 1 bases (P -
+    1 in the first step), so that every position is keyed once, from the
+    bases it starts:
+
+    1. count the rows of each bucket;
+    2. group consecutive buckets into partitions of at most ``rows`` rows
+       (``partitions``): a partition's rows are a contiguous range of the
+       table, its keys a contiguous range of key values. Copy each chunk's
+       keys and positions, in position order, to the end of their
+       partition's range;
+    3. sort each partition's range in place by key, stably, carrying the
+       positions.
+    """
+
+    PREFIX = 8
+
+    def __init__(self, genome: torch.Tensor, K: int, rows: int = 1 << 26,
+                 chunk: int = 1 << 26):
         self.K = K
-        self.keys, self.pos = torch.sort(kmer_keys(genome, K))
+        dev = genome.device
+        m = max(genome.shape[0] - K + 1, 0)
+        P = min(K, self.PREFIX)
+        spans = [(s, min(s + chunk, m)) for s in range(0, m, chunk)]
+        counts = torch.zeros(4 ** P, dtype=torch.int64, device=dev)
+        for s, e in spans:
+            counts += torch.bincount(kmer_keys(genome[s:e + P - 1], P),
+                                     minlength=4 ** P)
+        part_of, sizes = partitions(counts.tolist(), rows)
+        part_of = torch.tensor(part_of, dtype=torch.int32, device=dev)
+        first = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+        self.keys = torch.empty(m, dtype=torch.int64, device=dev)
+        self.pos = torch.empty(m, dtype=torch.int64, device=dev)
+        end = list(first)
+        for s, e in spans:
+            key = kmer_keys(genome[s:e + K - 1], K)
+            part = part_of[key >> 2 * (K - P)]
+            for j in range(len(sizes)):
+                at = torch.nonzero(part == j).squeeze(1)
+                self.keys[end[j]:end[j] + len(at)] = key[at]
+                self.pos[end[j]:end[j] + len(at)] = at + s
+                end[j] += len(at)
+            del key, part
+        for lo, size in zip(first, sizes):
+            keys, order = torch.sort(self.keys[lo:lo + size], stable=True)
+            self.keys[lo:lo + size] = keys
+            self.pos[lo:lo + size] = self.pos[lo:lo + size][order]
+            del keys, order
 
     def range(self, keys: torch.Tensor):
         """(first row, occurrences) of each key."""
