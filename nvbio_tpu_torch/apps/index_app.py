@@ -16,7 +16,11 @@ the prefix, the same artifacts as ``python -m nvbio_tpu index``:
                        LZ4 frames with --bwt-lz4)
 The FM index is built on the card (``index.device_sa``: the suffix sort
 and every table) with ``--sa-backend device``, or with ``auto`` on a cuda
-device for genomes of 2^22 bases or more; else by host SA-IS.
+device for genomes of 2^22 bases or more; else by host SA-IS. The Q-Group
+index is built from the packed genome on the app's device
+(``qgram.build_qgroup_index_device``, in bounded memory), as the mapper
+builds it; its file, as the ``.qgram.npz``, keeps the q-grams over an N,
+as the JAX package's files do.
 ``--bwt-blockwise`` sorts the BWT block by block on the app's device
 (``index.blockwise``: int64 positions, texts past the int32 FM index, up
 to 2^32 - 17 bases). The app runs on cuda unless ``--device cpu`` is given
@@ -93,9 +97,11 @@ def run(args):
                   f"{stages['qgram']:.2f}s")
 
     if args.qgroup:
-        from nvbio_tpu_torch.qgram import build_qgroup_index
+        from nvbio_tpu_torch import packed
+        from nvbio_tpu_torch.qgram import build_qgroup_index_device
 
-        qg = build_qgroup_index(ref.codes, args.qgroup)
+        words = packed.words_to_tensor(ref.packed_words(), dev)
+        qg = build_qgroup_index_device(words, ref.total_length, args.qgroup)
         qg.save(args.prefix + ".qgroup.npz")
         t = _timed(stages, "qgroup", t)
         log_stats(f"Q-Group index (q={args.qgroup}, "

@@ -49,6 +49,7 @@ equals a replicated one only where the data make these the same.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -105,6 +106,7 @@ from nvbio_tpu_torch.qgram import (
     QGramIndex,
     QGroupIndex,
     build_qgram_index,
+    build_qgroup_index_device,
     index_locate,
     index_range,
     midpos_lookup,
@@ -441,6 +443,26 @@ def fm_seed_hits_1mm(index: FMIndex, seeds):
             (mm_hi - mm_lo).reshape(B, NS, -1) > 0)
 
 
+def _qgroup_span(index):
+    """The span ``nvbio.qgroup`` around the lookups of a Q-Group index (a
+    null context for any other index)."""
+    if isinstance(index, QGroupIndex):
+        return span("qgroup")
+    return contextlib.nullcontext()
+
+
+def _count_seeds(seed_valid2, hit_valid, range_size, H: int) -> None:
+    """The counters of a q-gram grid's exact lookups: ``seed_valid`` (valid
+    seeds), ``seed_slots`` (their H slots each), ``seed_hits`` (slots that
+    located a position) and ``seed_capped`` (valid seeds whose range held
+    more than H positions, of which the slots locate a sample); worked out
+    when the counters are read, so no op is added to the batch."""
+    count("seed_valid", seed_valid2)
+    count("seed_slots", lambda: seed_valid2.sum() * H)
+    count("seed_hits", hit_valid)
+    count("seed_capped", lambda: (seed_valid2 & (range_size > H)).sum())
+
+
 def _seed_loci(index: SeedIndex, n_genome: int, reads, rc, lens,
                params: MapParams, seed_phase: int, approx_1mm: bool):
     """The seeding stage of ``read_candidates``: the seed grid looked up in
@@ -492,23 +514,28 @@ def _seed_loci(index: SeedIndex, n_genome: int, reads, rc, lens,
             H = H + 2
     else:
         keys = seed_keys_from_batch(seeds, index.q)          # (B, 2S1)
-        lo, hi = index_range(index, keys)
-        range_size = (hi - lo).clamp(min=0)
+        with _qgroup_span(index):
+            lo, hi = index_range(index, keys)
+            range_size = (hi - lo).clamp(min=0)
         if randomized:
             lo_c, slot, sel_off, hit_valid = _sumtree_select(
                 lo, range_size, seed_valid2, starts, S1, H, seed_phase)
-            pos = index_locate(index, lo_c, slot)
+            with _qgroup_span(index):
+                pos = index_locate(index, lo_c, slot)
         else:
             k = torch.arange(H, device=dev)
             hit_valid = (k[None, None, :] < range_size[:, :, None]) & \
                 seed_valid2[:, :, None]
             if isinstance(index, QGroupIndex):
                 # per-slot locate (the JAX package's slot layout for it)
-                pos = index_locate(index, lo[:, :, None],
-                                   stratified_offsets(range_size, H, 2 * S1))
+                with _qgroup_span(index):
+                    pos = index_locate(
+                        index, lo[:, :, None],
+                        stratified_offsets(range_size, H, 2 * S1))
             else:
                 pos = stratified_locate_rows(index, lo, range_size, H,
                                              2 * S1)
+        _count_seeds(seed_valid2, hit_valid, range_size, H)
 
     if approx_1mm:
         if isinstance(index, ShardedFMIndex):
@@ -539,9 +566,11 @@ def _seed_loci(index: SeedIndex, n_genome: int, reads, rc, lens,
             elif getattr(index, "mid_pos", None) is not None:
                 pos1, nonempty = midpos_lookup(index, mut_keys)
             else:   # the middle slot of each range (a Q-Group index)
-                lo1, hi1 = index_range(index, mut_keys)
-                rs1 = (hi1 - lo1).clamp(min=0)
-                pos1, nonempty = index_locate(index, lo1, rs1 // 2), rs1 > 0
+                with _qgroup_span(index):
+                    lo1, hi1 = index_range(index, mut_keys)
+                    rs1 = (hi1 - lo1).clamp(min=0)
+                    pos1 = index_locate(index, lo1, rs1 // 2)
+                nonempty = rs1 > 0
         # a within-seed vote keeps the two best-supported loci
         valid1 = nonempty & seed_valid2[:, :, None]
         NK = 2
@@ -905,7 +934,7 @@ def align_batch_all(index: SeedIndex, genome_words,
 class ReadMapper:
     """Host-side driver owning the device index and reference metadata."""
 
-    index: QGramIndex | FMIndex  # on ``device``, per ``params.seeding``
+    index: QGramIndex | QGroupIndex | FMIndex  # on ``device``
     genome_words: torch.Tensor   # int32 bits of the packed uint32 genome
     n_genome: int
     ref_names: list
@@ -920,23 +949,32 @@ class ReadMapper:
     @classmethod
     def build(cls, reference, params: MapParams = MapParams(), index=None,
               device=None) -> "ReadMapper":
-        """From an ``io.Reference`` (host): builds the seeding index of
-        ``params.seeding`` unless given (a q-gram index on the host, or an
-        FM index: on the card where ``prefer_device_sa`` says so, as the
-        JAX package does on an accelerator, else by host SA-IS; the index
-        is the same either way), then moves index and genome to ``device``
-        (``cuda`` unless the caller passes ``device="cpu"``). On cuda an FM
-        index without a k-mer table gets the k = 11 one, built on the card
-        (the JAX package attaches it off the CPU only; results do not
-        depend on it)."""
+        """From an ``io.Reference`` (host): moves the packed genome to
+        ``device`` (``cuda`` unless the caller passes ``device="cpu"``) and
+        builds the seeding index of ``params.seeding`` unless given: an FM
+        index on the card where ``prefer_device_sa`` says so, as the JAX
+        package does on an accelerator, else by host SA-IS (the index is
+        the same either way); for q-gram seeding up to ``qgram_q`` 15 the
+        direct-address table on the host, from 16 (where that table cannot
+        go) the Q-Group index, built from the packed genome on ``device``
+        (both leave out q-grams over an ambiguous base). Then the index
+        moves to ``device``. On cuda an FM index without a k-mer table gets
+        the k = 11 one, built on the card (the JAX package attaches it off
+        the CPU only; results do not depend on it)."""
         dev = resolve_device(device)
         check_supported(params)
+        words = packed.words_to_tensor(reference.packed_words(), dev)
         if index is None:
             if params.seeding == "fmi" and prefer_device_sa(
                     reference.total_length, dev):
                 index = build_fmindex_device(reference.codes, device=dev)
             elif params.seeding == "fmi":
                 index = build_fmindex(reference.codes)
+            elif params.qgram_q >= 16:
+                with span("qgroup_build"):
+                    index = build_qgroup_index_device(
+                        words, reference.total_length, params.qgram_q,
+                        n_mask=reference.n_mask(dev))
             else:
                 index = build_qgram_index(reference.codes, params.qgram_q,
                                           n_flags=reference.n_flags())
@@ -946,8 +984,7 @@ class ReadMapper:
             index = attach_ftab(index, k=11)
         return cls(
             index=index,
-            genome_words=packed.words_to_tensor(reference.packed_words(),
-                                                dev),
+            genome_words=words,
             n_genome=reference.total_length,
             ref_names=reference.names,
             ref_offsets=reference.offsets,

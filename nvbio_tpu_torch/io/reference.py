@@ -66,6 +66,13 @@ class Reference:
             bitorder="little")
         return bits[:self.total_length].astype(bool)
 
+    def n_mask(self, device):
+        """``n_mask_words`` as an int32 tensor of the same bits on
+        ``device``, or None when the genome has no ambiguous bases."""
+        if self.n_mask_words is None or not self.n_mask_words.any():
+            return None
+        return packed.words_to_tensor(self.n_mask_words, device)
+
     def packed_words(self) -> np.ndarray:
         return packed.pack(self.codes, 2)
 

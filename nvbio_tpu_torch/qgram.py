@@ -8,17 +8,21 @@ gathers; built on the host by the native counting sort
 ``build_qgram_index_large`` (multi-Gbp texts in bounded memory). The
 two-level ``QGroupIndex`` (the reference's ``qgram/qgroup.h:81-200``): a
 presence bitvector over the 4^q keys, its popcount prefix, slot starts and
-positions; built on the host by numpy, as in the JAX package. Both move
-to the device with ``.to``, and ``save``/``load`` read and write the JAX
-package's ``.qgram.npz`` and ``.qgroup.npz``. ``qgram_count`` is the
+positions, all uint32 bits in int32 tensors (4 bytes an entry up to 2^32
+symbols); built on the host by numpy, as in the JAX package, or from the
+packed genome on its device in bounded memory
+(``build_qgroup_index_device``). Both move to the device with ``.to``,
+and ``save``/``load`` read and write the JAX package's ``.qgram.npz`` and
+``.qgroup.npz``. ``qgram_count`` is the
 batch hit count of a ``QGramIndex``. The string-set index
 ``QGramSetIndex`` (``nvbio_tpu.qgram`` :517-639, the reference's
 ``QGramSetIndexDevice``) holds the q-grams of a set of strings as a sorted
 unique-key list, slots and (string, pos) coordinates: built on the host,
 queried by a LUT plus ``max_probe`` fixed halvings as tensor ops.
 
-Tables are int32 tensors for texts below 2^31 symbols (int64 above); every
-gathered position is widened to int64 before any arithmetic, so no
+The ``QGramIndex``'s tables are int32 tensors for texts below 2^31 symbols
+(int64 above); every gathered position is widened to int64 before any
+arithmetic (a ``QGroupIndex`` entry by ``& 0xFFFFFFFF``), so no
 clip-at-zero helpers are needed. ``mid_pos`` (the middle entry of each
 bucket, for the one-gather 1-mismatch lookup) marks empty buckets with -1
 in the port; the JAX package marks them with the index dtype's max, and
@@ -318,14 +322,16 @@ def _i32(a: np.ndarray) -> torch.Tensor:
 @dataclasses.dataclass
 class QGroupIndex:
     """Q-Group index: two-level compacted q-gram dictionary (PEANUT's, the
-    reference's ``QGroupIndexDevice``). int32 tensors; ``I`` holds uint32
-    bits."""
+    reference's ``QGroupIndexDevice``). Every table holds uint32 bits in an
+    int32 tensor, as nvbio's do, so texts up to 2^32 - 1 symbols keep 4
+    bytes an entry; readers widen with ``& 0xFFFFFFFF`` (``_u32``). Below
+    2^31 the bits are the JAX package's int32 tables."""
 
     q: int
-    I: torch.Tensor    # int32 bits of uint32[ceil(4^q / 32)]: key present
-    S: torch.Tensor    # int32[len(I) + 1]: exclusive popcount prefix of I
-    SS: torch.Tensor   # int32[n_unique + 1]: slot start of each q-gram
-    P: torch.Tensor    # int32[n - q + 1]: positions sorted by (q-gram, pos)
+    I: torch.Tensor    # uint32 bits [ceil(4^q / 32)]: key present
+    S: torch.Tensor    # uint32 bits [len(I) + 1]: exclusive popcount prefix
+    SS: torch.Tensor   # uint32 bits [n_unique + 1]: slot start of each q-gram
+    P: torch.Tensor    # uint32 bits [n - q + 1]: positions by (q-gram, pos)
     n: int             # text length
 
     def to(self, device) -> "QGroupIndex":
@@ -333,11 +339,17 @@ class QGroupIndex:
                            self.SS.to(device), self.P.to(device), self.n)
 
     def save(self, path: str) -> None:
-        """Write the JAX package's ``.qgroup.npz``, key for key."""
+        """Write the JAX package's ``.qgroup.npz``, key for key: ``S``,
+        ``SS`` and ``P`` in ``position_dtype(n)`` (int32 below 2^31
+        symbols, uint32 up to 2^32), ``I`` in uint32."""
+        dt = position_dtype(self.n)
+
+        def host(t):
+            return t.cpu().numpy().view(dt)
+
         np.savez_compressed(
             path, q=self.q, I=self.I.cpu().numpy().view(np.uint32),
-            S=self.S.cpu().numpy(), SS=self.SS.cpu().numpy(),
-            P=self.P.cpu().numpy(), n=self.n)
+            S=host(self.S), SS=host(self.SS), P=host(self.P), n=self.n)
 
     @classmethod
     def load(cls, path: str) -> "QGroupIndex":
@@ -345,6 +357,16 @@ class QGroupIndex:
         z = np.load(path)
         return cls(int(z["q"]), _i32(z["I"]), _i32(z["S"]), _i32(z["SS"]),
                    _i32(z["P"]), int(z["n"]))
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values of a tensor of uint32 bits."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def _bits32(x: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of the uint32 bits of int64 values in [0, 2^32)."""
+    return (x - ((x & 0x80000000) << 1)).to(torch.int32)
 
 
 def _popcount_u32(x: np.ndarray) -> np.ndarray:
@@ -355,50 +377,237 @@ def _popcount_u32(x: np.ndarray) -> np.ndarray:
     return (x * np.uint32(0x01010101)) >> 24
 
 
-def build_qgroup_index(codes: np.ndarray, q: int = 16) -> QGroupIndex:
+def build_qgroup_index(codes: np.ndarray, q: int = 16,
+                       n_flags: np.ndarray | None = None) -> QGroupIndex:
     """Host construction (sort, unique, popcount prefixes), as
-    ``nvbio_tpu.qgram.build_qgroup_index``; q up to 16 (32-bit keys)."""
+    ``nvbio_tpu.qgram.build_qgroup_index``; q up to 16 (32-bit keys).
+    One int64 argsort of every key: 24 bytes a base of host arrays.
+    ``n_flags`` marks ambiguous bases: q-grams over one are left out, as
+    ``build_qgram_index`` leaves them out (the JAX package's Q-Group
+    builder keeps them)."""
     if q < 1 or q > 16:
         raise ValueError("q must be in [1, 16] (32-bit keys)")
+    position_dtype(len(codes))   # raises from 2^32 symbols
     keys = qgram_keys(codes, q)
     order = np.argsort(keys, kind="stable")
+    if n_flags is not None and len(keys):
+        order = order[~_window_has_n(np.asarray(n_flags, bool), q)[order]]
     sk = keys[order]
     uniq = np.ones(len(sk), bool)
     uniq[1:] = sk[1:] != sk[:-1]
-    SS = np.append(np.flatnonzero(uniq), len(sk)).astype(np.int32)
+    SS = np.append(np.flatnonzero(uniq), len(sk)).astype(np.uint32)
     n_words = ((1 << (2 * q)) + 31) // 32
     I = np.zeros(n_words, np.uint32)
     uk = sk[uniq]
     np.bitwise_or.at(I, uk >> 5, np.uint32(1) << (uk & 31).astype(np.uint32))
     S = np.zeros(n_words + 1, np.int64)
     np.cumsum(_popcount_u32(I), out=S[1:])
-    return QGroupIndex(q, _i32(I), _i32(S.astype(np.int32)), _i32(SS),
-                       _i32(order.astype(np.int32)), len(codes))
+    return QGroupIndex(q, _i32(I), _i32(S.astype(np.uint32)), _i32(SS),
+                       _i32(order.astype(np.uint32)), len(codes))
+
+
+def packed_qgram_keys(words: torch.Tensor, pos: torch.Tensor,
+                      q: int) -> torch.Tensor:
+    """int64 keys (first symbol in the high bits, as ``qgram_keys``) of the
+    q-grams (q <= 16) at int64 positions ``pos`` of a 2-bit packed text
+    (``packed``'s layout, int32 words of uint32 bits): the two words that
+    hold a q-gram, shifted so that its first symbol is in the low bits,
+    then the 2-bit fields reversed."""
+    wi = pos >> 4
+    lo = _u32(words[wi])
+    hi = _u32(words[(wi + 1).clamp(max=words.shape[0] - 1)])
+    s = (pos & 15) << 1
+    x = ((lo >> s) | (hi << (32 - s))) & 0xFFFFFFFF
+    x = ((x >> 2) & 0x33333333) | ((x & 0x33333333) << 2)
+    x = ((x >> 4) & 0x0F0F0F0F) | ((x & 0x0F0F0F0F) << 4)
+    x = ((x >> 8) & 0x00FF00FF) | ((x & 0x00FF00FF) << 8)
+    x = (x >> 16) | ((x & 0xFFFF) << 16)
+    return x >> (2 * (16 - q))
+
+
+def packed_has_n(n_mask: torch.Tensor, pos: torch.Tensor,
+                 q: int) -> torch.Tensor:
+    """Whether the q-gram (q <= 16) at each int64 position ``pos`` holds an
+    ambiguous base of ``n_mask`` (``io.Reference.n_mask_words``' layout, a
+    bit a position, as int32 words of uint32 bits)."""
+    wi = pos >> 5
+    lo = _u32(n_mask[wi])
+    hi = _u32(n_mask[(wi + 1).clamp(max=n_mask.shape[0] - 1)])
+    s = pos & 31
+    return (((lo >> s) | (hi << (32 - s))) & ((1 << q) - 1)) != 0
+
+
+# symbols of a key that name its bucket in ``build_qgroup_index_device``:
+# 4^10 buckets, so one bucket holds ~3000 positions of a 3 Gbp text
+_BUCKET_SYMBOLS = 10
+
+
+def build_qgroup_index_device(words: torch.Tensor, n: int, q: int = 16,
+                              n_mask: torch.Tensor | None = None,
+                              chunk: int = 1 << 25,
+                              rows: int = 1 << 25) -> QGroupIndex:
+    """``build_qgroup_index``'s tables, bit for bit, built from the packed
+    text ``words`` (of ``n`` symbols) on the words' device with torch ops
+    (sorts, scans, scatters); on CPU tensors the same ops run on the host.
+    ``n_mask`` (on the same device) marks ambiguous bases: q-grams over one
+    are left out (``packed_has_n``), as ``build_qgroup_index`` leaves out
+    those of its ``n_flags``.
+
+    Memory is bounded whatever the text's length: beside the finished
+    tables (4 bytes an entry), ``words`` and ``n_mask``, one step's scratch
+    at a time, tens of bytes a row of ``chunk`` positions or of a partition
+    below ``2 * rows`` rows (at 2^25, 2.75 GB over the tables' 21.06 GB for
+    3.1e9 symbols on an H100). Each step keys its positions again from
+    ``words`` (``packed_qgram_keys``). A key's bucket is its first ``p =
+    min(q, 10)`` symbols:
+
+    1. count the positions of each bucket, ``chunk`` positions at a time; a
+       bucket of more than ``rows`` positions is split into its keys, which
+       a second pass counts;
+    2. group consecutive buckets (or keys of a split bucket) into
+       partitions: one ends after the group that crosses a multiple of
+       ``rows``, and a group of more than ``rows`` positions (one key) is a
+       partition of its own; distribute each chunk's positions, in order,
+       to the end of their partition's range of ``P``: a stable sort by
+       partition and a scatter;
+    3. sort each partition's range of ``P`` in place, stably, by key (a
+       partition of one key is in order already); set the bits of its keys
+       in ``I`` (distinct keys' bits, so adding them sets them) and count
+       them by word in ``S``;
+    4. ``S``, the prefix sum of those counts (the popcount prefix of
+       ``I``), 2^24 words at a time;
+    5. ``SS``, once ``S`` gives its length: the first row of each run of
+       equal keys in each partition."""
+    if q < 1 or q > 16:
+        raise ValueError("q must be in [1, 16] (32-bit keys)")
+    position_dtype(n)   # raises from 2^32 symbols
+    dev = words.device
+    npos = max(n - q + 1, 0)
+    n_words = ((1 << (2 * q)) + 31) // 32
+    p = min(q, _BUCKET_SYMBOLS)
+    shift = 2 * (q - p)
+    spans = [(s, min(s + chunk, npos)) for s in range(0, npos, chunk)]
+
+    def keys_at(pos):
+        return packed_qgram_keys(words, pos, q)
+
+    def span_pos_keys(s, e):
+        pos = torch.arange(s, e, dtype=torch.int64, device=dev)
+        if n_mask is not None:
+            pos = pos[~packed_has_n(n_mask, pos, q)]
+        return pos, keys_at(pos)
+
+    def run_starts(keys):
+        new = torch.ones(keys.shape, dtype=torch.bool, device=dev)
+        new[1:] = keys[1:] != keys[:-1]
+        return new
+
+    def tally(group_of, n_groups):
+        counts = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+        for s, e in spans:
+            counts += torch.bincount(group_of(span_pos_keys(s, e)[1]),
+                                     minlength=n_groups)
+        return counts.cpu().numpy()
+
+    # groups in key order: a bucket, or each key of a bucket over ``rows``
+    counts = tally(lambda k: k >> shift, 1 << (2 * p))
+    split = (counts > rows) & (shift > 0)
+    width = np.where(split, 1 << shift, 1)
+    g0 = torch.from_numpy(np.cumsum(width) - width).to(dev)
+    split_t = torch.from_numpy(split).to(dev)
+
+    def group_of(k):
+        b = k >> shift
+        return g0[b] + torch.where(split_t[b], k & ((1 << shift) - 1), 0)
+
+    if split.any():
+        counts = tally(group_of, int(width.sum()))
+    start = np.cumsum(counts) - counts
+    over = counts > rows
+    new = np.ones(len(counts), bool)
+    new[1:] = (start[1:] // rows != start[:-1] // rows) | over[1:] | over[:-1]
+    part_of = np.cumsum(new) - 1
+    sizes = np.bincount(part_of, weights=counts).astype(np.int64)
+    one_key = np.zeros(len(sizes), bool)
+    one_key[part_of[over]] = True
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    parts = [(a, b, one) for a, b, one
+             in zip(bounds[:-1], bounds[1:], one_key) if b > a]
+    part_of = torch.from_numpy(part_of.astype(np.int32)).to(dev)
+    rows_total = bounds[-1]
+
+    P = torch.empty(rows_total, dtype=torch.int32, device=dev)
+    cursor = torch.tensor(bounds[:-1], dtype=torch.int64, device=dev)
+    for s, e in spans:
+        pos, keys = span_pos_keys(s, e)
+        part = part_of[group_of(keys)]
+        sp, order = torch.sort(part, stable=True)
+        cnt = torch.bincount(part, minlength=len(sizes))
+        first = torch.cumsum(cnt, 0) - cnt
+        dest = cursor[sp] + torch.arange(len(pos), device=dev) - first[sp]
+        P[dest] = _bits32(pos[order])
+        cursor += cnt
+        del pos, keys, part, sp, order, dest   # freed before the next step
+
+    I = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    S = torch.zeros(n_words + 1, dtype=torch.int32, device=dev)
+    for a, b, one in parts:
+        if one:    # one key, its positions in order
+            uk = keys_at(_u32(P[a:a + 1]))
+        else:
+            pos = _u32(P[a:b])
+            keys, order = torch.sort(keys_at(pos), stable=True)
+            P[a:b] = _bits32(pos[order])
+            uk = keys[run_starts(keys)]
+            del pos, keys, order
+        I.index_add_(0, uk >> 5, _bits32(torch.ones_like(uk) << (uk & 31)))
+        S.index_add_(0, (uk >> 5) + 1,
+                     torch.ones(uk.shape, dtype=torch.int32, device=dev))
+        del uk    # freed before the next step allocates
+
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for a in range(1, n_words + 1, 1 << 24):
+        b = min(a + (1 << 24), n_words + 1)
+        c = torch.cumsum(S[a:b], 0, dtype=torch.int64) + total
+        S[a:b] = _bits32(c)
+        total = c[-1]
+
+    SS = torch.empty(int(total) + 1, dtype=torch.int32, device=dev)
+    u = 0
+    for a, b, one in parts:
+        if one:
+            at = torch.zeros(1, dtype=torch.int64, device=dev)
+        else:
+            at = torch.nonzero(run_starts(keys_at(_u32(P[a:b])))).squeeze(1)
+        SS[u:u + len(at)] = _bits32(at + a)
+        u += len(at)
+    SS[u] = rows_total - ((rows_total & 0x80000000) << 1)
+    return QGroupIndex(q, I, S, SS, P, n)
 
 
 def qgroup_range(index: QGroupIndex, keys: torch.Tensor):
     """Bucket ranges [lo, hi) (int64) for q-gram keys — the reference's
     ``QGroupIndexViewCore::range`` (``qgroup.h:120-136``). Keys are taken
     modulo 2^(2q) in uint32 space, so q = 16 works with packed int32 seed
-    keys that wrap negative."""
+    keys that wrap negative; every table entry is read as uint32."""
     from nvbio_tpu_torch.fmi.rank import popcount32
 
     k = keys.to(torch.int64) & (((1 << (2 * index.q)) - 1) & 0xFFFFFFFF)
     i = k >> 5
     j = k & 31
-    word = index.I[i].to(torch.int64) & 0xFFFFFFFF
+    word = _u32(index.I[i])
     present = ((word >> j) & 1) == 1
-    slot = index.S[i].to(torch.int64) + popcount32(word & ((1 << j) - 1))
+    slot = _u32(index.S[i]) + popcount32(word & ((1 << j) - 1))
     slot = slot.clamp(0, index.SS.shape[0] - 2)
-    lo = torch.where(present, index.SS[slot].to(torch.int64), 0)
-    hi = torch.where(present, index.SS[slot + 1].to(torch.int64), 0)
+    lo = torch.where(present, _u32(index.SS[slot]), 0)
+    hi = torch.where(present, _u32(index.SS[slot + 1]), 0)
     return lo, hi
 
 
 def qgroup_locate(index: QGroupIndex, lo: torch.Tensor, slot: torch.Tensor):
     """Text positions (int64) of hit slots within bucket ranges."""
     idx = (lo + slot).clamp(0, index.P.shape[0] - 1)
-    return index.P[idx].to(torch.int64)
+    return _u32(index.P[idx])
 
 
 def index_range(index, keys: torch.Tensor):

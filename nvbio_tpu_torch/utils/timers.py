@@ -96,20 +96,27 @@ _counters: dict = {}
 def count(name: str, value) -> None:
     """Add ``value`` to the counter ``name`` while a profiler records: a
     host int, or a tensor on its device whose elements are added (a 0-dim
-    count, or a mask of what is counted). A tensor is held as it is, with
-    no device op and no read back (a sum would add ops to the profile),
-    until the counters are read or reset; the caller must not change it in
-    place."""
+    count, or a mask of what is counted), or a function of no arguments
+    that gives one of these from tensors it holds. A tensor or function is
+    held as it is, with no device op and no read back (a sum would add ops
+    to the profile), until the counters are read or reset; the caller must
+    not change what it holds in place."""
     if recording():
         _counters.setdefault(name, []).append(value)
 
 
+def _total(v) -> int:
+    if callable(v):
+        v = v()
+    return int(v.sum()) if isinstance(v, torch.Tensor) else v
+
+
 def counters() -> dict:
     """{name: total} of the counters since the last reset; what a counter
-    holds on a device is summed and read back here (a sync)."""
+    holds on a device is worked out, summed and read back here (a
+    sync)."""
     for name, vals in _counters.items():
-        _counters[name] = [sum(int(v.sum()) if isinstance(v, torch.Tensor)
-                               else v for v in vals)]
+        _counters[name] = [sum(_total(v) for v in vals)]
     return {name: vals[0] for name, vals in _counters.items()}
 
 

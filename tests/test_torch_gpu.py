@@ -1,8 +1,9 @@
 """On a CUDA card: the port's kernels against their plain versions and the
 mappers (single-end, paired-end, local, the full-matrix mate traceback,
 all-mapping, FM-index seeding, randomized hit selection), the FM search,
-the FM index, the blockwise BWT and the BWTE engine built on the card
-against the same on cpu. Imports no
+the FM index, the blockwise BWT, the BWTE engine and the Q-Group index
+built on the card against the same on cpu, and the Q-Group index built on
+the card past 2^31 bases. Imports no
 JAX, so it also runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
@@ -20,7 +21,8 @@ import torch
 
 from nvbio_tpu_torch.align import kernels as K
 from nvbio_tpu_torch.align.types import GotohScoring
-from nvbio_tpu_torch.packed import extract_window, pack, words_to_tensor
+from nvbio_tpu_torch.packed import (extract_window, pack, unpack,
+                                    words_to_tensor)
 from nvbio_tpu_torch.tools.k5_operands import guard_operands
 
 SW = GotohScoring(0, -6, -8, -3, -8, -3)
@@ -1225,3 +1227,117 @@ def test_fm_library_on_cuda_equals_cpu():
     np.testing.assert_array_equal(got, protein.protein_count(pf, pq,
                                                              pl).numpy())
     assert (got >= 1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [8, 12, 16])
+def test_qgroup_card_build_equals_host(q):
+    """The Q-Group index built on the card from the packed genome (whole,
+    and in small chunks and partitions) holds the host build's tables bit
+    for bit."""
+    from nvbio_tpu_torch import qgram
+    from nvbio_tpu_torch.utils.simgenome import repeat_rich_genome
+
+    dev = _card()
+    codes = repeat_rich_genome(1_500_003, seed=q)
+    host = qgram.build_qgroup_index(codes, q)
+    words = words_to_tensor(pack(codes, 2), dev)
+    for kw in ({}, dict(chunk=1 << 18, rows=1 << 16)):
+        card = qgram.build_qgroup_index_device(words, len(codes), q, **kw)
+        for name in ("I", "S", "SS", "P"):
+            assert torch.equal(getattr(card, name).cpu(), getattr(host, name))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [8, 16])
+def test_qgroup_card_build_n_runs_and_large_buckets(q):
+    """On the card, with N runs left out (``n_mask``: at both ends, across
+    a mask word, 200 kbp inside) and a poly-A run and a (CA)n tandem of
+    200 kbp each, larger than a partition: the build holds the host
+    build's tables, its ``n_flags`` leaving out the same q-grams."""
+    from nvbio_tpu_torch import qgram
+    from nvbio_tpu_torch.utils.simgenome import repeat_rich_genome
+
+    dev = _card()
+    codes = repeat_rich_genome(1_500_003, seed=q + 1)
+    codes[100_000:300_000] = 0
+    codes[400_000:600_000:2], codes[400_001:600_000:2] = 1, 0
+    flags = np.zeros(len(codes), bool)
+    for a, b in ((0, 7), (63, 65), (700_000, 900_000),
+                 (len(codes) - 9, len(codes))):
+        flags[a:b] = True
+    codes = np.where(flags, 0, codes).astype(np.uint8)
+    bits = np.zeros(-(-len(codes) // 32) * 32, bool)
+    bits[:len(codes)] = flags
+    mask = np.packbits(bits, bitorder="little").view(np.uint32)
+    host = qgram.build_qgroup_index(codes, q, n_flags=flags)
+    card = qgram.build_qgroup_index_device(
+        words_to_tensor(pack(codes, 2), dev), len(codes), q,
+        n_mask=words_to_tensor(mask, dev), chunk=1 << 18, rows=1 << 16)
+    for name in ("I", "S", "SS", "P"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(host, name))
+
+
+def _plant(words, p: int, kmer) -> None:
+    """Write the symbols ``kmer`` at position ``p`` of packed ``words``."""
+    wi = p >> 4
+    have = words[wi:wi + 2].cpu().numpy().view(np.uint32)
+    sym = unpack(have, 16 * len(have), 2)
+    sym[p & 15:(p & 15) + len(kmer)] = kmer
+    words[wi:wi + len(have)] = torch.from_numpy(
+        pack(sym, 2).view(np.int32)).to(words.device)
+
+
+@pytest.mark.gpu
+def test_qgroup_card_build_past_2_31():
+    """A genome of 2^31 + 2^24 random bases with 16-mers planted past 2^31
+    (one across it): the card build peaks at most 4 GiB over its tables
+    (4 bytes an entry); each planted 16-mer is located at its position;
+    and the whole table is right: its rows are every position once, in
+    (key, position) order, each inside its key's range."""
+    from nvbio_tpu_torch import qgram
+
+    dev = _card()
+    n = 2**31 + 2**24
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    words = torch.randint(-2**31, 2**31, ((n + 15) // 16,),
+                          dtype=torch.int32, device=dev, generator=gen)
+    rng = np.random.default_rng(22)
+    at = [2**31 - 7, 2**31 + 40, 2**31 + 2**23 + 11, n - 16]
+    kmers = rng.integers(0, 4, (len(at), 16)).astype(np.uint8)
+    for p, km in zip(at, kmers):
+        _plant(words, p, km)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    idx = qgram.build_qgroup_index_device(words, n, 16)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    tables = 4 * sum(t.numel() for t in (idx.I, idx.S, idx.SS, idx.P))
+    assert peak <= tables + 4 * 2**30, (peak, tables)
+    npos = n - 15
+    assert idx.P.numel() == npos and idx.P.dtype == torch.int32
+
+    keys = torch.tensor([int(qgram.qgram_keys(km, 16)[0]) for km in kmers],
+                        device=dev)
+    lo, hi = qgram.qgroup_range(idx, keys)
+    for i, p in enumerate(at):
+        rows = torch.arange(int(lo[i]), int(hi[i]), device=dev)
+        pos = qgram.qgroup_locate(idx, rows, 0)
+        assert p in pos.tolist() and len(pos) < 8, (p, pos.tolist(), lo[i], hi[i])
+        assert (qgram.packed_qgram_keys(words, pos, 16) == keys[i]).all()
+
+    step = 1 << 26
+    for a in range(0, npos, step):
+        rows = torch.arange(max(a - 1, 0), min(a + step, npos), device=dev)
+        pos = qgram.qgroup_locate(idx, rows, 0)
+        k = qgram.packed_qgram_keys(words, pos, 16)
+        assert ((pos >= 0) & (pos < npos)).all()
+        assert ((k[1:] > k[:-1])
+                | ((k[1:] == k[:-1]) & (pos[1:] > pos[:-1]))).all()
+        sample = torch.randint(0, len(rows), (1 << 16,), device=dev,
+                               generator=gen)
+        klo, khi = qgram.qgroup_range(idx, k[sample])
+        r = rows[sample]
+        assert ((klo <= r) & (r < khi)).all()

@@ -167,9 +167,27 @@ def test_off_without_a_profiler(mappers, se_batch, monkeypatch):
     assert timers.counters() == {}
 
 
-def test_counters_equal_independent_counts(mappers, se_batch, monkeypatch):
+def _seed_counts(genome, cands, params, phase: int) -> dict:
+    """The seed counters of one pass's exact grid, counted on the host:
+    each valid seed's key occurrences in the genome."""
+    from nvbio_tpu_torch.qgram import qgram_keys, seed_keys_from_batch
+
+    q, H = params.qgram_q, params.hits_per_seed
+    occ = np.bincount(qgram_keys(genome, q), minlength=4 ** q)
+    _, seeds, valid = pipeline.seed_grid(cands["reads"], cands["rc"],
+                                         cands["lens"], params, phase)
+    n = occ[seed_keys_from_batch(seeds, q).numpy()][valid.numpy()]
+    return dict(seed_valid=len(n), seed_slots=H * len(n),
+                seed_hits=int(np.minimum(n, H).sum()),
+                seed_capped=int((n > H).sum()))
+
+
+def test_counters_equal_independent_counts(mappers, se_batch, monkeypatch,
+                                           genome):
     """Each read_candidates call's valid slots and B x C, the reseed
-    queue's B2 rows and the first pass's reads below score_min."""
+    queue's B2 rows, the first pass's reads below score_min, and both
+    passes' seed grids: valid seeds, their slots, the slots that located a
+    position and the seeds with more occurrences than slots."""
     m = mappers["qgram"]
     calls = []
     orig = pipeline.read_candidates
@@ -188,10 +206,16 @@ def test_counters_equal_independent_counts(mappers, se_batch, monkeypatch):
     below = (best < pipeline.score_min_of(first["lens"], m.params)) & \
         (first["lens"] >= m.params.seed_len)
     assert second["reads"].shape[0] == B2
+    P = m.params
+    seeds = _seed_counts(genome, first, P, 0)
+    for k, v in _seed_counts(genome, second, P, P.seed_stride
+                             // (P.max_reseed + 1)).items():
+        seeds[k] += v
     assert got == dict(
         cand_valid=int(first["valid"].sum() + second["valid"].sum()),
         cand_slots=first["valid"].numel() + second["valid"].numel(),
-        reseed_rows=B2, reseed_needed=int(below.sum()))
+        reseed_rows=B2, reseed_needed=int(below.sum()), **seeds)
+    assert 0 < got["seed_hits"] < got["seed_slots"]
     # a quarter of the reads are random and a quarter need the 1-mismatch
     # seeds: more than the queue's 8 rows (the overflow)
     assert got["reseed_needed"] > B2
@@ -262,5 +286,6 @@ def test_map_profile_logs_counters(tmp_path, genome, se_batch, capsys):
                 if "] counters: " in ln)
     got = dict(kv.split("=") for kv in line.split("] counters: ")[1].split())
     assert set(got) == {"cand_valid", "cand_slots", "reseed_rows",
-                        "reseed_needed"}
+                        "reseed_needed", "seed_valid", "seed_slots",
+                        "seed_hits", "seed_capped"}
     assert int(got["reseed_rows"]) == 2 * 8
