@@ -43,14 +43,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4. main path (single-end): a seeded uniform 100 Mbp genome, its q-gram
      index built on the host, ReadMapper.build(...) on cuda, 4 batches of
      32768 reads of 100 bp with 1% substitutions through dispatch +
-     format_batch; launch counters +2 (K1) and +1 (K2) per batch,
+     format_batch; launch counters +2 (K1), +1 (K2) and +3 (the dedup
+     vote) per batch,
      sensitivity (mapped within 2*max_dist of the truth on the right
      strand) >= 0.95;
   5. paired-end path: 2 batches of 32768 FR pairs (fragments 200-500,
      -X 500), 5% with a seedless mate 2; launch counters +2 each for K1,
-     K2 and the packed-window entries of K3 and K4 (the rescue reads its
-     windows from the packed genome) per batch, +0 for their contract
-     forms; per-mate sensitivity >= 0.95, proper share >= 0.90, seedless
+     K2, the dedup vote and the packed-window entries of K3 and K4 (the
+     rescue reads its windows from the packed genome) per batch, +0 for
+     their contract forms; per-mate sensitivity >= 0.95, proper share >= 0.90, seedless
      mates placed >= 0.90; then single-end at max_dist 10 (band 21): 1
      batch of 32768 reads, K1 +2 and K2 +1 through the band-21 libraries,
      sensitivity >= 0.95; and paired-end with 150-base mates and rescue
@@ -66,7 +67,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      [fmi-search]: 8192 seeds of 22 bases through backward search (the table's start), locate of 6 rows each and the
      1-mismatch top-K search on cuda, equal to the same calls on the cpu
      index (no table); ms a call, device ops, a bytes bound for search and
-     locate (32-byte rank rows, 8-byte SSA rows); [fmi]: 2 batches of 32768
+     locate (32-byte rank rows, 8-byte SSA rows); [vote]: the dedup vote's
+     kernel against its plain version at the first pass's and the
+     within-seed vote's shapes (equal, ms, queued, bytes bound); [fmi]: 2
+     batches of 32768
      reads with seeding="fmi" (pass 0 on, the reseed pass's 1-mismatch
      search), K1 +2 and K2 +1 a batch, sensitivity >= 0.95, one batch
      profiled and its FM stage alone (ms, device ops, share of the batch's
@@ -217,7 +221,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      for mate rescue, the full-matrix wavefront over the 531-wide window),
      one batch of 32768 of each of single-end, paired-end (5% seedless
      mates), local, paired-full and --all (the repeat copy) on cuda through
-     the kernel route's phases and sensitivity limits, no kernel launched;
+     the kernel route's phases and sensitivity limits, no kernel launched
+     but the dedup vote's;
      per batch the seconds, device ops and busy ms, peak device memory;
      the reads whose records differ from the kernel route's on the same
      batch (reported: the JAX package's two engines differ by design);
@@ -1195,7 +1200,11 @@ def read_batch(genome, seed):
     return batch, starts, is_rc
 
 
-SE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
+# a single-end batch's kernels: K1 per pass (first and reseed), K2, and the
+# dedup vote three times (the first pass's both strands, the reseed pass's
+# within-seed vote over the 1-mismatch loci and its dedup)
+SE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1,
+               "vote_reps": 3}
 # an FM-seeded single-end batch adds the FM walks' kernels: backward search
 # for pass 1's seeds, pass 0 and the reseed grid's seeds, locate for their
 # hits and the 1-mismatch loci, one top-K search
@@ -1208,7 +1217,7 @@ def phase_main_path(genome, ref, index, params, card, label="main",
                     per_batch=SE_LAUNCHES):
     """``n_batches`` batches of B single-end reads through dispatch +
     format_batch: launch counts (``per_batch``: K1 x2 with the reseed pass,
-    K2 x1 a batch) and sensitivity. The SAM records are appended to
+    K2 x1, the dedup vote x3 a batch) and sensitivity. The SAM records are appended to
     ``records`` where it is given."""
     from nvbio_tpu_torch.bowtie.pipeline import ReadMapper
 
@@ -1301,7 +1310,7 @@ def wrappers():
             K.myers_semiglobal, K.banded_traceback_wide,
             K.regtile_score_blocked, K.banded_score_windows,
             K.myers_semiglobal_windows, K.fm_backward_search, K.fm_locate,
-            K.fm_search_1mm_topk)
+            K.fm_search_1mm_topk, K.vote_reps)
 
 
 def reset_launches():
@@ -1348,9 +1357,11 @@ def placed(rec, start, rc, max_dist) -> bool:
 
 
 # a paired-end batch's kernels: K1 per mate, the rescue (K4 and K3 through
-# their packed-window entries, one per mate each), K2 per mate
+# their packed-window entries, one per mate each), K2 per mate, the dedup
+# vote per mate (no reseed pass)
 PE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 2,
-               "banded_score_windows": 2, "myers_semiglobal_windows": 2}
+               "banded_score_windows": 2, "myers_semiglobal_windows": 2,
+               "vote_reps": 2}
 # FM-seeded pairs add each mate's seed and pass-0 searches and locates (no
 # reseed pass)
 FM_PE_LAUNCHES = {**PE_LAUNCHES, "fm_backward_search": 4, "fm_locate": 4}
@@ -1524,7 +1535,9 @@ def by_read(recs):
     return out
 
 
-ALL_LAUNCHES = {"banded_score_cands": 1, "banded_traceback": 1}
+# --all: one pass (no reseed), so one vote
+ALL_LAUNCHES = {"banded_score_cands": 1, "banded_traceback": 1,
+                "vote_reps": 1}
 
 
 def phase_all(genome, mapper, card, label="all", per_batch=ALL_LAUNCHES,
@@ -1606,7 +1619,8 @@ def phase_paired_all(genome, mapper, card):
           f"records ({n_sec / (2 * B):.4f} per read); launches {launches}; "
           f"card {card}", flush=True)
     require_launches("paired-all", launches, {"banded_score_cands": 2,
-                                              "banded_traceback": 2}, 1)
+                                              "banded_traceback": 2,
+                                              "vote_reps": 2}, 1)
     require(sens >= 0.95, f"paired --all primaries placed {sens:.4f} < 0.95")
     require(n_sec > 0, "paired --all wrote no secondary record on the "
                        "repeats")
@@ -2434,6 +2448,72 @@ def phase_fm_kernels(genome, gpu_index, params, card, regs) -> dict:
     return out
 
 
+def phase_vote(card, regs) -> dict:
+    """[vote]: the dedup vote's kernel (``csrc/vote_reps.cu``) against its
+    plain version on the card at the mapper's shapes (first pass q-gram
+    and FM, both strands; the reseed pass's within-seed vote, FM and q =
+    16), on clustered positions past 2^31
+    (``tools/vote_operands.path_operands``): equal bit
+    for bit, one launch a call, CUDA-event medians of 7 single calls and
+    per call of 10 queued, the plain version's, the rounds the rows played
+    against the plain rounds, ptxas's registers, and the bound: the bytes
+    in and out (9 a candidate, 9 a rep) over the HBM rate."""
+    from nvbio_tpu_torch.align import kernels as K
+    from nvbio_tpu_torch.bowtie.pipeline import _vote_reps
+    from nvbio_tpu_torch.tools.vote_operands import (PATH_SHAPES, TOL,
+                                                     path_operands)
+    from nvbio_tpu_torch.utils import timers
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, rows, n, n_reps, fill in PATH_SHAPES:
+        pv, valid = path_operands(rows, n, fill, SEED + n, "cuda")
+
+        def run(pv=pv, valid=valid, n_reps=n_reps):
+            return K.vote_reps(pv, valid, TOL, n_reps)
+
+        def plain(pv=pv, valid=valid, n_reps=n_reps):
+            return K.vote_reps_plain(pv, valid, TOL, n_reps)
+
+        n0 = K.vote_reps.launches
+        got = run()
+        launches = K.vote_reps.launches - n0
+        want = plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        require(same, f"vote: {name}: kernel and plain version differ")
+        require(launches == 1, f"vote: {name}: {launches} launches")
+        del got, want
+        ms = cuda_ms(run)
+        queued = cuda_ms_queued(run)
+        plain_ms = cuda_ms(plain, reps=3)
+        timers.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            _vote_reps(pv, valid, TOL, n_reps)
+        c = timers.counters()
+        timers.reset_counters()
+        nbytes = 9 * rows * (n + n_reps)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        inst = f"vote_reps_kernel<{-(-n // 32)}>"
+        r, spill = regs.get(inst, (None, None))
+        pct = 100.0 * c["vote_rounds"] / c["vote_rounds_fixed"]
+        out[name] = dict(rows=rows, n=n, n_reps=n_reps, fill=fill, ms=ms,
+                         queued_ms=queued, plain_ms=plain_ms, bound_ms=bound,
+                         bound_bytes=nbytes, launches=launches,
+                         round_pct=pct, registers=r, spill_bytes=spill,
+                         equal=same)
+        print(f"[vote] {name}: {rows} rows of {n} for {n_reps} reps "
+              f"({fill:.0%} valid), kernel {ms:.3f} ms (queued {queued:.3f}), "
+              f"plain {plain_ms:.3f} ms; equal bit for bit; {launches} "
+              f"launch; rounds played {pct:.2f}% of the plain's; bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{100.0 * bound / queued:.1f}% of the queued time); {inst}: "
+              f"{r} regs, {spill} B spill; card {card}", flush=True)
+        del pv, valid
+        torch.cuda.empty_cache()
+    return out
+
+
 def fm_stage(mapper, batch):
     """The FM seeding work of one single-end batch, alone: seeds of both
     strands searched and H rows each located, pass 0 (whole reads), and
@@ -2516,7 +2596,7 @@ CLI_FLAGS = ("--batch", str(B), "--max-read-len", str(L), "--hits-per-seed",
 CLI_GPU_ARGS: tuple = ()
 # the gauge probe (one single-end dispatch of zero-length reads) before each
 # run's batches
-PROBE_LAUNCHES = {"banded_score_cands": 2, "banded_traceback": 1}
+PROBE_LAUNCHES = SE_LAUNCHES
 
 
 def run_cli(argv, command="map") -> tuple[float, str]:
@@ -2640,8 +2720,7 @@ def phase_cli(genome, mapper, card):
                             p("se.dbg"), "--mapq-filter",
                             str(CLI_MAPQ_FILTER), *CLI_FLAGS, *CLI_GPU_ARGS])
     se_launches = read_launches()
-    cli_launches("cli single-end", se_launches,
-                 {"banded_score_cands": 2, "banded_traceback": 1},
+    cli_launches("cli single-end", se_launches, SE_LAUNCHES,
                  N_CLI_SE_BATCHES)
     t0 = time.time()
     _, recs = read_bam(p("se.bam"))
@@ -2994,8 +3073,7 @@ def phase_cli_index(genome, fm_host, card) -> dict:
         secs, log = run_cli([p("k"), p("q.fq"), "-o", p(f"q_{run}.sam"),
                              *CLI_FLAGS, "--batch", str(N_CMP), *dev_args])
         if run == "card":
-            cli_launches("cli qgroup", read_launches(),
-                         {"banded_score_cands": 2, "banded_traceback": 1}, 1)
+            cli_launches("cli qgroup", read_launches(), SE_LAUNCHES, 1)
         with open(p(f"q_{run}.sam")) as f:
             sam[run] = ([ln for ln in f if not ln.startswith("@PG")], secs)
     (g, g_s), (c, c_s) = sam["card"], sam["host"]
@@ -4148,7 +4226,8 @@ def phase_scan(genome, rep_genome, ref, rep_ref, index, rep_index, kernel,
     mates, rescued by the full-matrix wavefront over the maxins + band =
     531 window), local, paired-full and --all (the repeat copy) with
     extension="scan" on cuda, through the phases of the kernel route with
-    its sensitivity limits and no kernel launched; per batch the seconds,
+    its sensitivity limits and no kernel launched but the dedup vote's
+    (``vote_reps``, as on the kernel route); per batch the seconds,
     torch ops (``torch_ops``) and peak device memory of one more dispatch;
     the reads whose records differ from the kernel route's on the same
     batch (``kernel``: the records of each path's first batch, the same
@@ -4169,6 +4248,12 @@ def phase_scan(genome, rep_genome, ref, rep_ref, index, rep_index, kernel,
     cpu_index, cpu_rep = index.to("cpu"), rep_index.to("cpu")
     full = dataclasses.replace(params, pe_full_traceback=True)
     out = {}
+    # the only kernel the scan route launches: the dedup vote, as many
+    # times a batch as the kernel route
+    votes = {path: {"vote_reps": launches["vote_reps"]} for path, launches in
+             (("se", SE_LAUNCHES), ("pe", PE_LAUNCHES),
+              ("local", SE_LAUNCHES), ("paired-full", PE_LAUNCHES),
+              ("all", ALL_LAUNCHES))}
     for path in ("se", "pe", "local", "paired-full", "all"):
         label = f"scan-{path}"
         recs = []
@@ -4176,33 +4261,37 @@ def phase_scan(genome, rep_genome, ref, rep_ref, index, rep_index, kernel,
         if path == "se":
             gm, batch, _, stats = phase_main_path(
                 genome, ref, index, scan(params), card, label=label,
-                n_batches=1, records=recs, per_batch={})
+                n_batches=1, records=recs, per_batch=votes[path])
             cm = build(ref, params, cpu_index, "cpu")
             inputs = (batch,)
         elif path == "pe":
             gm = build(ref, params, index, "cuda")
             pair, _, stats = phase_paired(genome, gm, card, label=label,
-                                          n_batches=1, per_batch={},
+                                          n_batches=1,
+                                          per_batch=votes[path],
                                           records=recs)
             cm = build(ref, params, cpu_index, "cpu")
             inputs = tuple(pair)
         elif path == "local":
             gm = build(ref, local_params, index, "cuda")
             batch, _, stats = phase_local(genome, gm, card, label=label,
-                                          n_batches=1, per_batch={},
+                                          n_batches=1,
+                                          per_batch=votes[path],
                                           records=recs)
             cm = build(ref, local_params, cpu_index, "cpu")
             inputs = (batch,)
         elif path == "paired-full":
             gm = build(ref, full, index, "cuda")
             pair, _, stats = phase_paired_full(genome, gm, label, SEED + 600,
-                                               {}, card, records=recs)
+                                               votes[path], card,
+                                               records=recs)
             cm = build(ref, full, cpu_index, "cpu")
             inputs = tuple(pair)
         else:
             gm = build(rep_ref, params, rep_index, "cuda")
             batch, _, stats = phase_all(rep_genome, gm, card, label=label,
-                                        per_batch={}, records=recs)
+                                        per_batch=votes[path],
+                                        records=recs)
             cm = build(rep_ref, params, cpu_rep, "cpu")
             inputs = (batch,)
         dispatch, mapped = {
@@ -4905,6 +4994,8 @@ def main() -> int:
     stamp("fm_kernels")
     fm_search["kernels"] = phase_fm_kernels(genome, fm_gpu, fm_params, card,
                                             regs)
+    stamp("vote")
+    vote_stats = phase_vote(card, regs)
     stamp("fmi")
     gpu_fm, fm_batch0, fm_launches, fm_stats = phase_fmi(
         genome, ref, fm_gpu, fm_params, card)
@@ -5127,6 +5218,7 @@ def main() -> int:
                       "paired_full_local": pfl_stats, "all": all_stats,
                       "paired_all": pa_stats, "gcups": gcups,
                       "fmi": fm_stats, "paired_fmi": pfm_stats,
+                      "vote": vote_stats,
                       "index_device": index_device,
                       "blockwise": blockwise, "setbwt": setbwt,
                       "randomized": rand_stats, "mem": mem_stats,

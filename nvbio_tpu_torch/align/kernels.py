@@ -23,6 +23,9 @@ packed genome (``myers_semiglobal_windows``, ``banded_score_windows``).
 holds the FM-index walks, launched by ``fm_backward_search``,
 ``fm_locate`` and ``fm_search_1mm_topk`` for CUDA tensors only: their
 plain versions, and the routing to them, are ``fmi/search.py``'s.
+``vote_reps.cu`` (no TPU kernel either: the JAX package's dedup vote is
+jnp) holds the mapper's dedup vote, launched by ``vote_reps``, one warp a
+row.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current stream, raises if
@@ -68,6 +71,7 @@ _SOURCES = {
     "banded_traceback_wide": "banded_traceback_wide.cu",
     "regtile_score_blocked": "regtile_score_blocked.cu",
     "fm_search": "fm_search.cu",
+    "vote_reps": "vote_reps.cu",
 }
 # the sources compiled once for each band
 _BANDED = ("banded_score_cands", "banded_traceback", "banded_score",
@@ -189,6 +193,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P, I, P, I, L, P, L, P, L, L, I, I] + [P] * 7
         lib.nvbt_fm_backward_search.restype = ctypes.c_int
         lib.nvbt_fm_locate.restype = ctypes.c_int
+    elif name == "vote_reps":
+        fn = lib.nvbt_vote_reps
+        fn.argtypes = [P, P, L, I, L, I] + [P] * 4
     else:
         fn = lib.nvbt_myers_semiglobal
         fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4
@@ -1506,3 +1513,94 @@ def fm_search_1mm_topk(queries, qlens, rank_rows, count, primary: int,
 
 
 fm_search_1mm_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The dedup vote (no TPU kernel: the JAX package's dedup_half is jnp)
+# ---------------------------------------------------------------------------
+
+# the largest row the kernel takes: rows past 256 columns keep 12 bytes a
+# column, in whole warps of 32, in the 227 KB of shared memory a block may
+# take on an H100
+VOTE_MAX_COLS = 232448 // (32 * 12) * 32
+# "no position": larger than any genome position plus tolerance
+_BIG = torch.iinfo(torch.int64).max
+
+
+def vote_reps(pv, valid, tol: int, n_reps: int, rounds=None):
+    """Evidence-ranked locus tournament over each row of (R, n) candidates
+    (``vote_reps_plain``'s contract and results, bit for bit): pv (R, n)
+    int64 positions, valid (R, n) bool, both contiguous. Returns (reps
+    (R, n_reps) int64, rep_valid (R, n_reps) bool). CUDA tensors: one
+    launch of ``csrc/vote_reps.cu`` (rows of at most ``VOTE_MAX_COLS``
+    columns); ``rounds`` ((R,) int32 or None) receives the rounds each row
+    played before it left. CPU tensors: the plain version (no
+    ``rounds``)."""
+    if pv.device.type == "cpu":
+        if rounds is not None:
+            raise ValueError("vote_reps: rounds are counted on cuda only")
+        return vote_reps_plain(pv, valid, tol, n_reps)
+    dev = pv.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if pv.dim() != 2:
+        raise ValueError(f"vote_reps: pv must be (R, n), got "
+                         f"{tuple(pv.shape)}")
+    R, n = pv.shape
+    _check(pv, "pv", torch.int64, (R, n), dev)
+    _check(valid, "valid", torch.bool, (R, n), dev)
+    if not 1 <= n <= VOTE_MAX_COLS:
+        raise ValueError(f"vote_reps: {n} candidates a row; the kernel "
+                         f"holds 1 to {VOTE_MAX_COLS} (a row past 256 "
+                         f"keeps 12 bytes a candidate in shared memory)")
+    if n_reps < 1 or R >= 2**31:
+        raise ValueError(f"vote_reps: n_reps {n_reps} (>= 1) or {R} rows "
+                         f"(< 2^31) out of range")
+    if rounds is not None:
+        _check(rounds, "rounds", torch.int32, (R,), dev)
+    reps = torch.empty((R, n_reps), dtype=torch.int64, device=dev)
+    rep_valid = torch.empty((R, n_reps), dtype=torch.bool, device=dev)
+    if R:
+        rc = _lib("vote_reps").nvbt_vote_reps(
+            pv.data_ptr(), valid.data_ptr(), R, n, tol, n_reps,
+            reps.data_ptr(), rep_valid.data_ptr(),
+            None if rounds is None else rounds.data_ptr(), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"vote_reps: kernel launch failed with CUDA "
+                               f"error {rc}")
+        vote_reps.launches += 1
+    return reps, rep_valid
+
+
+vote_reps.launches = 0
+
+
+def _absdiff(a, b):
+    return torch.maximum(a, b) - torch.minimum(a, b)
+
+
+def vote_reps_plain(pv, valid, tol: int, n_reps: int):
+    """Evidence-ranked locus tournament over the last axis.
+
+    Each candidate's vote is the number of valid candidates within ``tol``;
+    each round picks the (max votes, leftmost) cluster, emits its leftmost
+    member and retires its members. Returns (reps, rep_valid) with a new
+    last axis of ``n_reps``; missing reps are 0 / False."""
+    pv = torch.where(valid, pv, _BIG)
+    near = (_absdiff(pv[..., :, None], pv[..., None, :]) <= tol) & \
+        valid[..., None, :]
+    votes = torch.where(valid, near.sum(dim=-1, dtype=torch.int32), -1)
+    reps, valids = [], []
+    for _ in range(n_reps):
+        m_v = votes.max(dim=-1).values
+        any_v = m_v > 0
+        picked = votes == m_v[..., None]
+        sel = torch.where(picked, pv, _BIG).min(dim=-1).values
+        members = (_absdiff(pv, sel[..., None]) <= tol) & (votes >= 0)
+        rep = torch.where(members, pv, _BIG).min(dim=-1).values
+        reps.append(torch.where(any_v, rep, _BIG))
+        valids.append(any_v)
+        votes = torch.where(members, -1, votes)
+    rep = torch.stack(reps, dim=-1)
+    rep_valid = torch.stack(valids, dim=-1) & (rep < _BIG)
+    return torch.where(rep_valid, rep, 0), rep_valid

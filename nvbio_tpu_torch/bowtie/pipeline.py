@@ -6,22 +6,24 @@ Port of ``nvbio_tpu.bowtie.pipeline``
 :714, ``align_batch_core`` :809, ``ReadMapper`` :926). Every stage is
 fixed-shape tensor code on the mapper's device, apart from the hand
 kernels: candidate scoring (``align.kernels.banded_score_cands``, twice per
-batch: first pass and reseed pass; LOCAL in local mode) and the fused
+batch: first pass and reseed pass; LOCAL in local mode), the fused
 traceback
 (``align.kernels.banded_traceback``, once per batch, LOCAL in local mode;
 its wide form ``banded_traceback_wide`` for the full-matrix mate traceback
-of ``finalize_best(..., full_matrix=True)``). All-mapping (``--all``,
-``align_batch_all``) scores once, with no reseed pass, and traces every
-candidate in one flattened call. That is the kernel route, the JAX
-package's kernel path, which ``extension="pallas"`` and ``"auto"`` (the
+of ``finalize_best(..., full_matrix=True)``) and the dedup vote
+(``align.kernels.vote_reps``: both strands of a pass in one launch, and the
+reseed pass's within-seed vote over the 1-mismatch loci of each seed).
+All-mapping (``--all``, ``align_batch_all``) scores once, with no reseed pass,
+and traces every candidate in one flattened call. That is the kernel route, the
+JAX package's kernel path, which ``extension="pallas"`` and ``"auto"`` (the
 default) take; where it sends local candidates to its flat scorer over
 extracted windows (``pipeline.py:573-581``), the port computes the same
-function in the candidate kernel, straight from the packed genome. Any
-other ``extension`` (``"scan"``) takes the scan route, the JAX package's
-engine off the accelerator: the aligner library's ``batch_score_banded``
-over the B*C extracted windows, its ``batch_traceback_banded`` (or
-``batch_traceback_full_scan``) and ``_md_pack_entries``, all plain torch
-ops on the mapper's device, ops in forward order (``use_pallas_extension``).
+function in the candidate kernel, straight from the packed genome. Any other
+``extension`` (``"scan"``) takes the scan route, the JAX package's engine off
+the accelerator: the aligner library's ``batch_score_banded`` over the B*C
+extracted windows, its ``batch_traceback_banded`` (or
+``batch_traceback_full_scan``) and ``_md_pack_entries``, all plain torch ops on
+the mapper's device, ops in forward order (``use_pallas_extension``).
 
 Seeding is by a q-gram index (the direct-address ``QGramIndex`` or the
 two-level ``QGroupIndex``) or, under ``seeding="fmi"``, by the FM index
@@ -32,8 +34,9 @@ sampled suffix array, the whole-read exact pass 0, and the approx-hybrid
 by stratified slots or, under ``select_mode="randomized"``, by the SumTree
 draws of ``_sumtree_select`` (``threefry.py`` gives ``jax.random``'s
 bits). Positions are int64 throughout, so the JAX package's clip-at-zero
-uint32 helpers become plain clamps, and its dtype-max sentinels become one
-int64 constant ``_BIG`` compared by value.
+uint32 helpers become plain clamps, and its dtype-max sentinel in the dedup
+vote becomes one int64 constant compared by value
+(``align.kernels.vote_reps_plain``).
 
 The sharded indexes seed through branches of their own
 (``pipeline.py:262-296`` and ``:384-409`` of the JAX package), inside a
@@ -57,7 +60,8 @@ import torch
 
 from nvbio_tpu_torch import packed, sumtree, threefry
 from nvbio_tpu_torch.align.batch import batch_score_banded
-from nvbio_tpu_torch.align.kernels import banded_score_cands
+from nvbio_tpu_torch.align.kernels import (_absdiff, banded_score_cands,
+                                          vote_reps)
 from nvbio_tpu_torch.align.traceback import (
     batch_traceback_banded,
     batch_traceback_banded_fast,
@@ -114,10 +118,7 @@ from nvbio_tpu_torch.qgram import (
     stratified_locate_rows,
     stratified_offsets,
 )
-from nvbio_tpu_torch.utils.timers import count, span
-
-# "no position" sentinel: larger than any genome position plus tolerance
-_BIG = torch.iinfo(torch.int64).max
+from nvbio_tpu_torch.utils.timers import count, recording, span
 
 # what read_candidates seeds from (the sharded two placed on a mesh)
 SeedIndex = (QGramIndex | QGroupIndex | FMIndex | ShardedQGramIndex
@@ -267,35 +268,21 @@ def score_min_of(lens, params: MapParams):
                       + params.score_min_coeff * x).to(torch.int32)
 
 
-def _absdiff(a, b):
-    return torch.maximum(a, b) - torch.minimum(a, b)
-
-
 def _vote_reps(pv, valid, tol: int, n_reps: int):
-    """Evidence-ranked locus tournament over the last axis.
-
-    Each candidate's vote is the number of valid candidates within ``tol``;
-    each round picks the (max votes, leftmost) cluster, emits its leftmost
-    member and retires its members. Returns (reps, rep_valid) with a new
-    last axis of ``n_reps``; missing reps are 0 / False."""
-    pv = torch.where(valid, pv, _BIG)
-    near = (_absdiff(pv[..., :, None], pv[..., None, :]) <= tol) & \
-        valid[..., None, :]
-    votes = torch.where(valid, near.sum(dim=-1, dtype=torch.int32), -1)
-    reps, valids = [], []
-    for _ in range(n_reps):
-        m_v = votes.max(dim=-1).values
-        any_v = m_v > 0
-        picked = votes == m_v[..., None]
-        sel = torch.where(picked, pv, _BIG).min(dim=-1).values
-        members = (_absdiff(pv, sel[..., None]) <= tol) & (votes >= 0)
-        rep = torch.where(members, pv, _BIG).min(dim=-1).values
-        reps.append(torch.where(any_v, rep, _BIG))
-        valids.append(any_v)
-        votes = torch.where(members, -1, votes)
-    rep = torch.stack(reps, dim=-1)
-    rep_valid = torch.stack(valids, dim=-1) & (rep < _BIG)
-    return torch.where(rep_valid, rep, 0), rep_valid
+    """The dedup vote over each row of (R, n) candidates,
+    ``align.kernels.vote_reps``: one launch of its kernel for CUDA tensors,
+    its plain version for CPU tensors. While a profiler records, a launch
+    also writes the rounds each row played, held as the counter
+    ``vote_rounds`` beside ``vote_rounds_fixed``, the plain version's R x
+    n_reps rounds."""
+    rounds = None
+    if pv.is_cuda and recording():
+        rounds = torch.empty(pv.shape[0], dtype=torch.int32,
+                             device=pv.device)
+        count("vote_rounds", rounds)
+        count("vote_rounds_fixed", pv.shape[0] * n_reps)
+    return vote_reps(pv.contiguous(), valid.contiguous(), tol, n_reps,
+                     rounds)
 
 
 def reverse_strand(reads, lens):
@@ -574,7 +561,12 @@ def _seed_loci(index: SeedIndex, n_genome: int, reads, rc, lens,
         # a within-seed vote keeps the two best-supported loci
         valid1 = nonempty & seed_valid2[:, :, None]
         NK = 2
-        pos_extra, valid_extra = _vote_reps(pos1, valid1, 2 * P.max_dist, NK)
+        NS, N1 = pos1.shape[1], pos1.shape[2]
+        pos_extra, valid_extra = _vote_reps(
+            pos1.reshape(B * NS, N1), valid1.reshape(B * NS, N1),
+            2 * P.max_dist, NK)
+        pos_extra = pos_extra.reshape(B, NS, NK)
+        valid_extra = valid_extra.reshape(B, NS, NK)
         pos = torch.cat([pos, pos_extra], dim=-1)
         hit_valid = torch.cat([hit_valid, valid_extra], dim=-1)
         sel_off = _append_offsets(sel_off, starts, NK)
@@ -639,13 +631,14 @@ def read_candidates(index: SeedIndex, genome_words,
     NCH = min(P.nch, CH)
     tol = 2 * P.max_dist
     with span("vote"):
-        w0f, validf = _vote_reps(w0[:, :CH], cand_valid_all[:, :CH], tol,
-                                 NCH)
-        w0r, validr = _vote_reps(w0[:, CH:], cand_valid_all[:, CH:], tol,
-                                 NCH)
+        # both strands in one call: the (B, 2CH) rows as (2B, CH), forward
+        # strand first, so the (2B, NCH) result is the (B, 2NCH) one
+        w0, cand_valid = _vote_reps(w0.reshape(2 * B, CH),
+                                    cand_valid_all.reshape(2 * B, CH), tol,
+                                    NCH)
     C = 2 * NCH
-    w0 = torch.cat([w0f, w0r], dim=1).contiguous()           # (B, C) int64
-    cand_valid = torch.cat([validf, validr], dim=1)
+    w0 = w0.reshape(B, C)                                     # (B, C) int64
+    cand_valid = cand_valid.reshape(B, C)
     cand_strand = (torch.arange(C, device=dev) >= NCH)[None, :].expand(B, C)
     # of the B x C slots that the scorer below fills, those that hold a
     # candidate

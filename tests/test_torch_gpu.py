@@ -3,7 +3,8 @@ mappers (single-end, paired-end, local, the full-matrix mate traceback,
 all-mapping, FM-index seeding, randomized hit selection), the FM search,
 the FM index, the blockwise BWT, the BWTE engine and the Q-Group index
 built on the card against the same on cpu, and the Q-Group index built on
-the card past 2^31 bases. Imports no
+the card past 2^31 bases, and the dedup vote's kernel against its plain
+version. Imports no
 JAX, so it also runs where only torch is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
@@ -1341,3 +1342,122 @@ def test_qgroup_card_build_past_2_31():
         klo, khi = qgram.qgroup_range(idx, k[sample])
         r = rows[sample]
         assert ((klo <= r) & (r < khi)).all()
+
+
+# the dedup vote's card shapes: (n, n_reps) of the mapper's calls, then the
+# edges (whole warps of 32, the shared-memory route past 256 columns, past
+# 48 KB of it, and the largest row the kernel takes)
+VOTE_PATH = [(36, 8), (54, 8), (8, 2), (36, 2), (48, 2)]
+VOTE_EDGES = [(1, 1), (1, 2), (31, 8), (32, 8), (33, 8), (64, 8), (65, 8),
+              (256, 8), (257, 8), (300, 8), (5000, 8)]
+
+
+def _vote_equal(pv, valid, tol, n_reps):
+    n0 = K.vote_reps.launches
+    got = K.vote_reps(pv, valid, tol, n_reps)
+    assert K.vote_reps.launches == n0 + 1
+    want = K.vote_reps_plain(pv, valid, tol, n_reps)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_reps", VOTE_PATH + VOTE_EDGES)
+def test_vote_kernel_equals_plain(n, n_reps):
+    """``csrc/vote_reps.cu`` against ``vote_reps_plain`` on the card, bit
+    for bit: the edge rows of ``tools/vote_operands.edge_rows`` (all
+    invalid, neighbours tol and tol + 1 apart, a member left of sel, ties,
+    fewer clusters than reps, a cluster of 40, positions past 2^31) and
+    clustered rows past 2^31 (4096; 8 at 5000 columns), at tol 30 and 0;
+    one launch a call; the rounds counter while a profiler records, at most
+    the plain rounds."""
+    dev = _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvbio_tpu_torch.bowtie import pipeline
+    from nvbio_tpu_torch.tools.vote_operands import (TOL, edge_rows,
+                                                     path_operands)
+    from nvbio_tpu_torch.utils import timers
+
+    pv, valid, _ = edge_rows(n)
+    pv, valid = pv.to(dev), valid.to(dev)
+    for tol in (TOL, 0):
+        _vote_equal(pv, valid, tol, n_reps)
+    rows = 4096 if n <= 300 else 8
+    for fill in (0.1, 0.9):
+        pv, valid = path_operands(rows, n, fill, n + n_reps, dev)
+        reps, ok = _vote_equal(pv, valid, TOL, n_reps)
+        assert bool((reps[ok] >= 2**31).any())
+    timers.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pipeline._vote_reps(pv, valid, TOL, n_reps)
+    c = timers.counters()
+    timers.reset_counters()
+    assert c["vote_rounds_fixed"] == rows * n_reps
+    assert 0 < c["vote_rounds"] <= c["vote_rounds_fixed"]
+
+
+@pytest.mark.gpu
+def test_vote_kernel_at_its_largest_row():
+    """The largest row the kernel holds (``K.VOTE_MAX_COLS`` columns, its
+    shared memory near 227 KB) equals the plain version; one more column
+    is refused with the limit in the message."""
+    dev = _card()
+    from nvbio_tpu_torch.tools.vote_operands import TOL, path_operands
+
+    n = K.VOTE_MAX_COLS
+    pv, valid = path_operands(2, n, 0.5, 7, dev)
+    _vote_equal(pv, valid, TOL, 8)
+    pv, valid = path_operands(2, n + 1, 0.5, 7, dev)
+    with pytest.raises(ValueError, match=str(n)):
+        K.vote_reps(pv, valid, TOL, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seeding", ["qgram", "fmi"])
+def test_read_candidates_vote_kernel_equals_plain_route(seeding,
+                                                        monkeypatch):
+    """One reseed-pass ``read_candidates`` call on the card (its
+    within-seed vote over the 1-mismatch loci, then both strands' dedup):
+    two vote launches, and every output equal to the same call with the
+    vote's plain version in the kernel's place."""
+    dev = _card()
+    from nvbio_tpu_torch.bowtie import pipeline
+    from nvbio_tpu_torch.bowtie.params import MapParams
+    from nvbio_tpu_torch.io.fastq import ReadBatch
+    from nvbio_tpu_torch.io.reference import Reference
+    from nvbio_tpu_torch.utils.simgenome import sample_reads
+
+    rng = np.random.default_rng(23)
+    genome = rng.integers(0, 4, size=400_000, dtype=np.uint8)
+    genome[200_000:260_000] = genome[:60_000]
+    ref = Reference(["g"], np.array([0, len(genome)], np.int64), genome,
+                    np.zeros(0, np.uint32))
+    prm = MapParams(max_read_len=150, hits_per_seed=4, seeding=seeding)
+    mapper = pipeline.ReadMapper.build(ref, prm, device=dev)
+    reads, _, _ = sample_reads(genome, 1024, 150, seed=24, subst_rate=0.03)
+    batch = ReadBatch([f"r{i}" for i in range(1024)], reads.astype(np.uint8),
+                      rng.integers(5, 41, size=reads.shape).astype(np.uint8),
+                      np.full(1024, 150, np.int32))
+    codes, lens, quals = mapper.batch_tensors(batch)
+
+    def cands():
+        return pipeline.read_candidates(
+            mapper.index, mapper.genome_words, mapper.n_genome, codes, lens,
+            quals, prm, seed_phase=7, approx_1mm=True)
+
+    n0 = K.vote_reps.launches
+    got = cands()
+    assert K.vote_reps.launches == n0 + 2
+    monkeypatch.setattr(pipeline, "vote_reps",
+                        lambda pv, valid, tol, n_reps, rounds=None:
+                        K.vote_reps_plain(pv, valid, tol, n_reps))
+    want = cands()
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for k in got:
+        assert (got[k] is None and want[k] is None) or \
+            torch.equal(got[k], want[k]), k
+    assert bool(got["valid"].any())
